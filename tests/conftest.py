@@ -18,6 +18,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy end-to-end case, excluded unless --runslow")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
