@@ -341,7 +341,7 @@ def main() -> int:
     refs = [host_reference(rows, cols, vals64, m, x, a, b, y)
             for x, a, b, y, _ in reqs]
     say(f"[phase2] fp64 host references in {time.perf_counter() - t:.1f} s")
-    svc = SpMVService(reg, max_bucket=16)
+    svc = SpMVService(reg, max_bucket=16, device="cuda")
     launches = {}
     rps = {}
     for run, drive in (("sync", serve_sync), ("pipelined", serve_pipelined)):

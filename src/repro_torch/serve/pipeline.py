@@ -226,6 +226,16 @@ class _Launched:
 _TakeResult = tuple  # (ready_reqs, n_taken, n_deferred)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Equal devices, reading a CUDA device without an index as the
+    current one."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return a.type == b.type and (a.type != "cuda" or norm(a) == norm(b))
+
+
 class SpMVPipeline:
     """Admission → coalesce → dispatch → collect over registry matrices.
 
@@ -239,9 +249,9 @@ class SpMVPipeline:
 
     Usage::
 
-        reg = MatrixRegistry()
+        reg = MatrixRegistry(device="cuda")
         mid = reg.put(rows, cols, vals, shape)
-        svc = SpMVPipeline(reg, max_bucket=16,
+        svc = SpMVPipeline(reg, max_bucket=16, device="cuda",
                            admission=AdmissionConfig("shed-oldest",
                                                      max_pending=256))
         with svc:                       # start()/stop() the stage threads
@@ -254,7 +264,7 @@ class SpMVPipeline:
                  max_stored_results: int = 4096,
                  metrics: MetricsRegistry | None = None,
                  admission: AdmissionConfig | str | None = None,
-                 inflight_depth: int = 1):
+                 inflight_depth: int = 1, *, device=None):
         if max_bucket < 1 or max_bucket & (max_bucket - 1):
             raise ValueError("max_bucket must be a power of two >= 1")
         if max_stored_results < 1:
@@ -265,6 +275,13 @@ class SpMVPipeline:
             admission = AdmissionConfig()
         elif isinstance(admission, str):
             admission = AdmissionConfig(policy=admission)
+        # The service runs where its registry binds: CUDA unless the caller
+        # asks for the CPU, and a device that differs from the registry's
+        # raises rather than serving from somewhere else.
+        self.device = kops.resolve_device(device)
+        if not _same_device(self.device, registry.device):
+            raise ValueError(f"service on {self.device}, but the registry "
+                             f"binds on {registry.device}")
         self.registry = registry
         self.max_bucket = max_bucket
         self.admission = admission
@@ -376,8 +393,8 @@ class SpMVPipeline:
             if self._running:
                 return self
             self._running = True
-        if self.registry.device.type == "cuda" and self._stream is None:
-            self._stream = torch.cuda.Stream(self.registry.device)
+        if self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
         self._stop.clear()
         self._dispatcher_t = threading.Thread(
             target=self._dispatcher_loop, name="spmv-dispatch", daemon=True)

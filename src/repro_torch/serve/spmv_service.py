@@ -36,9 +36,9 @@ class SpMVService(SpMVPipeline):
 
     Usage::
 
-        reg = MatrixRegistry()
+        reg = MatrixRegistry(device="cuda")
         mid = reg.put(rows, cols, vals, shape)
-        svc = SpMVService(reg, max_bucket=16)
+        svc = SpMVService(reg, max_bucket=16, device="cuda")
         t1 = svc.submit(mid, x1)
         t2 = svc.submit(mid, x2, alpha=2.0)
         results = svc.flush()          # one SpMM for both requests
@@ -46,5 +46,7 @@ class SpMVService(SpMVPipeline):
 
     This is :class:`~repro_torch.serve.pipeline.SpMVPipeline` under its
     original name; everything — constructor signature included — is
-    inherited.
+    inherited.  Like the registry it serves from, it runs on ``device``
+    (default CUDA; ``device="cpu"`` runs the plain path), and a device
+    other than the registry's raises ``ValueError``.
     """

@@ -126,7 +126,9 @@ def test_service_on_the_card_launches_both_kernels(card, pipelined):
     r, c, v = random_coo(m, k, 30000, seed=3, hot_rows=4)
     reg = MatrixRegistry(config=TF.OPTIMIZED_CONFIG, device=card)
     mid = reg.put(r, c, v, (m, k))
-    svc = SpMVService(reg, max_bucket=16)
+    with pytest.raises(ValueError, match="registry binds on"):
+        SpMVService(reg, device="cpu")
+    svc = SpMVService(reg, max_bucket=16, device=card)
     rng = np.random.default_rng(4)
     xs = rng.normal(size=(12, k)).astype(np.float32)
     dense = np.zeros((m, k), np.float64)

@@ -80,7 +80,7 @@ def test_service_matches_reference(pipelined, value_dtype):
     assert jmid == tmid                     # same content key
     reqs = requests()
     jsvc, tsvc = JS.SpMVService(jreg, max_bucket=8), \
-        TS.SpMVService(treg, max_bucket=8)
+        TS.SpMVService(treg, max_bucket=8, device="cpu")
     jres = serve(jsvc, jmid, reqs, pipelined)
     tres = serve(tsvc, tmid, reqs, pipelined)
     shapes = [(t.batch_size, t.bucket_n) for t in tres]
@@ -105,7 +105,7 @@ def test_serve_helper_and_owner_queues():
     mid = treg.put(r, c, v, (M, K))
     jmid = jreg.put(r, c, v, (M, K))
     xs = np.random.default_rng(3).normal(size=(5, K)).astype(np.float32)
-    got = TS.SpMVService(treg).serve([(mid, x, 0.5) for x in xs])
+    got = TS.SpMVService(treg, device="cpu").serve([(mid, x, 0.5) for x in xs])
     want = JS.SpMVService(jreg).serve([(jmid, x, 0.5) for x in xs])
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, **TOL)
@@ -132,7 +132,7 @@ def test_background_put_serves_when_ready():
     _, treg = registries()
     r, c, v = random_coo(M, K, 800, seed=7)
     mid = treg.put(r, c, v, (M, K), blocking=False)
-    svc = TS.SpMVService(treg)
+    svc = TS.SpMVService(treg, device="cpu")
     x = np.ones(K, np.float32)
     (y,) = svc.serve([(mid, x)], timeout=60)
     assert treg.ready(mid)
@@ -181,7 +181,7 @@ def test_later_slices_raise_not_implemented():
         treg.put(r, c, v, (M, K), verify="maybe")
     mid = treg.put(r, c, v, (M, K))
     assert treg.record_observation(mid, slots_per_s=1.0) is False
-    svc = TS.SpMVService(treg)
+    svc = TS.SpMVService(treg, device="cpu")
     with pytest.raises(NotImplementedError, match="solver slice"):
         svc.submit_solve(mid, "pagerank")
     with pytest.raises(NotImplementedError, match="solver slice"):
@@ -195,4 +195,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     with pytest.raises(ValueError, match="JAX backend"):
         TR.MatrixRegistry(device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        TS.SpMVService(TR.MatrixRegistry(device="cpu"), backend="cuda")
+        TS.SpMVService(TR.MatrixRegistry(device="cpu"), backend="cuda",
+                      device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.SpMVService(TR.MatrixRegistry(device="cpu"))
