@@ -25,6 +25,26 @@ imports nothing of the JAX package.  Phases:
 3. Timings with CUDA events at the G7 shapes: kernel, plain version, and
    one ``torch.sparse`` CSR product as a yardstick (the port never calls
    it), beside the bound the card's memory rate sets.
+4. The solvers (the second slice's path), through ``SpMVService.solve``:
+   PageRank on the column-normalised G7 stand-in at full size
+   (``tol=1e-6``: the fp32 L1 delta's noise floor is near n·ulp(1/n) ≈
+   1e-7 at this n, so 1e-7 would stall), held against an fp64 scipy
+   PageRank of the same iteration count within ``1e-5·max(r) + 1e-9``
+   elementwise; CG (``tol=1e-6``, true fp64 residual ≤ 1e-4) and 100
+   power iterations (λ against the fp64 Rayleigh quotient of the returned
+   v, rel 1e-4) on the G5 stand-in made SPD (upper triangle mirrored,
+   diagonal = row's Σ|off-diagonal| + 1).  The fused kernel's launch
+   counter is set to 0 before these solves and read after; each solve
+   must be fused.  Then each solve again with ``fused=False`` (the spmv
+   kernel plus torch ops): iteration counts within 1, solutions within
+   the tolerances printed.  One fused step per epilogue against
+   ``spmv_fused_plain`` on the same card tensors (acc as in phase 1;
+   state vectors within 1e-5 of their magnitude; reduced scalars within
+   ``1e-5·Σ|terms| + 1e-6``), and CUDA-event timings of the fused step,
+   the unfused step, the plain version and ``torch.mv`` on a CSR tensor
+   plus the epilogue in torch ops (a yardstick only).  If the run has
+   passed 8 minutes before the G5 part, G5 runs at scale 0.25 and says
+   so; the G7 PageRank never shrinks.
 
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -52,7 +72,11 @@ from repro_torch.core import format as sformat  # noqa: E402
 from repro_torch.core import partition as cpart  # noqa: E402
 from repro_torch.core.registry import MatrixRegistry  # noqa: E402
 from repro_torch.core.spmv import SerpensOperator  # noqa: E402
-from repro_torch.data.matrices import paper_matrix  # noqa: E402
+from repro_torch.data.matrices import (column_normalize,  # noqa: E402
+                                       paper_matrix)
+from repro_torch.solvers.cg import _cg_epilogue  # noqa: E402
+from repro_torch.solvers.power_iteration import (  # noqa: E402
+    _pagerank_epilogue, _power_epilogue)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
@@ -72,7 +96,14 @@ KERNELS = {
     "spmm": {"route": "cuda",
              "source": "src/repro_torch/kernels/csrc/serpens_spmv.cu",
              "replaces": "src/repro/kernels/serpens_spmv.py:147"},
+    "spmv_fused": {"route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/serpens_spmv.cu",
+                   "replaces": "src/repro/kernels/serpens_spmv.py:192"},
 }
+# The G5 part of phase 4 shrinks to this scale once the run has passed
+# SLOW_RUN_S seconds (the script must end well inside 1200 s).
+SLOW_RUN_S = 480.0
+G5_SMALL_SCALE = 0.25
 
 
 def say(*parts) -> None:
@@ -87,8 +118,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_close(what: str, got, want, scale) -> float:
-    """Elementwise ``|got - want| <= TOL_REL * scale + TOL_ABS``; returns
+def check_close(what: str, got, want, scale, atol: float = TOL_ABS
+                ) -> float:
+    """Elementwise ``|got - want| <= TOL_REL * scale + atol``; returns
     the largest absolute error."""
     got = torch.as_tensor(got)
     want = torch.as_tensor(want, device=got.device, dtype=got.dtype)
@@ -99,7 +131,7 @@ def check_close(what: str, got, want, scale) -> float:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite values")
     err = (got - want).abs()
-    bad = err > TOL_REL * scale + TOL_ABS
+    bad = err > TOL_REL * scale + atol
     if bool(bad.any()):
         i = int(torch.argmax((err - TOL_REL * scale).flatten()))
         raise AssertionError(
@@ -243,11 +275,364 @@ def bound_ms(plan, n: int) -> tuple[float, str]:
                                  else "operations")
 
 
+# -- phase 4: the solvers -----------------------------------------------------
+FUSED_EPILOGUES = {"pagerank": _pagerank_epilogue, "cg": _cg_epilogue,
+                   "power": _power_epilogue}
+# Bytes of the state each fused step must read and write once, in units of
+# one (R, LANES) fp32 vector: CG reads sol, r, p and writes them back;
+# PageRank reads r and the mask and writes r; power iteration reads and
+# writes v.
+STATE_VECTORS = {"cg": 6, "pagerank": 3, "power": 2}
+
+
+def spd_from_upper(rows, cols, vals, n):
+    """The upper triangle mirrored, diagonal = row's Σ|off-diagonal| + 1:
+    symmetric and strictly diagonally dominant, so SPD."""
+    up = rows < cols
+    r, c, v = rows[up], cols[up], vals[up]
+    diag = np.bincount(np.concatenate([r, c]),
+                       weights=np.abs(np.concatenate([v, v])),
+                       minlength=n) + 1.0
+    ar = np.arange(n, dtype=r.dtype)
+    return (np.concatenate([r, c, ar]), np.concatenate([c, r, ar]),
+            np.concatenate([v, v, diag.astype(np.float32)]))
+
+
+def csr64(rows, cols, vals, shape):
+    import scipy.sparse as sp
+    return sp.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                         shape=shape)
+
+
+def pagerank64(a, iters: int, damping: float = 0.85):
+    """fp64 PageRank on the host, the solver's update, ``iters`` steps."""
+    n = a.shape[0]
+    r = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        link = damping * (a @ r)
+        r = link + (1.0 - link.sum()) / n
+    return r
+
+
+def fused_state(name, op, dev, seed):
+    """x and extras of one fused step on the card: CG's first iteration
+    from b, a PageRank step from 1/n, a power step from a random unit v."""
+    n = op.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if name == "cg":
+        b = op.to_acc_layout(torch.randn(n, generator=g).to(dev))
+        extras = (torch.zeros_like(b), b.clone(), b.clone(),
+                  (b * b).sum().reshape(1, 1))
+        return op.from_acc_layout(extras[2]), extras
+    if name == "pagerank":
+        extras = (op.to_acc_layout(torch.full((n,), 1.0 / n, device=dev)),
+                  op.to_acc_layout(torch.ones(n, device=dev)),
+                  torch.tensor([[0.85, n]], device=dev))
+        return op.from_acc_layout(extras[0]), extras
+    v = torch.randn(n, generator=g).to(dev)
+    extras = (op.to_acc_layout(v / v.norm()),)
+    return op.from_acc_layout(extras[0]), extras
+
+
+def compare_fused(name, op, dev) -> float:
+    """One fused step against ``spmv_fused_plain`` on the same inputs;
+    returns the largest absolute error over acc and every output."""
+    ep = FUSED_EPILOGUES[name]
+    x, extras = fused_state(name, op, dev, SEED)
+    idx, val, seg = op._shards[0]
+    cfg = op.config
+    geo = dict(num_rows_padded=op.plan.out_rows_padded,
+               segment_width=cfg.segment_width)
+    want_acc, want = ks.spmv_fused_plain(idx, val, seg, x, extras,
+                                         epilogue=ep, **geo)
+    scale = ks.spmv_plain(idx, val.abs(), seg, ops.pad_x(
+        x.abs(), op.plan.num_segments_local, cfg.segment_width), **geo)
+    k_extras = tuple(e.clone() for e in extras)
+    kx = op.from_acc_layout(k_extras[2 if name == "cg" else 0])
+    acc, got = ks.spmv_fused(idx, val, seg, kx, k_extras, epilogue=ep,
+                             tiles_per_chunk=cfg.tiles_per_chunk, **geo)
+    torch.cuda.synchronize()
+    worst = check_close(f"spmv_fused[{name}] acc vs plain", acc, want_acc,
+                        scale)
+    n_state = len(ks._EPILOGUES[ep].state)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < n_state:
+            j = ks._EPILOGUES[ep].state[i]
+            mag = max(float(w.abs().max()), float(extras[j].abs().max()))
+            worst = max(worst, check_close(
+                f"spmv_fused[{name}] state {i} vs plain", g, w,
+                torch.full_like(w, mag), atol=0.0))
+            continue
+        if name == "power" and i == 1:       # λ = Σ v·Av: signed terms
+            terms = float((extras[0] * want_acc.view_as(extras[0]))
+                          .abs().sum())
+        else:                                # Σ r², Σ|Δr|, ‖Av − λv‖
+            terms = float(w.abs().sum())
+        worst = max(worst, check_close(
+            f"spmv_fused[{name}] scalar {i} vs plain", g, w,
+            torch.full_like(w, terms)))
+    return worst
+
+
+def unfused_step(name, op, x, extras):
+    """One iteration of the solvers' two-phase body (the spmv kernel,
+    torch vector ops, and the host read of the stopping measure), on the
+    flat views of the fused state; the state is not advanced."""
+    n = op.shape[0]
+    if name == "pagerank":
+        def step():
+            link = 0.85 * op.matvec(x)
+            r_new = link + (1.0 - torch.sum(link)) / n
+            return float(torch.sum(torch.abs(r_new - x))), r_new
+    elif name == "cg":
+        sol, r = op.from_acc_layout(extras[0]), op.from_acc_layout(extras[1])
+        rs = extras[3][0, 0]
+
+        def step():
+            ap = op.matvec(x)
+            denom = torch.dot(x, ap)
+            alpha = rs / torch.where(denom != 0, denom, 1e-30)
+            r_new = r - alpha * ap
+            rs_new = torch.dot(r_new, r_new)
+            beta = rs_new / torch.where(rs != 0, rs, 1e-30)
+            new_state = (sol + alpha * x, r_new, r_new + beta * x)
+            return float(torch.sqrt(rs_new)), new_state
+    else:
+        def step():
+            av = op.matvec(x)
+            lam = torch.dot(x, av)
+            res = torch.linalg.vector_norm(av - lam * x)
+            nrm = torch.linalg.vector_norm(av)
+            v_new = torch.where(nrm > 0, av / torch.clamp(nrm, min=1e-30),
+                                x)
+            return float(res), v_new
+    return step
+
+
+def time_fused(name, op, dev, csr) -> dict:
+    """CUDA-event ms of one fused step (the kernel chain), one unfused
+    step (:func:`unfused_step`), the plain version, and ``torch.mv`` on
+    CSR + the epilogue in torch ops."""
+    ep = FUSED_EPILOGUES[name]
+    cfg = op.config
+    idx, val, seg = op._shards[0]
+    geo = dict(num_rows_padded=op.plan.out_rows_padded,
+               segment_width=cfg.segment_width)
+    x, extras = fused_state(name, op, dev, SEED + 1)
+    loop = ks.FusedLoop(dev, stop=-float("inf"), max_iters=1 << 30,
+                        scalars=(0.0,) * ks._EPILOGUES[ep].scalars)
+
+    def fused():
+        ks.spmv_fused(idx, val, seg, x, extras, epilogue=ep, loop=loop,
+                      tiles_per_chunk=cfg.tiles_per_chunk, **geo)
+
+    lanes = cfg.lanes
+    m = op.shape[0]
+    buf = torch.zeros(geo["num_rows_padded"], device=dev)
+
+    def library():
+        buf[:m].copy_(torch.mv(csr, x))
+        ep(buf.view(-1, lanes), *extras)
+
+    # The unfused and library steps read the state the fused timing left.
+    return {"ms": time_ms(fused, 20),
+            "unfused_ms": time_ms(unfused_step(name, op, x, extras), 20),
+            "plain_ms": time_ms(functools.partial(
+                ks.spmv_fused_plain, idx, val, seg, x, extras, epilogue=ep,
+                **geo), 3),
+            "library_ms": time_ms(library, 20)}
+
+
+def fused_bound(name, op) -> tuple[float, str]:
+    """Least time of one fused step: the stream's bytes and the state
+    vectors read/written once over the memory rate, or its flops (2 per
+    live slot plus ~10 per state element) over the fp32 rate."""
+    plan, cfg = op.plan, op.config
+    slots = int(plan.idx.size)
+    live = int(np.count_nonzero(plan.idx != -1))
+    rp = plan.out_rows_padded
+    nbytes = (slots * (4 + cfg.value_bytes) + 4 * plan.idx.shape[1]
+              + 4 * STATE_VECTORS[name] * rp)
+    flops = 2 * live + 10 * rp
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def zero_launches() -> None:
+    ks.spmv_launches = ks.spmm_launches = ks.spmv_fused_launches = 0
+
+
+def read_launches() -> dict:
+    return {"spmv": ks.spmv_launches, "spmm": ks.spmm_launches,
+            "spmv_fused": ks.spmv_fused_launches}
+
+
+def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
+    """Phase 4; returns (launches, max error, timings, bounds) of the
+    fused kernel's main-path runs."""
+    t = time.perf_counter()
+    m = shape[0]
+    gv = column_normalize(rows, cols, vals, m)
+    pmid = reg.put(rows, cols, gv, shape)
+    pop = reg.get(pmid)
+    say(f"[phase4] G7 column-normalised: registry put "
+        f"{time.perf_counter() - t:.1f} s, fusable "
+        f"{pop.supports_fused_epilogue}")
+
+    g5_scale = 1.0
+    if time.perf_counter() - t_run > SLOW_RUN_S:
+        g5_scale = G5_SMALL_SCALE
+        say(f"[phase4] run past {SLOW_RUN_S:.0f} s: G5 at scale {g5_scale}")
+    t = time.perf_counter()
+    r5, c5, v5, shape5, _ = paper_matrix("G5", scale=g5_scale, seed=SEED)
+    sr, sc, sv = spd_from_upper(r5, c5, v5, shape5[0])
+    n5 = shape5[0]
+    smid = reg.put(sr, sc, sv, shape5)
+    sop = reg.get(smid)
+    say(f"[phase4] G5 stand-in SPD {n5} x {n5}, nnz {sv.size}, scale "
+        f"{g5_scale}: generated and put in {time.perf_counter() - t:.1f} s")
+    b = np.random.default_rng(SEED + 2).standard_normal(n5) \
+        .astype(np.float32)
+
+    solves = {"pagerank": (pmid, "pagerank", dict(tol=1e-6, max_iters=200)),
+              "cg": (smid, "cg", dict(b=b, tol=1e-6, timeout=600)),
+              "power": (smid, "power_iteration", dict(max_iters=100))}
+
+    def solve_all(**over):
+        """Each solve through the service; host seconds per solve (the
+        result is on the host when solve returns)."""
+        out, secs = {}, {}
+        for k, (mid_k, kind_k, kw) in solves.items():
+            t0 = time.perf_counter()
+            out[k] = svc.solve(mid_k, kind_k, **{**kw, **over})
+            secs[k] = time.perf_counter() - t0
+        return out, secs
+
+    # Warm-up (first-use costs such as cuBLAS's handle for torch.dot stay
+    # out of the timed solves), then the main path: every solve fused,
+    # counts from 0.
+    solve_all(max_iters=2)
+    solve_all(max_iters=2, fused=False)
+    zero_launches()
+    torch.cuda.synchronize()
+    runs, secs = solve_all()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    iters = {k: r.solve.iterations for k, r in runs.items()}
+    say(f"[phase4] fused solves: iterations {iters}, launches {launches}, "
+        f"host syncs per solve "
+        f"{ {k: r.solve.host_syncs for k, r in runs.items()} }, seconds "
+        f"{ {k: round(v, 4) for k, v in secs.items()} }, ms per iteration "
+        f"{ {k: round(1e3 * secs[k] / max(iters[k], 1), 4) for k in secs} }"
+        f"  [{card}]")
+    for k, r in runs.items():
+        if not r.solve.fused:
+            raise AssertionError(f"{k} did not run fused")
+    if launches["spmv_fused"] < sum(iters.values()):
+        raise AssertionError(f"spmv_fused launched {launches} times for "
+                             f"{iters} iterations")
+    pr, cg, pw = runs["pagerank"], runs["cg"], runs["power"]
+    if not (pr.solve.converged and cg.solve.converged):
+        raise AssertionError("PageRank or CG did not converge")
+
+    # Against fp64 host references.
+    t = time.perf_counter()
+    a7 = csr64(rows, cols, gv, shape)
+    r64 = pagerank64(a7, pr.solve.iterations)
+    r_err = check_close("G7 PageRank vs fp64", torch.from_numpy(pr.y),
+                        torch.from_numpy(r64).float(),
+                        torch.full((m,), float(r64.max())), atol=1e-9)
+    if abs(float(pr.y.sum()) - 1.0) >= 1e-3:
+        raise AssertionError(f"PageRank sums to {float(pr.y.sum())}")
+    a5 = csr64(sr, sc, sv, shape5)
+    x64 = cg.y.astype(np.float64)
+    true_res = float(np.linalg.norm(b - a5 @ x64) / np.linalg.norm(b))
+    if true_res > 1e-4:
+        raise AssertionError(f"CG true residual {true_res}")
+    v64 = pw.y.astype(np.float64)
+    rq = float(v64 @ (a5 @ v64) / (v64 @ v64))
+    lam_rel = abs(pw.solve.eigenvalue - rq) / abs(rq)
+    if lam_rel > 1e-4:
+        raise AssertionError(f"power λ {pw.solve.eigenvalue} vs fp64 "
+                             f"Rayleigh quotient {rq}")
+    say(f"[phase4] vs fp64 ({time.perf_counter() - t:.1f} s): PageRank "
+        f"max err {r_err:.3e} (sum {float(pr.y.sum()):.7f}, delta "
+        f"{pr.solve.residual:.3e}); CG true residual {true_res:.3e} "
+        f"(recursive {cg.solve.residual / np.linalg.norm(b):.3e}); power "
+        f"λ {pw.solve.eigenvalue:.6f} vs {rq:.6f} (rel {lam_rel:.2e}, "
+        f"residual {pw.solve.residual:.3e})")
+
+    # Fused against unfused on the card.
+    un, usecs = solve_all(fused=False)
+    for k, u in un.items():
+        if abs(u.solve.iterations - iters[k]) > 1:
+            raise AssertionError(f"{k}: unfused {u.solve.iterations} vs "
+                                 f"fused {iters[k]} iterations")
+    pe = check_close("G7 PageRank fused vs unfused",
+                     torch.from_numpy(pr.y),
+                     torch.from_numpy(un["pagerank"].y),
+                     torch.full((m,), float(pr.y.max())), atol=1e-9)
+    # CG and power iteration: both runs stop within 1e-6 of a solution of
+    # the same system, so they agree to ~κ·1e-6 of the solution's scale.
+    ce = check_close("G5 CG fused vs unfused", torch.from_numpy(cg.y),
+                     torch.from_numpy(un["cg"].y),
+                     torch.full((n5,), 100.0 * float(np.abs(cg.y).max())))
+    lam_un = abs(un["power"].solve.eigenvalue - pw.solve.eigenvalue) \
+        / abs(pw.solve.eigenvalue)
+    if lam_un > 1e-5:
+        raise AssertionError(f"power λ fused vs unfused rel {lam_un}")
+    ums = {k: round(1e3 * usecs[k] / max(u.solve.iterations, 1), 4)
+           for k, u in un.items()}
+    say(f"[phase4] unfused solves: iterations "
+        f"{ {k: u.solve.iterations for k, u in un.items()} }, host syncs "
+        f"{ {k: u.solve.host_syncs for k, u in un.items()} }, ms per "
+        f"iteration {ums}  [{card}]; PageRank "
+        f"max |fused - unfused| {pe:.3e}, CG {ce:.3e}, power λ rel "
+        f"{lam_un:.2e}")
+
+    # Kernel against plain, one step per epilogue at the main shapes.
+    t = time.perf_counter()
+    ops_by = {"pagerank": pop, "cg": sop, "power": sop}
+    err = max(compare_fused(k, ops_by[k], dev) for k in FUSED_EPILOGUES)
+    say(f"[phase4] fused step vs plain (G7 pagerank, G5 cg/power): max "
+        f"err {err:.3e} in {time.perf_counter() - t:.1f} s")
+
+    # Timings.
+    t = time.perf_counter()
+    with warnings.catch_warnings():     # torch.sparse's beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        csr7 = torch.sparse_csr_tensor(
+            torch.from_numpy(a7.indptr).long(),
+            torch.from_numpy(a7.indices).long(),
+            torch.from_numpy(a7.data).float(), shape).to(dev)
+        csr5 = torch.sparse_csr_tensor(
+            torch.from_numpy(a5.indptr).long(),
+            torch.from_numpy(a5.indices).long(),
+            torch.from_numpy(a5.data).float(), shape5).to(dev)
+    csr_by = {"pagerank": csr7, "cg": csr5, "power": csr5}
+    times, bounds = {}, {}
+    for k in FUSED_EPILOGUES:
+        times[k] = time_fused(k, ops_by[k], dev, csr_by[k])
+        bounds[k] = fused_bound(k, ops_by[k])
+        tm, (bd, by) = times[k], bounds[k]
+        where = "G7" if k == "pagerank" else f"G5 x{g5_scale}"
+        say(f"[phase4] {k} step ({where}): fused {tm['ms']:.4f} ms, "
+            f"unfused {tm['unfused_ms']:.4f} ms, plain "
+            f"{tm['plain_ms']:.4f} ms, torch.sparse CSR + epilogue "
+            f"{tm['library_ms']:.4f} ms, bound {bd:.4f} ms ({by}); "
+            f"{bd / tm['ms']:.3f} of the bound  [{card}]")
+    say(f"[phase4] timings in {time.perf_counter() - t:.1f} s")
+    return launches, max(err, 0.0), times, bounds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     say(card)
@@ -344,16 +729,17 @@ def main() -> int:
     svc = SpMVService(reg, max_bucket=16, device="cuda")
     launches = {}
     rps = {}
+    t2 = time.perf_counter()
     for run, drive in (("sync", serve_sync), ("pipelined", serve_pipelined)):
         obs.clear()
         obs.enable()
-        ks.spmv_launches = ks.spmm_launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = drive(svc, mid, reqs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        launches[run] = {"spmv": ks.spmv_launches, "spmm": ks.spmm_launches}
+        launches[run] = read_launches()
         obs.disable()
         spans = span_seconds()
         rps[run] = len(res) / dt
@@ -365,18 +751,18 @@ def main() -> int:
         say(f"[phase2] {run} host seconds by span: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(spans.items(),
                                               key=lambda kv: -kv[1])))
-    total = {name: sum(v[name] for v in launches.values())
-             for name in KERNELS}
-    for name, count in total.items():
-        if count == 0:
+    for name in ("spmv", "spmm"):
+        if sum(v[name] for v in launches.values()) == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serving path")
     stats = reg.stats_snapshot()
     if stats.evictions or stats.bindings_dropped:
         raise AssertionError(f"registry shed the G7 entry: {stats}")
-    say(f"[phase2] ok: service stats {svc.stats}")
+    say(f"[phase2] ok in {time.perf_counter() - t2:.1f} s: service stats "
+        f"{svc.stats}")
 
     # -- phase 3: timings at the G7 shapes --------------------------------
+    t3 = time.perf_counter()
     x16 = ops.pad_rows(torch.from_numpy(rng.standard_normal(
         (k, 16)).astype(np.float32)).to(dev), kp)
     p = functools.partial
@@ -405,7 +791,7 @@ def main() -> int:
                       **bgeo), 50)
     bounds = {"spmv": bound_ms(plan, 1), "spmm": bound_ms(plan, 16)}
     bf_bound = bound_ms(bf_plan, 1)
-    for name in KERNELS:
+    for name in ("spmv", "spmm"):
         b, by = bounds[name]
         tm = times[name]
         n = 1 if name == "spmv" else 16
@@ -419,7 +805,25 @@ def main() -> int:
         f"[{card}]")
     say(f"[phase3] requests/s: sync {rps['sync']:.1f}, pipelined "
         f"{rps['pipelined']:.1f}  [{card}]")
+    say(f"[phase3] ok in {time.perf_counter() - t3:.1f} s")
+
+    # -- phase 4: the solvers (the second slice's main path) --------------
+    t4 = time.perf_counter()
+    launches["solvers"], errs["spmv_fused"], ftimes, fbounds = \
+        phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card)
     reg.close()
+    # The fused kernel's record row is the G7 PageRank step, the slice's
+    # served path at full size.
+    times["spmv_fused"] = ftimes["pagerank"]
+    bounds["spmv_fused"] = fbounds["pagerank"]
+    say(f"[phase4] ok in {time.perf_counter() - t4:.1f} s; whole run "
+        f"{time.perf_counter() - t_run:.1f} s")
+    total = {name: sum(v[name] for v in launches.values())
+             for name in KERNELS}
+    for name, count in total.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"main paths")
 
     record = {"kernels": [
         dict(name=name, **KERNELS[name], launches=total[name],

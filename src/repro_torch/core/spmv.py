@@ -23,7 +23,6 @@ from repro_torch.core import format as sformat
 from repro_torch.core import partition as cpart
 from repro_torch.kernels import ops
 
-_SOLVER_SLICE = "the solver slice of the port"
 _MESH_SLICE = "the multi-GPU slice of the port"
 
 
@@ -78,6 +77,20 @@ class SerpensOperator:
         """Precision of the streamed values ("float32" or "bfloat16");
         accumulation and outputs are fp32 either way."""
         return self.config.value_dtype
+
+    @property
+    def supports_fused_epilogue(self) -> bool:
+        """Whether :meth:`matvec_fused` can run on this operator.
+
+        The fused epilogue needs the *complete* accumulator of one stream
+        pass, so it requires a single-shard plan (multi-shard needs a
+        cross-shard combine first), no aux spill side-stream (its
+        contributions land after the stream pass), and no balanced-lane
+        row permutation (the epilogue sees the virtual row order, not the
+        caller's).  The port has no mesh binding yet.
+        """
+        return (self.plan.num_shards == 1 and self.plan.n_aux == 0
+                and self.plan.row_perm is None)
 
     @property
     def device_bytes(self) -> int:
@@ -171,10 +184,54 @@ class SerpensOperator:
             return float(alpha) * acc
         return float(alpha) * acc + float(beta) * self._coerce(y, "y")
 
-    def matvec_fused(self, x, epilogue, extras=(), backend=None):
-        raise NotImplementedError(
-            f"matvec_fused (the fused-epilogue kernel) waits for "
-            f"{_SOLVER_SLICE}")
+    # -- fused epilogue (solver hot path) ---------------------------------
+    def to_acc_layout(self, v):
+        """Flat length-M vector → the kernel's (R, LANES) accumulator
+        layout (a new tensor on the operator's device).  Lane-stationary
+        rows put global row r at acc[r // LANES, r % LANES], so flat↔acc
+        is a pure pad + reshape."""
+        v = self._coerce(v, "v")
+        return ops.pad_rows(v, self.plan.out_rows_padded).reshape(
+            -1, self.config.lanes)
+
+    def from_acc_layout(self, a):
+        """(R, LANES) accumulator layout → flat length-M vector (a view)."""
+        return a.reshape(-1)[: self.shape[0]]
+
+    def matvec_fused(self, x, epilogue, extras=(), backend=None, loop=None):
+        """One-pass ``A @ x`` + fused epilogue (see
+        :func:`repro_torch.kernels.ops.run_stream_fused`).
+
+        ``epilogue(acc2d, *extras)`` receives the (R, LANES) fp32
+        accumulator over *padded* rows (rows ≥ M are zero).  Only
+        available when :attr:`supports_fused_epilogue`; the solvers use
+        the unfused body otherwise.  x is not padded: the kernel reads it
+        in place, so a solver passes a view of its state.  A registered
+        epilogue updates its state extras in place, and ``loop`` (a
+        :class:`~repro_torch.kernels.serpens_spmv.FusedLoop`) makes the
+        step one iteration of a device-side loop.
+
+        Returns ``(acc_flat, outs)`` — ``acc_flat`` over padded rows.
+        """
+        if not self.supports_fused_epilogue:
+            raise ValueError(
+                "fused epilogue needs a single-shard, mesh-free plan with "
+                "no aux spill and modulo lane assignment (got "
+                f"shards={self.plan.num_shards}, mesh=False, "
+                f"n_aux={self.plan.n_aux}, "
+                f"lane_assign={self.plan.spec.lane_assign!r})")
+        x = self._coerce(x, "x")
+        if x.dim() != 1:
+            raise ValueError("matvec_fused needs a 1-D x")
+        self._check_x(x, "x")
+        idx, val, seg = self._shards[0]
+        cfg = self.config
+        return ops.run_stream_fused(
+            idx, val, seg, x, epilogue=epilogue, extras=extras,
+            num_rows_padded=self.plan.out_rows_padded,
+            segment_width=cfg.segment_width,
+            tiles_per_chunk=cfg.tiles_per_chunk,
+            backend=backend or self.backend, loop=loop)
 
     def _finish(self, acc):
         """Virtual accumulator → caller row order (leading axis).

@@ -1,8 +1,10 @@
-// Serpens stream SpMV / SpMM for NVIDIA Hopper (sm_90a).
+// Serpens stream SpMV / SpMM and the fused solver step, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels of the JAX reference package:
 //   src/repro/kernels/serpens_spmv.py::spmv_pallas (body _spmv_kernel)
 //   src/repro/kernels/serpens_spmv.py::spmm_pallas (body _spmm_kernel)
+//   src/repro/kernels/serpens_spmv.py::spmv_fused_pallas (inner kernel)
 //
 // What they compute.  The stream is T tiles of (SUB, LANES) slots.  Slot
 // (t, s, l) holds a packed int32 word w = (row_local << 16) | col_local
@@ -31,7 +33,27 @@
 // Traps handled here: the packed word is decoded with unsigned shifts (a
 // live row of 0xFFFF packs into a negative int32 that is not the -1
 // sentinel), and every slot / x / acc offset is 64-bit.  Offsets that would
-// leave x or acc are skipped, as the reference's scatter drops them.
+// leave x or acc are skipped, as the reference's scatter drops them (and
+// as zero padding of x to the segment grid would give).
+//
+// The fused solver step (serpens_spmv_fused) is one pass over A followed by
+// one solver iteration's vector work, with the loop's state on the card.
+// The TPU kernel runs a traced Python epilogue in its last sequential grid
+// step; here blocks run in no order, so the step is a short chain of
+// kernels on one stream: zero acc, the stream pass above, then two or three
+// epilogue passes over the (R, LANES) state and a one-block commit.  Each
+// epilogue pass writes one partial sum per block; the next pass reduces
+// them in a fixed order (every block the same order, so every block gets
+// the same scalar).  The commit writes the loop's scalars and its control
+// word ctrl = [cont, it]: it += 1, cont = measure > stop && it < max_iters,
+// the reference's while_loop condition.  Every kernel of the chain returns
+// at once when cont == 0, so the host can enqueue iterations ahead and
+// read ctrl once per chunk; iterations after convergence move no bytes.
+// x is read in place from the state vector (x_len bounds it), and the state
+// is updated in place only by passes after the stream pass has finished.
+// Bound: the stream pass's bytes plus each state vector read or written
+// once; the epilogue passes re-read the state (a few MB at G7), which the
+// fused TPU kernel kept in VMEM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +73,9 @@ __global__ void spmv_kernel(const int32_t* __restrict__ idx,
                             const float* __restrict__ x,
                             float* __restrict__ acc, int64_t num_tiles,
                             int sub, int lanes, int seg_width, int64_t x_len,
-                            int64_t acc_len) {
+                            int64_t acc_len, const int* ctrl) {
+  // ctrl (fused solver step only): the loop has stopped, make no pass.
+  if (ctrl != nullptr && ctrl[0] == 0) return;
   const int lane = threadIdx.x;
   for (int64_t t = blockIdx.x; t < num_tiles; t += gridDim.x) {
     const int64_t xbase = static_cast<int64_t>(seg[t]) * seg_width;
@@ -95,6 +119,208 @@ __global__ void spmm_kernel(const int32_t* __restrict__ idx,
   }
 }
 
+// -- fused solver step: epilogue passes -------------------------------------
+// Every epilogue pass and the commit run kEpiThreads threads a block, so a
+// partial-sum reduction takes the same order in each of them.
+constexpr int kEpiThreads = 256;
+
+// Epilogue ids; the wrapper (kernels/serpens_spmv.py) maps the solvers'
+// epilogue functions onto them.
+enum Epilogue : int { kCG = 0, kPageRank = 1, kPower = 2 };
+
+struct EpiArgs {
+  float* acc;        // A·x, flat (R * LANES)
+  int64_t n;         // R * LANES
+  float* e0;         // extras, flat; what each holds depends on the epilogue
+  float* e1;
+  float* e2;
+  float* e3;
+  float* scal;       // the loop's scalar outputs
+  float* part;       // partial sums, three regions of nb floats
+  int nb;            // blocks of an epilogue pass
+  int* ctrl;         // [cont, it]
+  float stop;
+  int max_iters;
+};
+
+// Sum over the block; every thread gets the total.  smem: 33 floats.
+__device__ float block_sum(float v, float* smem) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) smem[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = threadIdx.x < (blockDim.x >> 5) ? smem[threadIdx.x] : 0.f;
+    for (int o = 16; o > 0; o >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, o);
+    if (threadIdx.x == 0) smem[32] = v;
+  }
+  __syncthreads();
+  return smem[32];
+}
+
+// The total of nb partials, in the same order in every block.
+__device__ float sum_partials(const float* part, int nb, float* smem) {
+  float v = 0.f;
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) v += part[i];
+  return block_sum(v, smem);
+}
+
+__device__ __forceinline__ int64_t first_elem() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+__device__ __forceinline__ int64_t elem_stride() {
+  return static_cast<int64_t>(gridDim.x) * blockDim.x;
+}
+
+// One thread (thread 0 of the one-block commit) ends the iteration.
+__device__ void commit(const EpiArgs& a, float measure) {
+  const int it = a.ctrl[1] + 1;
+  a.ctrl[1] = it;
+  a.ctrl[0] = (measure > a.stop) && (it < a.max_iters);
+}
+
+__global__ void fused_zero(EpiArgs a) {
+  if (a.ctrl[0] == 0) return;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride()) a.acc[i] = 0.f;
+}
+
+// CG (reference solvers/cg.py::_cg_epilogue).  e0 sol, e1 r, e2 p (also x
+// of the stream pass), e3 rs (one float).  acc = A·p.
+__global__ void cg_dot(EpiArgs a) {            // denom = Σ p·Ap
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  float s = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride())
+    s += a.e2[i] * a.acc[i];
+  s = block_sum(s, sm);
+  if (threadIdx.x == 0) a.part[blockIdx.x] = s;
+}
+
+__global__ void cg_update(EpiArgs a) {         // sol += αp, r -= αAp, Σ r²
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float denom = sum_partials(a.part, a.nb, sm);
+  const float alpha = a.e3[0] / (denom != 0.f ? denom : 1e-30f);
+  float s = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride()) {
+    a.e0[i] = a.e0[i] + alpha * a.e2[i];
+    const float r = a.e1[i] - alpha * a.acc[i];
+    a.e1[i] = r;
+    s += r * r;
+  }
+  s = block_sum(s, sm);
+  if (threadIdx.x == 0) a.part[a.nb + blockIdx.x] = s;
+}
+
+__global__ void cg_direction(EpiArgs a) {      // p = r + βp
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float rs_new = sum_partials(a.part + a.nb, a.nb, sm);
+  const float rs = a.e3[0];
+  const float beta = rs_new / (rs != 0.f ? rs : 1e-30f);
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride())
+    a.e2[i] = a.e1[i] + beta * a.e2[i];
+}
+
+__global__ void cg_commit(EpiArgs a) {         // rs = rs_new; ‖r‖ > stop
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float rs_new = sum_partials(a.part + a.nb, a.nb, sm);
+  if (threadIdx.x == 0) {
+    a.e3[0] = rs_new;
+    commit(a, sqrtf(rs_new));
+  }
+}
+
+// PageRank (reference solvers/power_iteration.py::_pagerank_epilogue).
+// e0 r (also x), e1 mask, e2 consts = [damping, n].  scal[0] = delta.
+__global__ void pr_sum(EpiArgs a) {            // Σ link, link = d·acc
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float d = a.e2[0];
+  float s = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride())
+    s += d * a.acc[i];
+  s = block_sum(s, sm);
+  if (threadIdx.x == 0) a.part[blockIdx.x] = s;
+}
+
+__global__ void pr_update(EpiArgs a) {         // r_new, Σ|r_new − r|
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float link_sum = sum_partials(a.part, a.nb, sm);
+  const float d = a.e2[0];
+  const float teleport = (1.f - link_sum) / a.e2[1];
+  float s = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride()) {
+    const float r_new = (d * a.acc[i] + teleport) * a.e1[i];
+    s += fabsf(r_new - a.e0[i]);
+    a.e0[i] = r_new;
+  }
+  s = block_sum(s, sm);
+  if (threadIdx.x == 0) a.part[a.nb + blockIdx.x] = s;
+}
+
+__global__ void pr_commit(EpiArgs a) {
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float delta = sum_partials(a.part + a.nb, a.nb, sm);
+  if (threadIdx.x == 0) {
+    a.scal[0] = delta;
+    commit(a, delta);
+  }
+}
+
+// Power iteration (reference solvers/power_iteration.py::_power_epilogue).
+// e0 v (also x).  scal[0] = λ, scal[1] = residual.
+__global__ void pw_dots(EpiArgs a) {           // λ = Σ v·Av, Σ Av²
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  float s0 = 0.f, s1 = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride()) {
+    const float av = a.acc[i];
+    s0 += a.e0[i] * av;
+    s1 += av * av;
+  }
+  s0 = block_sum(s0, sm);
+  s1 = block_sum(s1, sm);
+  if (threadIdx.x == 0) {
+    a.part[blockIdx.x] = s0;
+    a.part[a.nb + blockIdx.x] = s1;
+  }
+}
+
+__global__ void pw_update(EpiArgs a) {         // Σ(Av − λv)², v = Av/‖Av‖
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float lam = sum_partials(a.part, a.nb, sm);
+  const float nrm = sqrtf(sum_partials(a.part + a.nb, a.nb, sm));
+  float s = 0.f;
+  for (int64_t i = first_elem(); i < a.n; i += elem_stride()) {
+    const float av = a.acc[i];
+    const float v = a.e0[i];
+    const float dv = av - lam * v;
+    s += dv * dv;
+    a.e0[i] = nrm > 0.f ? av / fmaxf(nrm, 1e-30f) : v;
+  }
+  s = block_sum(s, sm);
+  if (threadIdx.x == 0) a.part[2 * a.nb + blockIdx.x] = s;
+}
+
+__global__ void pw_commit(EpiArgs a) {
+  __shared__ float sm[33];
+  if (a.ctrl[0] == 0) return;
+  const float lam = sum_partials(a.part, a.nb, sm);
+  const float res = sqrtf(sum_partials(a.part + 2 * a.nb, a.nb, sm));
+  if (threadIdx.x == 0) {
+    a.scal[0] = lam;
+    a.scal[1] = res;
+    commit(a, res);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Pointers and the stream are
@@ -113,13 +339,13 @@ extern "C" int serpens_spmv(const void* idx, const void* val, const void* seg,
           static_cast<const __nv_bfloat16*>(val),
           static_cast<const int32_t*>(seg), static_cast<const float*>(x),
           static_cast<float*>(acc), num_tiles, sub, lanes, seg_width, x_len,
-          acc_len);
+          acc_len, nullptr);
     } else {
       spmv_kernel<float><<<grid, lanes, 0, st>>>(
           static_cast<const int32_t*>(idx), static_cast<const float*>(val),
           static_cast<const int32_t*>(seg), static_cast<const float*>(x),
           static_cast<float*>(acc), num_tiles, sub, lanes, seg_width, x_len,
-          acc_len);
+          acc_len, nullptr);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -148,4 +374,66 @@ extern "C" int serpens_spmm(const void* idx, const void* val, const void* seg,
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One fused solver step: zero acc, one pass over A (x read from x_len
+// floats), the epilogue's passes over nb blocks, and the commit.  Returns
+// the first launch error, or 0.  `part` holds 3 * nb floats.
+extern "C" int serpens_spmv_fused(
+    int epilogue, const void* idx, const void* val, const void* seg,
+    const void* x, void* acc, int64_t num_tiles, int sub, int lanes,
+    int seg_width, int64_t x_len, int64_t acc_len, int value_bf16, int grid,
+    void* e0, void* e1, void* e2, void* e3, void* scal, void* part, int nb,
+    void* ctrl, float stop, int max_iters, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  EpiArgs a{static_cast<float*>(acc), acc_len, static_cast<float*>(e0),
+            static_cast<float*>(e1), static_cast<float*>(e2),
+            static_cast<float*>(e3), static_cast<float*>(scal),
+            static_cast<float*>(part), nb, static_cast<int*>(ctrl), stop,
+            max_iters};
+  cudaError_t err;
+#define SERPENS_LAUNCH(...)                            \
+  do {                                                 \
+    __VA_ARGS__;                                       \
+    if ((err = cudaGetLastError()) != cudaSuccess)     \
+      return static_cast<int>(err);                    \
+  } while (0)
+  SERPENS_LAUNCH(fused_zero<<<nb, kEpiThreads, 0, st>>>(a));
+  if (num_tiles > 0) {
+    const int* c = static_cast<const int*>(ctrl);
+    if (value_bf16) {
+      SERPENS_LAUNCH(spmv_kernel<__nv_bfloat16><<<grid, lanes, 0, st>>>(
+          static_cast<const int32_t*>(idx),
+          static_cast<const __nv_bfloat16*>(val),
+          static_cast<const int32_t*>(seg), static_cast<const float*>(x),
+          a.acc, num_tiles, sub, lanes, seg_width, x_len, acc_len, c));
+    } else {
+      SERPENS_LAUNCH(spmv_kernel<float><<<grid, lanes, 0, st>>>(
+          static_cast<const int32_t*>(idx), static_cast<const float*>(val),
+          static_cast<const int32_t*>(seg), static_cast<const float*>(x),
+          a.acc, num_tiles, sub, lanes, seg_width, x_len, acc_len, c));
+    }
+  }
+  switch (epilogue) {
+    case kCG:
+      SERPENS_LAUNCH(cg_dot<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(cg_update<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(cg_direction<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(cg_commit<<<1, kEpiThreads, 0, st>>>(a));
+      break;
+    case kPageRank:
+      SERPENS_LAUNCH(pr_sum<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(pr_update<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(pr_commit<<<1, kEpiThreads, 0, st>>>(a));
+      break;
+    case kPower:
+      SERPENS_LAUNCH(pw_dots<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(pw_update<<<nb, kEpiThreads, 0, st>>>(a));
+      SERPENS_LAUNCH(pw_commit<<<1, kEpiThreads, 0, st>>>(a));
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SERPENS_LAUNCH
+  return 0;
 }

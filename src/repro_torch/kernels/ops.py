@@ -22,18 +22,23 @@ from repro_torch.kernels import serpens_spmv
 
 BACKENDS = ("cuda", "torch")
 
-# Dispatch counter: bumped once per run_stream call (one pass over A).
+# Dispatch counter: passes over A.  Bumped once per run_stream call and per
+# lone run_stream_fused call; a solver's fused loop adds the iterations that
+# ran (count_passes), since steps enqueued after convergence make no pass.
 _dispatches = 0
 
 
 def trace_dispatch_count() -> int:
-    """Total :func:`run_stream` dispatches so far (stream passes over A)."""
+    """Total stream passes over A dispatched so far.  Unlike the
+    reference's trace-time count, this counts passes that run: a solve
+    adds one per iteration."""
     return _dispatches
 
 
-def _count_dispatch() -> None:
+def count_passes(n: int = 1) -> None:
+    """Add ``n`` passes over A to :func:`trace_dispatch_count`."""
     global _dispatches
-    _dispatches += 1
+    _dispatches += int(n)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -119,8 +124,32 @@ def run_stream(idx, val, seg_ids, x, *, num_rows_padded: int,
     backend/device agreement is checked in one place; the kernel wrappers
     then run the CUDA kernel on CUDA tensors and the plain version on CPU
     tensors."""
-    _count_dispatch()
+    count_passes()
     resolve_backend(backend, x.device)
     fn = serpens_spmv.spmv if x.dim() == 1 else serpens_spmv.spmm
     return fn(idx, val, seg_ids, x, num_rows_padded=num_rows_padded,
               segment_width=segment_width, tiles_per_chunk=tiles_per_chunk)
+
+
+def run_stream_fused(idx, val, seg_ids, x, *, epilogue, extras=(),
+                     num_rows_padded: int, segment_width: int,
+                     tiles_per_chunk: int = 1, backend: str = "auto",
+                     loop=None):
+    """One pass over A plus a fused epilogue: the solver hot path.
+
+    ``epilogue(acc2d, *extras)`` runs on the complete (R, LANES) fp32
+    accumulator: on CUDA tensors inside the fused kernel chain
+    (:func:`~repro_torch.kernels.serpens_spmv.spmv_fused`, registered
+    epilogues only), on CPU tensors in torch ops after the plain stream.
+    x is the flat vector (at least K long, no padding needed).  Returns
+    ``(acc, outs)``.  A lone call counts one pass over A; under a
+    ``loop`` the caller counts the iterations that ran
+    (:func:`count_passes`).
+    """
+    if loop is None:
+        count_passes()
+    resolve_backend(backend, x.device)
+    return serpens_spmv.spmv_fused(
+        idx, val, seg_ids, x, extras, epilogue=epilogue,
+        num_rows_padded=num_rows_padded, segment_width=segment_width,
+        tiles_per_chunk=tiles_per_chunk, loop=loop)

@@ -1,7 +1,9 @@
-"""Serpens stream SpMV/SpMM: the CUDA kernels' wrappers and plain versions.
+"""Serpens stream SpMV/SpMM and the fused solver step: the CUDA kernels'
+wrappers and plain versions.
 
 The kernels (``csrc/serpens_spmv.cu``) replace the reference package's TPU
-kernels ``spmv_pallas`` and ``spmm_pallas``.  They are compiled with
+kernels ``spmv_pallas``, ``spmm_pallas`` and ``spmv_fused_pallas``.  They
+are compiled with
 ``nvcc`` for ``sm_90a`` into ``build/`` at the repository root on first
 use, loaded with ``ctypes`` and launched on PyTorch's current stream.
 
@@ -12,11 +14,23 @@ they run the plain version, :func:`spmv_plain` / :func:`spmm_plain`, which
 decodes, gathers and ``index_add_``-s in fp32 like the reference's XLA
 stream path.  Nothing falls back: a CUDA tensor either runs the kernel or
 raises.
+
+:func:`spmv_fused` is one solver iteration: a pass over A, then the
+iteration's vector work (an *epilogue*) on the complete accumulator.  The
+TPU kernel traces any Python epilogue into its last grid step; CUDA cannot
+trace Python, so the kernel implements the three epilogues the solvers
+use, and each solver registers its plain torch epilogue with
+:func:`fused_epilogue` under the kernel's name for it.  On CUDA tensors an
+unregistered epilogue raises; on CPU tensors any callable runs.  Under a
+:class:`FusedLoop` the step also keeps the solver loop's control word on
+the device (see there).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -31,6 +45,7 @@ from repro_torch.core.format import COL_MASK, ROW_BITS
 # nowhere else, so a run can show that its path went through the kernels.
 spmv_launches = 0
 spmm_launches = 0
+spmv_fused_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "serpens_spmv.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -87,6 +102,10 @@ def _library() -> ctypes.CDLL:
             lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32,
                                          i32, i64, i64, i32, i32, p]
             lib.serpens_spmm.restype = i32
+            lib.serpens_spmv_fused.argtypes = [
+                i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32,
+                p, p, p, p, p, p, i32, p, ctypes.c_float, i32, p]
+            lib.serpens_spmv_fused.restype = i32
             _lib = lib
         return _lib
 
@@ -123,20 +142,23 @@ def _check_device(*tensors) -> torch.device:
     return dev
 
 
-def _check_kernel_args(idx, val, seg_ids, x, segment_width: int) -> None:
+def _check_kernel_args(idx, val, seg_ids, x) -> None:
     for name, t in (("idx", idx), ("val", val), ("seg_ids", seg_ids),
                     ("x", x)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
-    if x.shape[0] % segment_width:
-        raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
-                         f"segment_width={segment_width}")
     lanes = idx.shape[2]
     if not 1 <= lanes <= 1024:
         raise ValueError(f"lanes={lanes}: one thread per lane needs "
                          f"1 <= lanes <= 1024")
+
+
+def _check_padded(x, segment_width: int) -> None:
+    if x.shape[0] % segment_width:
+        raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
+                         f"segment_width={segment_width}")
 
 
 def _grid(device: torch.device, num_tiles: int) -> int:
@@ -202,7 +224,8 @@ def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
                           segment_width=segment_width)
     if dev.type != "cuda":
         raise ValueError(f"no Serpens kernel for device {dev}")
-    _check_kernel_args(idx, val, seg_ids, x, segment_width)
+    _check_kernel_args(idx, val, seg_ids, x)
+    _check_padded(x, segment_width)
     global spmv_launches
     lib = _library()
     acc = torch.zeros(num_rows_padded, dtype=torch.float32, device=dev)
@@ -232,7 +255,8 @@ def spmm(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
                           segment_width=segment_width)
     if dev.type != "cuda":
         raise ValueError(f"no Serpens kernel for device {dev}")
-    _check_kernel_args(idx, val, seg_ids, x, segment_width)
+    _check_kernel_args(idx, val, seg_ids, x)
+    _check_padded(x, segment_width)
     global spmm_launches
     lib = _library()
     n = x.shape[1]
@@ -247,3 +271,228 @@ def spmm(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
     _raise_on(status, "serpens_spmm")
     spmm_launches += 1
     return acc
+
+
+# -- fused solver step --------------------------------------------------------
+# Kernel ids of the epilogues csrc/serpens_spmv.cu implements, and the
+# threads of its epilogue blocks (kEpiThreads there).
+_EPILOGUE_IDS = {"cg": 0, "pagerank": 1, "power": 2}
+_EPI_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class EpilogueSpec:
+    """How a registered epilogue's extras and outputs map onto the kernel.
+
+    ``extras`` gives each extra's size: ``"v"`` for a state vector in the
+    (R, LANES) accumulator layout, an int for a small constant array
+    (scalars travel as (1, 1)).  Output ``i < len(state)`` is written back
+    in place into ``extras[state[i]]``; the ``scalars`` outputs after them
+    go to :attr:`FusedLoop.scalars`.  The stopping rule reads output
+    ``measure`` (its square root when ``sqrt``).
+    """
+    name: str
+    extras: tuple
+    state: tuple
+    scalars: int
+    measure: int
+    sqrt: bool = False
+
+
+_EPILOGUES: dict = {}
+
+
+def fused_epilogue(name: str, *, extras: tuple, state: tuple, scalars: int,
+                   measure: int, sqrt: bool = False):
+    """Register a plain torch epilogue as the one the CUDA kernel runs
+    under ``name`` (``"cg"``, ``"pagerank"`` or ``"power"``)."""
+    if name not in _EPILOGUE_IDS:
+        raise ValueError(f"the fused kernel has no epilogue {name!r}; it "
+                         f"implements {sorted(_EPILOGUE_IDS)}")
+    spec = EpilogueSpec(name, tuple(extras), tuple(state), int(scalars),
+                        int(measure), bool(sqrt))
+
+    def register(fn):
+        _EPILOGUES[fn] = spec
+        return fn
+    return register
+
+
+class FusedLoop:
+    """The device-side state of a solver loop run by fused steps.
+
+    ``ctrl = [cont, it]`` (int32) is the reference's ``while_loop``
+    condition, kept on the card: each step that runs adds one to ``it``
+    and sets ``cont = measure > stop and it < max_iters``, and a step
+    enqueued while ``cont == 0`` does nothing.  A solver therefore
+    enqueues steps ahead and reads ``ctrl`` once per chunk, never once per
+    iteration.  ``cont`` starts as ``first > stop`` (or true) when
+    ``max_iters > 0``.  ``scalars`` holds the epilogue's scalar outputs,
+    starting at the values a solve of zero iterations reports.  The
+    accumulator and the partial-sum scratch are allocated at the first
+    step and reused.
+    """
+
+    def __init__(self, device, *, stop: float, max_iters: int,
+                 scalars: tuple = (), first=None):
+        device = torch.device(device)
+        self.stop = float(stop)
+        self.max_iters = int(max_iters)
+        self.ctrl = torch.tensor([int(self.max_iters > 0), 0],
+                                 dtype=torch.int32, device=device)
+        if first is not None and self.max_iters > 0:
+            self.ctrl[0] = (first > self.stop).to(torch.int32)
+        self.scalars = torch.tensor(scalars, dtype=torch.float32,
+                                    device=device)
+        self.acc = None
+        self.part = None
+
+    def _buffers(self, acc_len: int, nb: int):
+        if self.acc is None or self.acc.numel() != acc_len:
+            self.acc = torch.empty(acc_len, dtype=torch.float32,
+                                   device=self.ctrl.device)
+        if self.part is None or self.part.numel() != 3 * nb:
+            self.part = torch.empty(3 * nb, dtype=torch.float32,
+                                    device=self.ctrl.device)
+        return self.acc, self.part
+
+
+def _check_extras(spec: EpilogueSpec, extras, acc_len: int) -> None:
+    if len(extras) != len(spec.extras):
+        raise ValueError(f"epilogue {spec.name!r} takes {len(spec.extras)} "
+                         f"extras, got {len(extras)}")
+    for i, (e, size) in enumerate(zip(extras, spec.extras)):
+        want = acc_len if size == "v" else size
+        if e.numel() != want:
+            raise ValueError(f"extra {i} of epilogue {spec.name!r} has "
+                             f"{e.numel()} elements, expected {want}")
+        if e.dtype != torch.float32 or not e.is_contiguous():
+            raise ValueError(f"extra {i} of epilogue {spec.name!r} must be "
+                             f"contiguous float32")
+
+
+def _state_outs(spec: EpilogueSpec, extras, loop: FusedLoop) -> tuple:
+    return (tuple(extras[j] for j in spec.state)
+            + tuple(loop.scalars[k].view(1, 1) for k in range(spec.scalars)))
+
+
+def spmv_fused_plain(idx, val, seg_ids, x, extras=(), *, epilogue,
+                     num_rows_padded: int, segment_width: int):
+    """Plain fused step: :func:`spmv_plain` (entries of x past its end
+    read as zero), then ``epilogue(acc2d, *extras)`` in torch ops.
+    Returns ``(acc, outs)`` and leaves the extras as they were."""
+    lanes = idx.shape[2]
+    live, rows, cols = _decode(idx, seg_ids, segment_width, lanes)
+    live = live & (cols < x.shape[0])
+    contrib = torch.where(live, val.float() * x[torch.where(live, cols, 0)],
+                          0.0)
+    acc = torch.zeros(num_rows_padded, dtype=torch.float32, device=x.device)
+    acc.index_add_(0, rows.reshape(-1), contrib.reshape(-1))
+    return acc, tuple(epilogue(acc.view(-1, lanes), *extras))
+
+
+def _plain_step(spec, loop, epilogue, idx, val, seg_ids, x, extras,
+                **geo):
+    """The kernel's semantics in torch ops (CPU tensors): the plain step,
+    its state written back in place, and the loop's control word."""
+    if int(loop.ctrl[0]) == 0:
+        acc = (loop.acc if loop.acc is not None else
+               torch.zeros(geo["num_rows_padded"], dtype=torch.float32))
+        return acc, _state_outs(spec, extras, loop)
+    acc, outs = spmv_fused_plain(idx, val, seg_ids, x, extras,
+                                 epilogue=epilogue, **geo)
+    for i, j in enumerate(spec.state):
+        extras[j].copy_(outs[i])
+    for k in range(spec.scalars):
+        loop.scalars[k] = outs[len(spec.state) + k].reshape(())
+    measure = outs[spec.measure].reshape(())
+    if spec.sqrt:
+        measure = torch.sqrt(measure)
+    it = int(loop.ctrl[1]) + 1
+    loop.ctrl[1] = it
+    loop.ctrl[0] = int(bool(measure > loop.stop) and it < loop.max_iters)
+    loop.acc = acc
+    return acc, _state_outs(spec, extras, loop)
+
+
+def _epi_blocks(device: torch.device, acc_len: int) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(2 * sms, -(-acc_len // (_EPI_THREADS * 8))))
+
+
+def spmv_fused(idx, val, seg_ids, x, extras=(), *, epilogue,
+               num_rows_padded: int, segment_width: int,
+               tiles_per_chunk: int = 1, loop: FusedLoop | None = None):
+    """One fused solver step: ``acc = A @ x``, then ``epilogue(acc2d,
+    *extras)`` on the complete accumulator.  Returns ``(acc, outs)``.
+
+    Args:
+      idx, val, seg_ids: the stream, as for :func:`spmv`.
+      x: float32 1-D, at least K long.  Live columns are < K and entries
+        past the end of x read as zero, so a solver passes a view of its
+        flat state vector and pads nothing.
+      extras: the reference's extras: state vectors in (R, LANES) layout,
+        scalars as (1, 1) arrays.
+      epilogue: a plain torch function ``(acc2d, *extras) -> outs``.
+      loop: the :class:`FusedLoop` this step is an iteration of.
+
+    On CPU tensors an unregistered epilogue simply runs after
+    :func:`spmv_plain` (the reference's contract).  A registered one
+    (:func:`fused_epilogue`) works **in place**: the outputs that are
+    solver state (sol, r, p for CG; r for PageRank; v for power
+    iteration) are written back into their extras, the scalar outputs
+    into ``loop.scalars``, and ``outs`` holds those tensors.  The CUDA
+    kernel always works so (the state then takes no second copy), and
+    the CPU path copies the plain outputs back, so a solver runs one
+    code path on both.  On CUDA tensors an unregistered epilogue raises.
+    Without ``loop`` the step runs once, whatever the state.
+    """
+    _check_stream(idx, val, seg_ids, tiles_per_chunk)
+    if x.dim() != 1:
+        raise ValueError(f"spmv_fused needs a 1-D x, got {tuple(x.shape)}")
+    dev = _check_device(idx, val, seg_ids, x, *extras)
+    geo = dict(num_rows_padded=num_rows_padded, segment_width=segment_width)
+    spec = _EPILOGUES.get(epilogue)
+    if spec is None:
+        if dev.type == "cuda":
+            raise ValueError(
+                f"epilogue {getattr(epilogue, '__name__', epilogue)!r} is "
+                f"not registered with fused_epilogue: the CUDA kernel runs "
+                f"only the epilogues it implements ({sorted(_EPILOGUE_IDS)})")
+        if loop is not None:
+            raise ValueError("a FusedLoop needs a registered epilogue")
+        if dev.type != "cpu":
+            raise ValueError(f"no Serpens kernel for device {dev}")
+        return spmv_fused_plain(idx, val, seg_ids, x, tuple(extras),
+                                epilogue=epilogue, **geo)
+    extras = tuple(extras)
+    _check_extras(spec, extras, num_rows_padded)
+    if loop is None:
+        loop = FusedLoop(dev, stop=-math.inf, max_iters=1,
+                         scalars=(0.0,) * spec.scalars)
+    if loop.scalars.numel() != spec.scalars or loop.ctrl.device != dev:
+        raise ValueError(f"the FusedLoop does not fit epilogue "
+                         f"{spec.name!r} on {dev}")
+    if dev.type == "cpu":
+        return _plain_step(spec, loop, epilogue, idx, val, seg_ids, x,
+                           extras, **geo)
+    if dev.type != "cuda":
+        raise ValueError(f"no Serpens kernel for device {dev}")
+    _check_kernel_args(idx, val, seg_ids, x)
+    global spmv_fused_launches
+    lib = _library()
+    nb = _epi_blocks(dev, num_rows_padded)
+    acc, part = loop._buffers(num_rows_padded, nb)
+    ptrs = [e.data_ptr() for e in extras] + [None] * (4 - len(extras))
+    num_tiles, sub, lanes = idx.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = lib.serpens_spmv_fused(
+        _EPILOGUE_IDS[spec.name], idx.data_ptr(), val.data_ptr(),
+        seg_ids.data_ptr(), x.data_ptr(), acc.data_ptr(), num_tiles, sub,
+        lanes, segment_width, x.shape[0], num_rows_padded,
+        int(val.dtype == torch.bfloat16), _grid(dev, num_tiles), *ptrs,
+        loop.scalars.data_ptr() or None, part.data_ptr(), nb,
+        loop.ctrl.data_ptr(), loop.stop, loop.max_iters, stream)
+    _raise_on(status, "serpens_spmv_fused")
+    spmv_fused_launches += 1
+    return acc, _state_outs(spec, extras, loop)

@@ -14,7 +14,7 @@ explicit stages connected by bounded queues::
            results on shed                     [collect] ──► per-owner
                                                device-block    result queues
 
-* **admission** — every ``submit`` passes a bounded gate
+* **admission** — every ``submit``/``submit_solve`` passes a bounded gate
   (``AdmissionConfig``): ``block`` applies backpressure to the caller
   (bounded by ``block_timeout``), ``reject`` raises
   :class:`AdmissionRejected`, ``shed-oldest`` evicts the oldest queued
@@ -45,8 +45,8 @@ explicit stages connected by bounded queues::
 same pipeline runs synchronously inside ``flush()`` (one stage after
 another, with rollback-and-requeue on dispatch failure), which is the
 back-compat contract :class:`repro_torch.serve.spmv_service.SpMVService` keeps.
-Solver runs (``submit_solve``/``solve``) wait for the solver slice of the
-port and raise ``NotImplementedError``.
+Solver runs (:mod:`repro_torch.solvers`) enter through the same admission
+gate via ``submit_solve`` and dispatch as singleton batches.
 
 Failure semantics differ by mode on purpose: the synchronous path rolls
 back and re-queues every request of the failed flush (callers retry the
@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch import solvers
 from repro_torch.core.registry import MatrixRegistry
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.metrics import MetricsRegistry
@@ -172,6 +173,11 @@ class SpMVRequest:
     # un-parks them (pipeline re-entry).  The synchronous flush path
     # polls them instead, exactly like the pre-pipeline service.
     parked: bool = False
+    # "spmv" or "solve"; solve requests carry the solver name + kwargs and
+    # dispatch as singleton batches through the same admission gate.
+    kind: str = "spmv"
+    solve_kind: str | None = None
+    solve_kw: dict | None = None
 
 
 @dataclasses.dataclass
@@ -188,6 +194,10 @@ class SpMVResult:
     # it); ``result()`` re-raises it to the collecting caller.
     error: BaseException | None = None
     owner: str | None = None
+    # Solver result object (CGResult / PowerResult) for submit_solve
+    # requests; ``y`` holds the solution vector on the host.  A solve's
+    # stream_bytes_per_vector counts one A-stream per solver iteration.
+    solve: object | None = None
 
 
 @dataclasses.dataclass
@@ -524,19 +534,71 @@ class SpMVPipeline:
 
     def submit_solve(self, matrix_id: str, kind: str, *, b=None,
                      owner: str | None = None, **solve_kw) -> int:
-        """Queue a whole solver run — waits for the solver slice."""
-        raise NotImplementedError(
-            "submit_solve needs the solvers, which wait for the solver "
-            "slice of the port")
+        """Queue a whole solver run (:data:`repro_torch.solvers.SOLVERS`)
+        through the same admission gate; returns a ticket whose result
+        carries the solver outcome in ``SpMVResult.solve`` (and the
+        solution vector in ``y``).
+
+        ``b`` is the right-hand side for ``conjugate_gradient``/``cg``
+        (required there, rejected elsewhere); solver keywords (``tol``,
+        ``max_iters``, ``fused``, ...) pass through ``solve_kw``.  Solves
+        dispatch as singleton batches: they never coalesce with SpMV
+        requests, but they queue, shed, and account like them.
+        """
+        if kind not in solvers.SOLVERS:
+            raise ValueError(f"unknown solver {kind!r}; known: "
+                             f"{sorted(solvers.SOLVERS)}")
+        needs_b = solvers.SOLVERS[kind] is solvers.conjugate_gradient
+        if needs_b and b is None:
+            raise ValueError(f"solver {kind!r} requires b")
+        if not needs_b and b is not None:
+            raise ValueError(f"solver {kind!r} takes no b")
+        with obs.span("submit", matrix=matrix_id, kind=f"solve:{kind}"):
+            expect = None
+            if self.registry.ready(matrix_id):
+                op = self.registry.get(matrix_id)
+                m_len, _ = op.shape
+            else:
+                op = None
+                m_len, _ = self.registry.shape(matrix_id)
+                expect = self.registry.content(matrix_id)
+            kw = dict(solve_kw)
+            if b is not None:
+                b = np.asarray(b)
+                if not np.issubdtype(b.dtype, np.floating):
+                    raise TypeError(
+                        f"b must have a floating dtype, got {b.dtype}")
+                b = np.array(b, np.float32)
+                if b.ndim != 1 or b.shape[0] != m_len:
+                    raise ValueError(
+                        f"b has shape {b.shape}; matrix {matrix_id!r} "
+                        f"needs a length-{m_len} vector")
+                kw["b"] = b
+            if owner is None:
+                owner = threading.current_thread().name
+            req = SpMVRequest(
+                ticket=-1, matrix_id=matrix_id, op=op,
+                x=b, alpha=1.0, beta=0.0, y=None,
+                submit_time=time.perf_counter(), expect_content=expect,
+                owner=owner, parked=op is None, kind="solve",
+                solve_kind=kind, solve_kw=kw)
+            ticket = self._admit(req)
+            if op is None:
+                self._listen_for(matrix_id, expect)
+            obs.flow_start("request", ticket, matrix=matrix_id)
+        return ticket
 
     def solve(self, matrix_id: str, kind: str, *, b=None,
               owner: str | None = None, timeout: float | None = 60.0,
               **solve_kw) -> SpMVResult:
-        """``submit_solve`` + ``flush`` + ``result`` — waits for the
-        solver slice."""
-        raise NotImplementedError(
-            "solve needs the solvers, which wait for the solver slice of "
-            "the port")
+        """Convenience: ``submit_solve`` + (synchronous mode) ``flush`` +
+        ``result``; returns the :class:`SpMVResult` (solver outcome in
+        ``.solve``, solution vector in ``.y``)."""
+        ticket = self.submit_solve(matrix_id, kind, b=b, owner=owner,
+                                   **solve_kw)
+        if not self._running:
+            self.flush()
+        return self.result(ticket, timeout=timeout)
 
     def update(self, matrix_id: str, delta_rows, delta_cols,
                delta_vals=None, *, mode: str = "add") -> str:
@@ -808,7 +870,12 @@ class SpMVPipeline:
             raise RuntimeError(
                 f"matrix {req.matrix_id!r} was replaced or "
                 f"updated while its encode was pending")
-        if req.x.shape[0] != op.shape[1] or (
+        if req.kind == "solve":
+            if req.x is not None and req.x.shape[0] != op.shape[0]:
+                raise RuntimeError(
+                    f"matrix {req.matrix_id!r} changed shape to "
+                    f"{op.shape} while its encode was pending")
+        elif req.x.shape[0] != op.shape[1] or (
                 req.y is not None
                 and req.y.shape[0] != op.shape[0]):
             raise RuntimeError(
@@ -903,11 +970,14 @@ class SpMVPipeline:
         """Group on the operator captured at submit: still valid even if
         the registry evicted the id since, and two requests only share a
         batch when they truly share a matrix (an id re-registered with
-        new content mid-queue lands in its own group)."""
+        new content mid-queue lands in its own group).  Solve requests
+        are singleton batches."""
         with obs.span("coalesce", requests=len(ready_reqs)) as co_sp:
             groups: dict[object, list[SpMVRequest]] = {}
             for req in ready_reqs:
-                groups.setdefault(id(req.op), []).append(req)
+                key = (("solve", req.ticket) if req.kind == "solve"
+                       else id(req.op))
+                groups.setdefault(key, []).append(req)
             batches = [reqs[i:i + self.max_bucket]
                        for reqs in groups.values()
                        for i in range(0, len(reqs), self.max_bucket)]
@@ -1013,6 +1083,48 @@ class SpMVPipeline:
                 stream_bytes_per_vector=bytes_per_vec,
                 owner=req.owner)
         return results
+
+    def _solve_one(self, req: SpMVRequest) -> SpMVResult:
+        """Run one solver request end to end (device-blocking: the
+        solution is copied to the host).  Never raises — failures become
+        the ticket's error result.  In pipelined mode the solve runs on
+        the dispatcher's stream."""
+        op = req.op
+        stream = self._stream if self._running else None
+        try:
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(op.device))
+            with obs.span("dispatch", matrix=req.matrix_id,
+                          kind=f"solve:{req.solve_kind}"), \
+                    _on_stream(stream):
+                obs.flow_step("request", req.ticket)
+                with obs.span("compute", kind=req.solve_kind):
+                    sres = solvers.solve(op, req.solve_kind,
+                                         **(req.solve_kw or {}))
+                with obs.span("device-block"):
+                    y = sres.x.cpu().numpy()
+            done = time.perf_counter()
+            iters = max(int(getattr(sres, "iterations", 1)), 1)
+            # A solve streams A once per iteration — that is its serving
+            # economics, so stream-bytes charge iters full passes.
+            with self._lock:
+                self._m_batches.inc()
+                self._m_vectors.add(1)
+                self._m_stream_bytes.add(op.stream_bytes * iters)
+                self._m_batch_size.observe(1)
+                self._m_dispatch_lat.observe(done - req.submit_time)
+            return SpMVResult(
+                ticket=req.ticket, y=y, latency_s=done - req.submit_time,
+                batch_size=1, bucket_n=1,
+                stream_bytes_per_vector=float(op.stream_bytes * iters),
+                owner=req.owner, solve=sres)
+        except Exception as e:  # noqa: BLE001 — routed to the caller
+            obs.instant("request-failed", ticket=req.ticket,
+                        matrix=req.matrix_id, error=str(e))
+            return SpMVResult(
+                ticket=req.ticket, y=None, latency_s=0.0, batch_size=0,
+                bucket_n=0, stream_bytes_per_vector=0.0, error=e,
+                owner=req.owner)
 
     # -- result store -----------------------------------------------------
     def _deposit_locked(self, res: SpMVResult) -> None:
@@ -1135,34 +1247,45 @@ class SpMVPipeline:
         batches = self._coalesce(ready_reqs)
         flush_sp.args.update(requests=n_taken, batches=len(batches),
                              deferred=n_deferred)
-        results: dict[int, SpMVResult] = {}
+        spmv_results: dict[int, SpMVResult] = {}
+        solve_results: dict[int, SpMVResult] = {}
         launched: list[tuple] = []    # (op, batch) with counted stats
         try:
             for batch in batches:
+                if batch[0].kind == "solve":
+                    res = self._solve_one(batch[0])   # never raises
+                    solve_results[res.ticket] = res
+                    continue
                 lb = self._launch(batch[0].op, batch)
                 launched.append((lb.op, batch))
-                results.update(self._collect(lb))
+                spmv_results.update(self._collect(lb))
         except Exception:
-            # The exception discards `results`, so requests from
+            # The exception discards `spmv_results`, so requests from
             # already-dispatched batches would be stranded too: re-queue
-            # every request (SpMV is pure — re-dispatch on the next flush
-            # is safe) and roll back the launched batches' stats,
+            # every SpMV request (SpMV is pure — re-dispatch on the next
+            # flush is safe) and roll back the launched batches' stats,
             # atomically with the re-queue so a concurrent snapshot never
-            # sees the half-rolled-back state.
+            # sees the half-rolled-back state.  Completed solves are
+            # final work — they deposit rather than re-run.
             with self._result_cv:
                 for op, b in launched:
                     self._rollback_launch_locked(op, b)
-                requeue = [r for b in batches for r in b]
+                requeue = [r for b in batches for r in b
+                           if r.kind != "solve"]
                 self._queue.extendleft(reversed(requeue))
                 for r in requeue:
                     self._owner_pending[r.owner] = \
                         self._owner_pending.get(r.owner, 0) + 1
                 self._in_system -= len(requeue)
+                for res in solve_results.values():
+                    self._deposit_locked(res)
+                self._in_system -= len(solve_results)
                 self._sync_gauges_locked()
                 self._result_cv.notify_all()
                 self._cv.notify_all()
             obs.instant("flush-failed", batches_rolled_back=len(launched))
             raise
+        results = {**spmv_results, **solve_results}
         self._deposit_results(results)
         return results
 
@@ -1229,6 +1352,10 @@ class SpMVPipeline:
         if not ready_reqs:
             return
         for batch in self._coalesce(ready_reqs):
+            if batch[0].kind == "solve":
+                res = self._solve_one(batch[0])   # never raises
+                self._deposit_results({res.ticket: res})
+                continue
             try:
                 lb = self._launch(batch[0].op, batch)
             except Exception as e:  # noqa: BLE001 — per-batch containment

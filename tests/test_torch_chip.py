@@ -7,7 +7,10 @@ no CUDA device is present.  On a machine with one, run::
 
 Tolerance, elementwise: ``|kernel - plain| <= 1e-5 * (|A| @ |x|) + 1e-6``
 — the kernels sum with fp32 atomics, in an order that differs from the
-plain ``index_add_`` and from run to run.
+plain ``index_add_`` and from run to run.  The fused solver step's
+reductions are also taken in another order than torch's: its scalars must
+agree within ``1e-5 * sum(|terms|) + 1e-6`` and its state vectors within
+``1e-5`` of the larger of the vector's magnitude before and after the step.
 """
 import numpy as np
 import pytest
@@ -20,6 +23,11 @@ from repro_torch.core.spmv import SerpensOperator
 from repro_torch.kernels import ops
 from repro_torch.kernels import serpens_spmv as ks
 from repro_torch.serve.spmv_service import SpMVService
+from repro_torch import solvers
+from repro_torch.data import matrices as TM
+from repro_torch.solvers.cg import _cg_epilogue
+from repro_torch.solvers.power_iteration import (_pagerank_epilogue,
+                                                 _power_epilogue)
 
 from torch_port_util import random_coo
 
@@ -155,4 +163,157 @@ def test_service_on_the_card_launches_both_kernels(card, pipelined):
                                atol=1e-4)
     for x, got in zip(xs[1:], res):
         np.testing.assert_allclose(got.y, dense @ x, rtol=1e-4, atol=1e-4)
+    reg.close()
+
+
+# -- the fused solver step ----------------------------------------------------
+EPILOGUES = {"cg": _cg_epilogue, "pagerank": _pagerank_epilogue,
+             "power": _power_epilogue}
+
+
+def spd_coo(n, nnz, seed):
+    """Mirror the upper triangle of a random pattern; diagonal = row's
+    sum of |off-diagonal| + 1 (symmetric, diagonally dominant: SPD)."""
+    r, c, v = random_coo(n, n, nnz, seed=seed)
+    up = r < c
+    r, c, v = r[up], c[up], v[up]
+    diag = np.bincount(np.concatenate([r, c]),
+                       weights=np.abs(np.concatenate([v, v])),
+                       minlength=n) + 1.0
+    ar = np.arange(n)
+    return (np.concatenate([r, c, ar]), np.concatenate([c, r, ar]),
+            np.concatenate([v, v, diag.astype(np.float32)]))
+
+
+def fused_case(name, cfg, dev, n=6000, nnz=60000, seed=0):
+    """A square card operator and one solver step's x and extras: CG's
+    first iteration, a PageRank step from a random distribution, a power
+    step from a random unit vector."""
+    r, c, v = spd_coo(n, nnz, seed)
+    if name == "pagerank":
+        v = TM.column_normalize(r, c, v, n)
+    op = SerpensOperator(TP.make_plan(r, c, v, (n, n), cfg, TP.PlanSpec()),
+                         device=dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if name == "cg":
+        b = op.to_acc_layout(torch.randn(n, generator=g).to(dev))
+        extras = (torch.zeros_like(b), b.clone(), b.clone(),
+                  (b * b).sum().reshape(1, 1))
+        x = op.from_acc_layout(extras[2])
+    elif name == "pagerank":
+        rv = torch.rand(n, generator=g).to(dev)
+        extras = (op.to_acc_layout(rv / rv.sum()),
+                  op.to_acc_layout(torch.ones(n, device=dev)),
+                  torch.tensor([[0.85, n]], device=dev))
+        x = op.from_acc_layout(extras[0])
+    else:
+        vv = torch.randn(n, generator=g).to(dev)
+        extras = (op.to_acc_layout(vv / vv.norm()),)
+        x = op.from_acc_layout(extras[0])
+    return op, x, extras
+
+
+def scalar_scale(name, i, acc, extras, want):
+    """sum(|terms|) of the reduced scalar output i (plain inputs)."""
+    if name == "power" and i == 1:                  # λ = Σ v·Av
+        return float((extras[0] * acc.view_as(extras[0])).abs().sum())
+    return float(want.abs().sum())      # Σ r², Σ|Δr|, ‖Av − λv‖: all terms ≥ 0
+
+
+@pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(EPILOGUES))
+def test_fused_kernel_matches_plain(card, name, cfg_name):
+    op, x, extras = fused_case(name, CONFIGS[cfg_name], card)
+    ep = EPILOGUES[name]
+    if not op.supports_fused_epilogue:
+        with pytest.raises(ValueError, match="fused epilogue needs"):
+            op.matvec_fused(x, ep, extras=extras)
+        return
+    idx, val, seg = op._shards[0]
+    geo = dict(num_rows_padded=op.plan.out_rows_padded,
+               segment_width=op.config.segment_width)
+    want_acc, want = ks.spmv_fused_plain(idx, val, seg, x, extras,
+                                         epilogue=ep, **geo)
+    scale = ks.spmv_plain(idx, val.abs(), seg,
+                          ops.pad_x(x.abs(), op.plan.num_segments_local,
+                                    op.config.segment_width), **geo)
+    k_extras = tuple(e.clone() for e in extras)
+    kx = op.from_acc_layout(k_extras[0 if name != "cg" else 2])
+    before = ks.spmv_fused_launches
+    acc, got = op.matvec_fused(kx, ep, extras=k_extras)
+    torch.cuda.synchronize()
+    assert ks.spmv_fused_launches == before + 1
+    assert_close(acc, want_acc, scale)
+    spec = ks._EPILOGUES[ep]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        if i < len(spec.state):
+            assert g is k_extras[spec.state[i]]          # in place
+            mag = max(float(w.abs().max()),
+                      float(extras[spec.state[i]].abs().max()))
+            assert err <= 1e-5 * mag, (i, err, mag)
+        else:
+            assert err <= 1e-5 * scalar_scale(name, i, want_acc, extras,
+                                              w) + 1e-6, (i, err)
+
+
+def test_unregistered_epilogue_raises_on_the_card(card):
+    op, x, extras = fused_case("power", CONFIGS["small"], card, n=500,
+                               nnz=3000)
+
+    def double(acc2, v2):
+        return (2.0 * acc2 + v2,)
+
+    before = ks.spmv_fused_launches
+    with pytest.raises(ValueError, match="not registered"):
+        op.matvec_fused(x, double, extras=extras)
+    assert ks.spmv_fused_launches == before
+
+
+@pytest.mark.parametrize("kind", ["pagerank", "cg", "power_iteration"])
+def test_small_solve_on_the_card(card, kind):
+    cfg = CONFIGS["paper"]
+    r, c, v = spd_coo(4000, 40000, seed=1)
+    if kind == "pagerank":
+        v = TM.column_normalize(r, c, v, 4000)
+    plan = TP.make_plan(r, c, v, (4000, 4000), cfg, TP.PlanSpec())
+    op = SerpensOperator(plan, device=card)
+    cpu = SerpensOperator(plan, device="cpu")
+    b = np.random.default_rng(2).normal(size=4000).astype(np.float32)
+    kw = {"pagerank": dict(tol=1e-6, max_iters=200),
+          "cg": dict(b=b, tol=1e-6),
+          "power_iteration": dict(tol=1e-5, max_iters=100)}[kind]
+    before = ks.spmv_fused_launches
+    fused = solvers.solve(op, kind, fused=True, **kw)
+    launched = ks.spmv_fused_launches - before
+    unfused = solvers.solve(op, kind, fused=False, **kw)
+    plain = solvers.solve(cpu, kind, **kw)
+    assert fused.fused and not unfused.fused
+    assert launched >= fused.iterations > 0
+    assert fused.host_syncs <= -(-fused.iterations // 8) + 1
+    for other in (unfused, plain):
+        assert abs(fused.iterations - other.iterations) <= 1
+        np.testing.assert_allclose(fused.x.cpu().numpy(),
+                                   other.x.cpu().numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    if kind != "power_iteration":
+        assert fused.converged
+
+
+def test_service_solve_on_the_card(card):
+    r, c, v = spd_coo(3000, 30000, seed=4)
+    reg = MatrixRegistry(config=CONFIGS["paper"], device=card)
+    mid = reg.put(r, c, TM.column_normalize(r, c, v, 3000), (3000, 3000))
+    svc = SpMVService(reg, device=card)
+    before = ks.spmv_fused_launches
+    res = svc.solve(mid, "pagerank", tol=1e-6, max_iters=200)
+    assert res.solve.fused and res.solve.converged
+    assert ks.spmv_fused_launches - before >= res.solve.iterations
+    assert abs(float(res.y.sum()) - 1.0) < 1e-3
+    with svc:
+        t = svc.submit_solve(mid, "power_iteration", max_iters=20)
+        res2 = svc.result(t, timeout=120)
+    assert res2.solve.iterations == 20 and res2.solve.fused
     reg.close()

@@ -181,11 +181,6 @@ def test_later_slices_raise_not_implemented():
         treg.put(r, c, v, (M, K), verify="maybe")
     mid = treg.put(r, c, v, (M, K))
     assert treg.record_observation(mid, slots_per_s=1.0) is False
-    svc = TS.SpMVService(treg, device="cpu")
-    with pytest.raises(NotImplementedError, match="solver slice"):
-        svc.submit_solve(mid, "pagerank")
-    with pytest.raises(NotImplementedError, match="solver slice"):
-        svc.solve(mid, "cg", b=np.ones(M, np.float32))
 
 
 def test_entry_points_refuse_a_missing_card(monkeypatch):
@@ -199,3 +194,123 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
                       device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TS.SpMVService(TR.MatrixRegistry(device="cpu"))
+
+
+# -- solves through the admission gate (twins of the reference's
+# TestSolveThroughGate) -------------------------------------------------------
+def solve_service(n=64, nnz=500, seed=0, **kw):
+    _, treg = registries()
+    r, c, v = random_coo(n, n, nnz, seed=seed)
+    mid = treg.put(r, c, v, (n, n))
+    return TS.SpMVService(treg, device="cpu", **kw), treg, mid, n
+
+
+def test_submit_solve_validation():
+    svc, _, mid, n = solve_service()
+    with pytest.raises(ValueError, match="unknown solver"):
+        svc.submit_solve(mid, "gauss")
+    with pytest.raises(ValueError, match="requires b"):
+        svc.submit_solve(mid, "cg")
+    with pytest.raises(ValueError, match="takes no b"):
+        svc.submit_solve(mid, "pagerank", b=np.ones(n, np.float32))
+    with pytest.raises(TypeError, match="floating"):
+        svc.submit_solve(mid, "cg", b=np.ones(n, np.int32))
+    with pytest.raises(ValueError, match="length-64"):
+        svc.submit_solve(mid, "cg", b=np.ones(n + 1, np.float32))
+    assert svc.pending == 0
+
+
+def test_pagerank_solve_sync_matches_reference():
+    from repro.data import matrices as JM
+    n = 120
+    rows, cols, vals = JM.power_law_graph(n, 900, seed=7)
+    vals_n = JM.column_normalize(rows, cols, vals, n)
+    jreg, treg = registries()
+    jmid, tmid = jreg.put(rows, cols, vals_n, (n, n)), \
+        treg.put(rows, cols, vals_n, (n, n))
+    jsvc = JS.SpMVService(jreg)
+    tsvc = TS.SpMVService(treg, device="cpu")
+    jres = jsvc.solve(jmid, "pagerank", tol=1e-5, owner="ranker")
+    tres = tsvc.solve(tmid, "pagerank", tol=1e-5, owner="ranker")
+    assert tres.solve is not None and tres.solve.converged
+    assert tres.solve.fused and tres.owner == "ranker"
+    assert tres.solve.iterations == jres.solve.iterations
+    assert isinstance(tres.y, np.ndarray) and tres.y.dtype == np.float32
+    np.testing.assert_allclose(tres.y, jres.y, **TOL)
+    # A solve charges one A-stream pass per iteration.
+    assert tsvc.stats.stream_bytes == jsvc.stats.stream_bytes == \
+        treg.get(tmid).stream_bytes * tres.solve.iterations
+    assert tsvc.stats.batches == 1 and tsvc.stats.vectors == 1
+
+
+def test_cg_solve_pipelined_matches_reference():
+    n = 32
+    rng = np.random.default_rng(11)
+    a = rng.normal(size=(n, n)).astype(np.float32) * 0.05
+    a = a + a.T + np.eye(n, dtype=np.float32) * n
+    rr, cc = np.nonzero(a)
+    jreg, treg = registries()
+    jmid, tmid = jreg.put(rr, cc, a[rr, cc], (n, n)), \
+        treg.put(rr, cc, a[rr, cc], (n, n))
+    b = rng.normal(size=n).astype(np.float32)
+    jsvc = JS.SpMVService(jreg)
+    tsvc = TS.SpMVService(treg, device="cpu")
+    with tsvc:
+        t = tsvc.submit_solve(tmid, "cg", b=b, tol=1e-6)
+        tres = tsvc.result(t, timeout=60.0)
+    with jsvc:
+        jres = jsvc.result(jsvc.submit_solve(jmid, "cg", b=b, tol=1e-6),
+                           timeout=60.0)
+    assert tres.solve.converged and tres.solve.iterations == \
+        jres.solve.iterations
+    np.testing.assert_allclose(tres.y, jres.y, **TOL)
+    np.testing.assert_allclose(a @ tres.y, b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["sync", "pipelined"])
+def test_solver_failure_becomes_error_result(pipelined):
+    svc, _, mid, n = solve_service()
+    t = svc.submit_solve(mid, "cg", b=np.ones(n, np.float32),
+                         no_such_kw=1)   # solver raises TypeError
+    if pipelined:
+        with svc:
+            with pytest.raises(TypeError):
+                svc.result(t, timeout=30.0)
+    else:
+        svc.flush()
+        with pytest.raises(TypeError):
+            svc.result(t, timeout=1.0)
+    assert svc.stats.batches == 0        # failed solve never counted
+
+
+def test_solves_and_spmv_share_the_gate():
+    svc, _, mid, n = solve_service(
+        admission=TS.AdmissionConfig("reject", max_pending=2))
+    svc.submit(mid, np.ones(n, np.float32))
+    svc.submit_solve(mid, "pagerank", max_iters=4)
+    with pytest.raises(TS.AdmissionRejected):
+        svc.submit_solve(mid, "pagerank")
+    results = svc.flush()
+    assert len(results) == 2
+    assert sorted(r.batch_size for r in results.values()) == [1, 1]
+    assert svc.stats.rejected == 1
+
+
+def test_solve_waits_for_a_background_encode():
+    _, treg = registries()
+    r, c, v = random_coo(M, M, 700, seed=13)
+    mid = treg.put(r, c, v, (M, M), blocking=False)
+    svc = TS.SpMVService(treg, device="cpu")
+    t = svc.submit_solve(mid, "power_iteration", max_iters=5)
+    deadline = 60
+    while True:
+        svc.flush()
+        try:
+            res = svc.result(t, timeout=0.05)
+            break
+        except TimeoutError:
+            deadline -= 1
+            assert deadline > 0
+    assert res.solve.iterations == 5 and res.y.shape == (M,)
+    treg.close()

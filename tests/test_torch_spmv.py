@@ -153,9 +153,6 @@ def test_default_device_is_cuda(monkeypatch):
 
 def test_later_slices_raise_not_implemented():
     _, top = both_ops("small", ("single", 1, "modulo"))
-    x, _ = vectors(8)
-    with pytest.raises(NotImplementedError, match="solver slice"):
-        top.matvec_fused(x, epilogue=None)
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         top.with_mesh(object(), "x")
     assert top.with_mesh(None, "x") is top
