@@ -41,8 +41,10 @@ imports nothing of the JAX package.  Phases:
    ``spmv_fused_plain`` on the same card tensors (acc as in phase 1;
    state vectors within 1e-5 of their magnitude; reduced scalars within
    ``1e-5·Σ|terms| + 1e-6``), and CUDA-event timings of the fused step,
-   the unfused step, the plain version and ``torch.mv`` on a CSR tensor
-   plus the epilogue in torch ops (a yardstick only).  If the run has
+   of one iteration of each solver's own fused and unfused loop bodies
+   (16 iterations a run), of the plain version and of ``torch.mv`` on a
+   CSR tensor plus the epilogue in torch ops (a yardstick only).  If the
+   run has
    passed 8 minutes before the G5 part, G5 runs at scale 0.25 and says
    so; the G7 PageRank never shrinks.
 
@@ -74,9 +76,11 @@ from repro_torch.core.registry import MatrixRegistry  # noqa: E402
 from repro_torch.core.spmv import SerpensOperator  # noqa: E402
 from repro_torch.data.matrices import (column_normalize,  # noqa: E402
                                        paper_matrix)
-from repro_torch.solvers.cg import _cg_epilogue  # noqa: E402
+from repro_torch.solvers.cg import (  # noqa: E402
+    _cg_epilogue, _solve_fused, _solve_unfused)
 from repro_torch.solvers.power_iteration import (  # noqa: E402
-    _pagerank_epilogue, _power_epilogue)
+    _pagerank_epilogue, _pagerank_fused, _pagerank_unfused, _power_epilogue,
+    _power_fused, _power_unfused)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
@@ -278,6 +282,8 @@ def bound_ms(plan, n: int) -> tuple[float, str]:
 # -- phase 4: the solvers -----------------------------------------------------
 FUSED_EPILOGUES = {"pagerank": _pagerank_epilogue, "cg": _cg_epilogue,
                    "power": _power_epilogue}
+# Iterations per timed run of a solver body: two chunks of the fused loop.
+BODY_ITERS = 16
 # Bytes of the state each fused step must read and write once, in units of
 # one (R, LANES) fp32 vector: CG reads sol, r, p and writes them back;
 # PageRank reads r and the mask and writes r; power iteration reads and
@@ -374,44 +380,35 @@ def compare_fused(name, op, dev) -> float:
     return worst
 
 
-def unfused_step(name, op, x, extras):
-    """One iteration of the solvers' two-phase body (the spmv kernel,
-    torch vector ops, and the host read of the stopping measure), on the
-    flat views of the fused state; the state is not advanced."""
+def solver_bodies(name, op, dev) -> dict:
+    """The solvers' own fused and unfused loop bodies (``_solve_fused``/
+    ``_solve_unfused`` in ``solvers/cg.py``, ``_pagerank_*`` and
+    ``_power_*`` in ``solvers/power_iteration.py``), each set up to run
+    :data:`BODY_ITERS` iterations from the same start, with a stop that
+    no measure reaches.  The fused body enqueues the kernel chain and
+    reads the loop's control word once per chunk; the unfused one runs
+    the spmv kernel, torch vector ops and a host read per iteration."""
     n = op.shape[0]
-    if name == "pagerank":
-        def step():
-            link = 0.85 * op.matvec(x)
-            r_new = link + (1.0 - torch.sum(link)) / n
-            return float(torch.sum(torch.abs(r_new - x))), r_new
-    elif name == "cg":
-        sol, r = op.from_acc_layout(extras[0]), op.from_acc_layout(extras[1])
-        rs = extras[3][0, 0]
-
-        def step():
-            ap = op.matvec(x)
-            denom = torch.dot(x, ap)
-            alpha = rs / torch.where(denom != 0, denom, 1e-30)
-            r_new = r - alpha * ap
-            rs_new = torch.dot(r_new, r_new)
-            beta = rs_new / torch.where(rs != 0, rs, 1e-30)
-            new_state = (sol + alpha * x, r_new, r_new + beta * x)
-            return float(torch.sqrt(rs_new)), new_state
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    if name == "cg":
+        b = torch.randn(n, generator=g).to(dev)
+        args = (torch.zeros_like(b), b, torch.dot(b, b))
+        bodies = (_solve_fused, _solve_unfused)
+    elif name == "pagerank":
+        args = (torch.full((n,), 1.0 / n, device=dev), 0.85)
+        bodies = (_pagerank_fused, _pagerank_unfused)
     else:
-        def step():
-            av = op.matvec(x)
-            lam = torch.dot(x, av)
-            res = torch.linalg.vector_norm(av - lam * x)
-            nrm = torch.linalg.vector_norm(av)
-            v_new = torch.where(nrm > 0, av / torch.clamp(nrm, min=1e-30),
-                                x)
-            return float(res), v_new
-    return step
+        v = torch.randn(n, generator=g).to(dev)
+        args = (v / v.norm(),)
+        bodies = (_power_fused, _power_unfused)
+    return {kind: functools.partial(body, op, *args, -1.0, BODY_ITERS, None)
+            for kind, body in zip(("fused", "unfused"), bodies)}
 
 
 def time_fused(name, op, dev, csr) -> dict:
-    """CUDA-event ms of one fused step (the kernel chain), one unfused
-    step (:func:`unfused_step`), the plain version, and ``torch.mv`` on
+    """CUDA-event ms of one fused step (the kernel chain), of one
+    iteration of the solvers' fused and unfused bodies
+    (:func:`solver_bodies`), of the plain version, and of ``torch.mv`` on
     CSR + the epilogue in torch ops."""
     ep = FUSED_EPILOGUES[name]
     cfg = op.config
@@ -434,9 +431,11 @@ def time_fused(name, op, dev, csr) -> dict:
         buf[:m].copy_(torch.mv(csr, x))
         ep(buf.view(-1, lanes), *extras)
 
-    # The unfused and library steps read the state the fused timing left.
+    bodies = solver_bodies(name, op, dev)
+    # The library step reads the state the fused timing left.
     return {"ms": time_ms(fused, 20),
-            "unfused_ms": time_ms(unfused_step(name, op, x, extras), 20),
+            "fused_iter_ms": time_ms(bodies["fused"], 3) / BODY_ITERS,
+            "unfused_iter_ms": time_ms(bodies["unfused"], 3) / BODY_ITERS,
             "plain_ms": time_ms(functools.partial(
                 ks.spmv_fused_plain, idx, val, seg, x, extras, epilogue=ep,
                 **geo), 3),
@@ -619,7 +618,10 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
         tm, (bd, by) = times[k], bounds[k]
         where = "G7" if k == "pagerank" else f"G5 x{g5_scale}"
         say(f"[phase4] {k} step ({where}): fused {tm['ms']:.4f} ms, "
-            f"unfused {tm['unfused_ms']:.4f} ms, plain "
+            f"per iteration of the solver's fused body "
+            f"{tm['fused_iter_ms']:.4f} ms and unfused body "
+            f"{tm['unfused_iter_ms']:.4f} ms "
+            f"({tm['unfused_iter_ms'] / tm['fused_iter_ms']:.2f}x), plain "
             f"{tm['plain_ms']:.4f} ms, torch.sparse CSR + epilogue "
             f"{tm['library_ms']:.4f} ms, bound {bd:.4f} ms ({by}); "
             f"{bd / tm['ms']:.3f} of the bound  [{card}]")

@@ -191,8 +191,15 @@ class SerpensOperator:
         rows put global row r at acc[r // LANES, r % LANES], so flat↔acc
         is a pure pad + reshape."""
         v = self._coerce(v, "v")
-        return ops.pad_rows(v, self.plan.out_rows_padded).reshape(
-            -1, self.config.lanes)
+        rp = self.plan.out_rows_padded
+        if v.dim() != 1 or v.shape[0] > rp:
+            raise ValueError(f"v shaped {tuple(v.shape)} does not fit the "
+                             f"{rp}-row accumulator")
+        # Always a copy: the fused solvers update their state in place,
+        # and must not write into a caller's x0 or r0.
+        acc = torch.zeros(rp, dtype=torch.float32, device=self.device)
+        acc[: v.shape[0]] = v
+        return acc.reshape(-1, self.config.lanes)
 
     def from_acc_layout(self, a):
         """(R, LANES) accumulator layout → flat length-M vector (a view)."""

@@ -124,8 +124,8 @@ __global__ void spmm_kernel(const int32_t* __restrict__ idx,
 // partial-sum reduction takes the same order in each of them.
 constexpr int kEpiThreads = 256;
 
-// Epilogue ids; the wrapper (kernels/serpens_spmv.py) maps the solvers'
-// epilogue functions onto them.
+// Epilogue ids.  EPILOGUE_SPECS in kernels/serpens_spmv.py holds them with
+// the extras and outputs each epilogue's kernels below read and write.
 enum Epilogue : int { kCG = 0, kPageRank = 1, kPower = 2 };
 
 struct EpiArgs {

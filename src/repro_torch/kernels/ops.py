@@ -22,10 +22,15 @@ from repro_torch.kernels import serpens_spmv
 
 BACKENDS = ("cuda", "torch")
 
-# Dispatch counter: passes over A.  Bumped once per run_stream call and per
-# lone run_stream_fused call; a solver's fused loop adds the iterations that
-# ran (count_passes), since steps enqueued after convergence make no pass.
+# Dispatch counter: passes over A that ran.  This module is the only place
+# that counts: run_stream counts each call, run_stream_fused a lone call,
+# and run_fused_loop the iterations its loop ran (read at each chunk's host
+# sync, since steps enqueued after convergence make no pass).
 _dispatches = 0
+
+# Fused iterations enqueued between two host reads of a loop's control
+# word.  Up to FUSED_CHUNK - 1 steps run empty after convergence.
+FUSED_CHUNK = 8
 
 
 def trace_dispatch_count() -> int:
@@ -35,8 +40,7 @@ def trace_dispatch_count() -> int:
     return _dispatches
 
 
-def count_passes(n: int = 1) -> None:
-    """Add ``n`` passes over A to :func:`trace_dispatch_count`."""
+def _count_passes(n: int = 1) -> None:
     global _dispatches
     _dispatches += int(n)
 
@@ -124,7 +128,7 @@ def run_stream(idx, val, seg_ids, x, *, num_rows_padded: int,
     backend/device agreement is checked in one place; the kernel wrappers
     then run the CUDA kernel on CUDA tensors and the plain version on CPU
     tensors."""
-    count_passes()
+    _count_passes()
     resolve_backend(backend, x.device)
     fn = serpens_spmv.spmv if x.dim() == 1 else serpens_spmv.spmm
     return fn(idx, val, seg_ids, x, num_rows_padded=num_rows_padded,
@@ -142,14 +146,32 @@ def run_stream_fused(idx, val, seg_ids, x, *, epilogue, extras=(),
     (:func:`~repro_torch.kernels.serpens_spmv.spmv_fused`, registered
     epilogues only), on CPU tensors in torch ops after the plain stream.
     x is the flat vector (at least K long, no padding needed).  Returns
-    ``(acc, outs)``.  A lone call counts one pass over A; under a
-    ``loop`` the caller counts the iterations that ran
-    (:func:`count_passes`).
+    ``(acc, outs)``.  A lone call counts one pass over A; a step under a
+    ``loop`` is counted by :func:`run_fused_loop` once it is known to
+    have run.
     """
     if loop is None:
-        count_passes()
+        _count_passes()
     resolve_backend(backend, x.device)
     return serpens_spmv.spmv_fused(
         idx, val, seg_ids, x, extras, epilogue=epilogue,
         num_rows_padded=num_rows_padded, segment_width=segment_width,
         tiles_per_chunk=tiles_per_chunk, loop=loop)
+
+
+def run_fused_loop(step, loop) -> tuple[int, int]:
+    """Run a solver's fused loop: enqueue ``step()`` (one
+    :func:`run_stream_fused` call under ``loop``) :data:`FUSED_CHUNK`
+    times, read the loop's control word once, and repeat until it says
+    stop.  Counts the passes over A that ran.  Returns ``(iterations,
+    host_syncs)``."""
+    syncs = done = 0
+    while True:
+        for _ in range(FUSED_CHUNK):
+            step()
+        cont, it = loop.ctrl.tolist()
+        syncs += 1
+        _count_passes(it - done)
+        done = it
+        if not cont:
+            return it, syncs

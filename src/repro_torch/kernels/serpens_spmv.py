@@ -274,24 +274,24 @@ def spmm(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
 
 
 # -- fused solver step --------------------------------------------------------
-# Kernel ids of the epilogues csrc/serpens_spmv.cu implements, and the
-# threads of its epilogue blocks (kEpiThreads there).
-_EPILOGUE_IDS = {"cg": 0, "pagerank": 1, "power": 2}
+# Threads of the kernel's epilogue blocks (kEpiThreads there).
 _EPI_THREADS = 256
 
 
 @dataclasses.dataclass(frozen=True)
 class EpilogueSpec:
-    """How a registered epilogue's extras and outputs map onto the kernel.
+    """The layout one epilogue of the CUDA kernel hard-codes.
 
-    ``extras`` gives each extra's size: ``"v"`` for a state vector in the
-    (R, LANES) accumulator layout, an int for a small constant array
+    ``kernel_id`` is its ``enum Epilogue`` value.  ``extras`` gives each
+    extra's size (the kernel's ``e0..e3``): ``"v"`` for a state vector in
+    the (R, LANES) accumulator layout, an int for a small constant array
     (scalars travel as (1, 1)).  Output ``i < len(state)`` is written back
     in place into ``extras[state[i]]``; the ``scalars`` outputs after them
-    go to :attr:`FusedLoop.scalars`.  The stopping rule reads output
-    ``measure`` (its square root when ``sqrt``).
+    go to :attr:`FusedLoop.scalars` (the kernel's ``scal``).  The stopping
+    rule reads output ``measure`` (its square root when ``sqrt``).
     """
     name: str
+    kernel_id: int
     extras: tuple
     state: tuple
     scalars: int
@@ -299,20 +299,36 @@ class EpilogueSpec:
     sqrt: bool = False
 
 
+# The epilogues csrc/serpens_spmv.cu implements, as its cg_*, pr_* and pw_*
+# kernels lay them out.  CG: sol, r, p (also x), rs; stops on sqrt(rs).
+# PageRank: r (also x), mask, [damping, n]; scal = [delta].  Power
+# iteration: v (also x); scal = [lambda, residual], stops on the residual.
+EPILOGUE_SPECS = {
+    "cg": EpilogueSpec("cg", 0, extras=("v", "v", "v", 1),
+                       state=(0, 1, 2, 3), scalars=0, measure=3, sqrt=True),
+    "pagerank": EpilogueSpec("pagerank", 1, extras=("v", "v", 2), state=(0,),
+                             scalars=1, measure=1),
+    "power": EpilogueSpec("power", 2, extras=("v",), state=(0,), scalars=2,
+                          measure=2),
+}
+# Registered plain epilogue function -> its spec; one function per name.
 _EPILOGUES: dict = {}
 
 
-def fused_epilogue(name: str, *, extras: tuple, state: tuple, scalars: int,
-                   measure: int, sqrt: bool = False):
+def fused_epilogue(name: str):
     """Register a plain torch epilogue as the one the CUDA kernel runs
-    under ``name`` (``"cg"``, ``"pagerank"`` or ``"power"``)."""
-    if name not in _EPILOGUE_IDS:
+    under ``name`` (a key of :data:`EPILOGUE_SPECS`, whose layout the
+    function must follow).  A name takes one function."""
+    spec = EPILOGUE_SPECS.get(name)
+    if spec is None:
         raise ValueError(f"the fused kernel has no epilogue {name!r}; it "
-                         f"implements {sorted(_EPILOGUE_IDS)}")
-    spec = EpilogueSpec(name, tuple(extras), tuple(state), int(scalars),
-                        int(measure), bool(sqrt))
+                         f"implements {sorted(EPILOGUE_SPECS)}")
 
     def register(fn):
+        for other, s in _EPILOGUES.items():
+            if s is spec and other is not fn:
+                raise ValueError(f"epilogue {name!r} is already registered "
+                                 f"to {other.__qualname__}")
         _EPILOGUES[fn] = spec
         return fn
     return register
@@ -458,7 +474,8 @@ def spmv_fused(idx, val, seg_ids, x, extras=(), *, epilogue,
             raise ValueError(
                 f"epilogue {getattr(epilogue, '__name__', epilogue)!r} is "
                 f"not registered with fused_epilogue: the CUDA kernel runs "
-                f"only the epilogues it implements ({sorted(_EPILOGUE_IDS)})")
+                f"only the epilogues it implements "
+                f"({sorted(EPILOGUE_SPECS)})")
         if loop is not None:
             raise ValueError("a FusedLoop needs a registered epilogue")
         if dev.type != "cpu":
@@ -487,7 +504,7 @@ def spmv_fused(idx, val, seg_ids, x, extras=(), *, epilogue,
     num_tiles, sub, lanes = idx.shape
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.serpens_spmv_fused(
-        _EPILOGUE_IDS[spec.name], idx.data_ptr(), val.data_ptr(),
+        spec.kernel_id, idx.data_ptr(), val.data_ptr(),
         seg_ids.data_ptr(), x.data_ptr(), acc.data_ptr(), num_tiles, sub,
         lanes, segment_width, x.shape[0], num_rows_padded,
         int(val.dtype == torch.bfloat16), _grid(dev, num_tiles), *ptrs,

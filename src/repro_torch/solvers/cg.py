@@ -10,11 +10,11 @@ is ONE pass over A doing matrix *and* vector work; the state vectors stay
 in the kernel's (R, LANES) accumulator layout and are updated in place.
 The reference loops in a device-side ``lax.while_loop``; here the loop's
 condition lives on the card too (:class:`FusedLoop`): the host enqueues
-:data:`FUSED_CHUNK` iterations at a time and reads the control word once
-per chunk, so iteration counts equal the reference's and no iteration
-waits on the host.  Plans that cannot fuse (multi-shard, aux-spill,
-balanced lanes) run the classic two-phase body, which reads its stopping
-measure on the host once per iteration.
+:data:`~repro_torch.kernels.ops.FUSED_CHUNK` iterations at a time and
+reads the control word once per chunk, so iteration counts equal the
+reference's and no iteration waits on the host.  Plans that cannot fuse
+(multi-shard, aux-spill, balanced lanes) run the classic two-phase body,
+which reads its stopping measure on the host once per iteration.
 """
 from __future__ import annotations
 
@@ -27,9 +27,6 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.serpens_spmv import FusedLoop, fused_epilogue
 from repro_torch.solvers import precision
 
-# Fused iterations enqueued between two host reads of the loop's control
-# word.  Up to FUSED_CHUNK - 1 steps run empty after convergence.
-FUSED_CHUNK = 8
 _MESH_SLICE = "the multi-GPU slice of the port"
 
 
@@ -44,8 +41,7 @@ class CGResult:
     host_syncs: int = 0      # host reads of the loop's state during the solve
 
 
-@fused_epilogue("cg", extras=("v", "v", "v", 1), state=(0, 1, 2, 3),
-                scalars=0, measure=3, sqrt=True)
+@fused_epilogue("cg")
 def _cg_epilogue(ap2, sol2, r2, p2, rs11):
     """One CG iteration's vector work, fused against the fresh ``A·p``
     accumulator (all arrays in (R, LANES) layout; padded rows are zero in
@@ -77,23 +73,6 @@ def _resolve_fused(op, fused):
             "aux-spill, or balanced-lane plan); use fused='auto' to fall "
             "back automatically")
     return bool(fused)
-
-
-def _run_fused(step, loop: FusedLoop) -> tuple[int, int]:
-    """Enqueue fused steps :data:`FUSED_CHUNK` at a time until the loop's
-    control word says stop; one host read of ``ctrl`` per chunk.  Counts
-    the passes over A that ran.  Returns ``(iterations, host_syncs)``."""
-    syncs = 0
-    done = 0
-    while True:
-        for _ in range(FUSED_CHUNK):
-            step()
-        cont, it = loop.ctrl.tolist()
-        syncs += 1
-        ops.count_passes(it - done)
-        done = it
-        if not cont:
-            return it, syncs
 
 
 def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
@@ -179,5 +158,5 @@ def _solve_fused(op, x_init, r_init, rs_init, stop, max_iters, backend):
         op.matvec_fused(p, _cg_epilogue, extras=extras, backend=backend,
                         loop=loop)
 
-    iters, syncs = _run_fused(step, loop)
+    iters, syncs = ops.run_fused_loop(step, loop)
     return op.from_acc_layout(sol2), rs11[0, 0], iters, syncs

@@ -3,8 +3,8 @@
 The paper's graph-analytics use case (Sec. 1: "graph processing ...
 PageRank") as a *workload*: A streams from device memory once per
 iteration and nothing returns to the host until convergence, except one
-read of the loop's control word per :data:`~repro_torch.solvers.cg.FUSED_CHUNK`
-iterations.
+read of the loop's control word per
+:data:`~repro_torch.kernels.ops.FUSED_CHUNK` iterations.
 
 With ``fused`` (default ``"auto"``) each iteration's vector work — the
 teleport/dangling-mass redistribution and L1 delta (pagerank) or the
@@ -26,7 +26,7 @@ from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.serpens_spmv import FusedLoop, fused_epilogue
 from repro_torch.solvers import precision
-from repro_torch.solvers.cg import _no_mesh, _resolve_fused, _run_fused
+from repro_torch.solvers.cg import _no_mesh, _resolve_fused
 
 
 @dataclasses.dataclass
@@ -48,8 +48,7 @@ def _square(op):
     return m
 
 
-@fused_epilogue("pagerank", extras=("v", "v", 2), state=(0,), scalars=1,
-                measure=1)
+@fused_epilogue("pagerank")
 def _pagerank_epilogue(acc2, r2, mask2, consts):
     """One PageRank step fused against the fresh ``A·r`` accumulator.
 
@@ -90,33 +89,9 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-9,
     with obs.span("pagerank", cat="solver", n=n, damping=float(damping),
                   fused=use_fused) as sp:
         d0 = ops.trace_dispatch_count()
-        if use_fused:
-            r2 = op.to_acc_layout(r_init)
-            mask2 = op.to_acc_layout(
-                torch.ones(n, dtype=torch.float32, device=op.device))
-            consts = torch.tensor([[damping, n]], dtype=torch.float32,
-                                  device=op.device)
-            loop = FusedLoop(op.device, stop=tol_eff, max_iters=max_iters,
-                             scalars=(math.inf,))
-            r = op.from_acc_layout(r2)
-            extras = (r2, mask2, consts)
-
-            def step():
-                op.matvec_fused(r, _pagerank_epilogue, extras=extras,
-                                backend=backend, loop=loop)
-
-            iters, syncs = _run_fused(step, loop)
-            delta = float(loop.scalars[0])
-        else:
-            r, delta, iters = r_init, math.inf, 0
-            while delta > tol_eff and iters < max_iters:
-                link = damping * op.matvec(r, backend=backend)
-                # teleport + dangling-node mass: whatever probability the
-                # (sub)stochastic step lost comes back uniformly.
-                r_new = link + (1.0 - torch.sum(link)) / n
-                delta = float(torch.sum(torch.abs(r_new - r)))
-                r, iters = r_new, iters + 1
-            syncs = iters
+        solve = _pagerank_fused if use_fused else _pagerank_unfused
+        r, delta, iters, syncs = solve(op, r_init, damping, tol_eff,
+                                       max_iters, backend)
         sp.args.update(iterations=iters, residual=delta, host_syncs=syncs,
                        stream_dispatches=ops.trace_dispatch_count() - d0)
     return PowerResult(x=r, iterations=iters, residual=delta,
@@ -124,7 +99,46 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-9,
                        tol_effective=tol_eff, host_syncs=syncs)
 
 
-@fused_epilogue("power", extras=("v",), state=(0,), scalars=2, measure=2)
+def _pagerank_unfused(op, r, damping, stop, max_iters, backend):
+    """The two-phase body: the SpMV kernel, then torch vector ops; the L1
+    delta is read on the host once per iteration.  Returns ``(r, delta,
+    iterations, host_syncs)``."""
+    n = op.shape[0]
+    delta, iters = math.inf, 0
+    while delta > stop and iters < max_iters:
+        link = damping * op.matvec(r, backend=backend)
+        # teleport + dangling-node mass: whatever probability the
+        # (sub)stochastic step lost comes back uniformly.
+        r_new = link + (1.0 - torch.sum(link)) / n
+        delta = float(torch.sum(torch.abs(r_new - r)))
+        r, iters = r_new, iters + 1
+    return r, delta, iters, iters
+
+
+def _pagerank_fused(op, r_init, damping, stop, max_iters, backend):
+    """The whole iteration as ONE pass over A: r in (R, LANES) layout,
+    updated in place by :func:`_pagerank_epilogue`'s kernel; its flat
+    view is the pass's x."""
+    n = op.shape[0]
+    r2 = op.to_acc_layout(r_init)
+    mask2 = op.to_acc_layout(
+        torch.ones(n, dtype=torch.float32, device=op.device))
+    consts = torch.tensor([[damping, n]], dtype=torch.float32,
+                          device=op.device)
+    loop = FusedLoop(op.device, stop=stop, max_iters=max_iters,
+                     scalars=(math.inf,))
+    r = op.from_acc_layout(r2)
+    extras = (r2, mask2, consts)
+
+    def step():
+        op.matvec_fused(r, _pagerank_epilogue, extras=extras,
+                        backend=backend, loop=loop)
+
+    iters, syncs = ops.run_fused_loop(step, loop)
+    return r, float(loop.scalars[0]), iters, syncs
+
+
+@fused_epilogue("power")
 def _power_epilogue(av2, v2):
     """One power-iteration step fused against the fresh ``A·v``: Rayleigh
     quotient, eigen-residual, and the normalize — padded rows are zero in
@@ -162,33 +176,46 @@ def power_iteration(op, tol: float = 1e-6, max_iters: int = 200,
     with obs.span("power-iteration", cat="solver", n=n,
                   fused=use_fused) as sp:
         d0 = ops.trace_dispatch_count()
-        if use_fused:
-            v2 = op.to_acc_layout(v_init)
-            loop = FusedLoop(op.device, stop=tol_eff, max_iters=max_iters,
-                             scalars=(0.0, math.inf))
-            v = op.from_acc_layout(v2)
-
-            def step():
-                op.matvec_fused(v, _power_epilogue, extras=(v2,),
-                                backend=backend, loop=loop)
-
-            iters, syncs = _run_fused(step, loop)
-            lam, res = loop.scalars.tolist()
-        else:
-            v, lam, res, iters = v_init, 0.0, math.inf, 0
-            while res > tol_eff and iters < max_iters:
-                av = op.matvec(v, backend=backend)
-                lam_t = torch.dot(v, av)             # Rayleigh quotient
-                res_t = torch.linalg.vector_norm(av - lam_t * v)
-                nrm = torch.linalg.vector_norm(av)
-                v = torch.where(nrm > 0, av / torch.clamp(nrm, min=1e-30),
-                                v)
-                lam, res = float(lam_t), float(res_t)
-                iters += 1
-            syncs = iters
+        solve = _power_fused if use_fused else _power_unfused
+        v, lam, res, iters, syncs = solve(op, v_init, tol_eff, max_iters,
+                                          backend)
         sp.args.update(iterations=iters, residual=res, host_syncs=syncs,
                        stream_dispatches=ops.trace_dispatch_count() - d0)
     return PowerResult(x=v, iterations=iters, residual=res,
                        eigenvalue=float(lam), converged=res <= tol_eff,
                        fused=use_fused, tol_effective=tol_eff,
                        host_syncs=syncs)
+
+
+def _power_unfused(op, v, stop, max_iters, backend):
+    """The two-phase body: the SpMV kernel, then torch vector ops; λ and
+    the residual are read on the host once per iteration.  Returns ``(v,
+    λ, residual, iterations, host_syncs)``."""
+    lam, res, iters = 0.0, math.inf, 0
+    while res > stop and iters < max_iters:
+        av = op.matvec(v, backend=backend)
+        lam_t = torch.dot(v, av)             # Rayleigh quotient
+        res_t = torch.linalg.vector_norm(av - lam_t * v)
+        nrm = torch.linalg.vector_norm(av)
+        v = torch.where(nrm > 0, av / torch.clamp(nrm, min=1e-30), v)
+        lam, res = float(lam_t), float(res_t)
+        iters += 1
+    return v, lam, res, iters, iters
+
+
+def _power_fused(op, v_init, stop, max_iters, backend):
+    """The whole iteration as ONE pass over A: v in (R, LANES) layout,
+    updated in place by :func:`_power_epilogue`'s kernel; its flat view
+    is the pass's x."""
+    v2 = op.to_acc_layout(v_init)
+    loop = FusedLoop(op.device, stop=stop, max_iters=max_iters,
+                     scalars=(0.0, math.inf))
+    v = op.from_acc_layout(v2)
+
+    def step():
+        op.matvec_fused(v, _power_epilogue, extras=(v2,), backend=backend,
+                        loop=loop)
+
+    iters, syncs = ops.run_fused_loop(step, loop)
+    lam, res = loop.scalars.tolist()
+    return v, lam, res, iters, syncs

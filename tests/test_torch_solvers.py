@@ -203,8 +203,20 @@ def test_unregistered_epilogue_runs_on_cpu():
 
 def test_registering_an_unknown_epilogue_raises():
     with pytest.raises(ValueError, match="no epilogue"):
-        ks.fused_epilogue("jacobi", extras=("v",), state=(0,), scalars=0,
-                          measure=0)
+        ks.fused_epilogue("jacobi")
+
+
+def test_an_epilogue_name_takes_one_function():
+    """The kernel's arithmetic for a name is fixed, so a second torch
+    function cannot claim it; re-registering the same one is harmless."""
+    def other_cg(ap2, sol2, r2, p2, rs11):
+        return sol2, r2, p2, rs11
+
+    with pytest.raises(ValueError, match="already registered"):
+        ks.fused_epilogue("cg")(other_cg)
+    assert other_cg not in ks._EPILOGUES
+    assert ks.fused_epilogue("cg")(tcg._cg_epilogue) is tcg._cg_epilogue
+    assert ks._EPILOGUES[tcg._cg_epilogue] is ks.EPILOGUE_SPECS["cg"]
 
 
 def test_fused_step_checks_its_extras():
@@ -357,7 +369,7 @@ def test_one_pass_over_a_per_iteration(kind):
         extra = 1 if kind == "cg" else 0
         assert ops.trace_dispatch_count() - d0 == res.iterations + extra
         if fused:
-            chunks = -(-res.iterations // tcg.FUSED_CHUNK)
+            chunks = -(-res.iterations // ops.FUSED_CHUNK)
             assert res.host_syncs == max(1, chunks)
         else:
             assert res.host_syncs >= res.iterations
@@ -383,3 +395,24 @@ def test_fused_loop_control_word():
         top.matvec_fused(top.from_acc_layout(r2), t_pagerank_epilogue,
                          extras=extras, loop=loop)
     assert loop.ctrl.tolist() == [0, 2]
+
+
+@pytest.mark.parametrize("kind", ["pagerank", "cg", "power_iteration"])
+def test_fused_solvers_leave_the_start_vector_alone(kind):
+    """The fused body updates its state in place; a caller's x0/r0/v0
+    whose length already fills the accumulator must not become it."""
+    r, c, v, shape, _, b = spd(n=64, seed=6)
+    _, top = both_ops(r, c, v, shape, cfg())
+    assert top.plan.out_rows_padded == shape[0]
+    start = torch.full((shape[0],), 1.0 / shape[0])
+    before = start.clone()
+    if kind == "cg":
+        res = solvers.conjugate_gradient(top, b, x0=start, tol=1e-6,
+                                         fused=True)
+    elif kind == "pagerank":
+        res = solvers.pagerank(top, r0=start, max_iters=5, fused=True)
+    else:
+        res = solvers.power_iteration(top, v0=start, max_iters=5,
+                                      fused=True)
+    assert res.iterations > 0
+    torch.testing.assert_close(start, before, rtol=0, atol=0)
