@@ -6,8 +6,9 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It needs one CUDA card, ``nvcc`` (the kernels are built from
-``src/repro_torch/kernels/csrc`` on first use) and ``nvidia-smi``.  It
-imports nothing of the JAX package.  Phases:
+``src/repro_torch/kernels/csrc`` first, one ``nvcc`` per source, all
+started together) and ``nvidia-smi``.  It imports nothing of the JAX
+package.  Phases:
 
 1. Each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the G7 ``soc_pokec`` stand-in at full size (fp32 and bf16
@@ -47,6 +48,23 @@ imports nothing of the JAX package.  Phases:
    run has
    passed 8 minutes before the G5 part, G5 runs at scale 0.25 and says
    so; the G7 PageRank never shrinks.
+5. LM serving (the third slice's path) through the flash-attention
+   kernel.  (a) The kernel against its plain version on card tensors at
+   qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32), chatglm3-6b heads
+   (KV = 2, G = 16, dh = 128, S = 4096, bf16), one non-causal case and one
+   with dv ≠ dh; elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in
+   fp32 (the reference kernel tests') and 2e-2 in bf16.  (b)
+   ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16 greedy decode
+   steps on qwen1.5-0.5b at full width and depth in bf16, random weights
+   from a seeded generator; the flash counter is set to 0 before
+   ``generate`` and must read one launch per layer after it.  The same
+   prefill through the model's plain attention gives last-position logits
+   within :data:`LM_BF16_LOGIT_TOL`; in fp32, 4 decode steps give the
+   logits of a prefill of the longer prompt within 2e-2 (the reference's
+   ``tests/test_decode.py`` bound).  (c) CUDA-event times of the kernel,
+   its plain version and ``scaled_dot_product_attention`` (a yardstick
+   the port never calls) at the served shape and at the ``prefill_32k``
+   length (B = 1, S = 32768).
 
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -54,6 +72,8 @@ before it is the kernels' JSON record.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import functools
 import json
 import os
@@ -68,6 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import format as sformat  # noqa: E402
@@ -81,13 +102,18 @@ from repro_torch.solvers.cg import (  # noqa: E402
 from repro_torch.solvers.power_iteration import (  # noqa: E402
     _pagerank_epilogue, _pagerank_fused, _pagerank_unfused, _power_epilogue,
     _power_fused, _power_unfused)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 TOL_REL, TOL_ABS = 1e-5, 1e-6
 SEED = 0
 N_REQUESTS = 48
@@ -103,6 +129,10 @@ KERNELS = {
     "spmv_fused": {"route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/serpens_spmv.cu",
                    "replaces": "src/repro/kernels/serpens_spmv.py:192"},
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:80"},
 }
 # The G5 part of phase 4 shrinks to this scale once the run has passed
 # SLOW_RUN_S seconds (the script must end well inside 1200 s).
@@ -461,11 +491,13 @@ def fused_bound(name, op) -> tuple[float, str]:
 
 def zero_launches() -> None:
     ks.spmv_launches = ks.spmm_launches = ks.spmv_fused_launches = 0
+    fa.flash_launches = 0
 
 
 def read_launches() -> dict:
     return {"spmv": ks.spmv_launches, "spmm": ks.spmm_launches,
-            "spmv_fused": ks.spmv_fused_launches}
+            "spmv_fused": ks.spmv_fused_launches,
+            "flash_attention": fa.flash_launches}
 
 
 def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
@@ -628,6 +660,257 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
     say(f"[phase4] timings in {time.perf_counter() - t:.1f} s")
     return launches, max(err, 0.0), times, bounds
 
+# -- phase 5: LM serving through the flash-attention kernel -------------------
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2000, 16
+# Elementwise flash kernel vs plain: |Δ| <= atol + rtol·|plain|.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (name, b, s, kv heads, g, dh, dv, causal, dtype) of phase 5(a).
+FLASH_CASES = (
+    ("qwen heads", 4, 2000, 16, 1, 64, 64, True, torch.bfloat16),
+    ("qwen heads", 4, 2000, 16, 1, 64, 64, True, torch.float32),
+    ("chatglm3 heads", 1, 4096, 2, 16, 128, 128, True, torch.bfloat16),
+    ("non-causal", 2, 1000, 16, 1, 64, 64, False, torch.float32),
+    ("dv != dh", 2, 1000, 4, 2, 96, 64, True, torch.float32),
+)
+# Largest |Δ| allowed between the last-position logits of the bf16 prefill
+# with the kernel and with the model's plain chunked attention: about 3x
+# the first H100 run's 7.7e-2 (bf16 attention outputs rounded at other
+# points, carried through 24 layers).
+LM_BF16_LOGIT_TOL = 0.25
+# Prefill/decode consistency in fp32: the reference's test_decode bound.
+LM_FP32_DECODE_TOL = 2e-2
+
+
+def attention_inputs(b, s, kvh, g, dh, dv, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, s, kvh, g, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, kvh, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, kvh, dv), generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def check_allclose(what, got, want, tol) -> float:
+    """Elementwise ``|got - want| <= tol + tol·|want|``; returns the
+    largest absolute error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite values")
+    err = (got - want).abs()
+    bad = err > tol + tol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements out of "
+                             f"tolerance {tol}; max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
+    """Least time of one call: q, k, v read once and o written once over
+    the memory rate, or the flops of the unmasked (q, k) pairs (2·dh for
+    the score, 2·dv for P·V) over the bf16 tensor-core rate."""
+    pairs = b * kvh * g * (s * (s + 1) // 2 if causal else s * s)
+    nbytes = dtype_bytes * (b * s * kvh * (g * dh + dh + dv + g * dv))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * (dh + dv) * pairs / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_flash(b, s, kvh, g, dh, causal, dev, iters) -> dict:
+    """CUDA-event ms of the kernel, the plain version and, as a yardstick
+    the port never calls, ``scaled_dot_product_attention`` on the same
+    bf16 tensors (viewed as (B, H, S, dh))."""
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dh, torch.bfloat16, dev,
+                               SEED + 5)
+    h = kvh * g
+    sdpa = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention,
+        q.view(b, s, h, dh).transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), is_causal=causal, enable_gqa=g > 1)
+    p = functools.partial
+    return {"ms": time_ms(p(fa.flash_attention, q, k, v, causal=causal),
+                          iters[0]),
+            "plain_ms": time_ms(p(fa.flash_attention_plain, q, k, v,
+                                  causal=causal), iters[1]),
+            "library_ms": time_ms(sdpa, iters[2])}
+
+
+def profile_serve(eng, batch, out, card, host_ms: dict,
+                  steps: int = 4) -> None:
+    """``torch.profiler`` over one prefill and over ``steps`` decode steps:
+    the card's busy ms (kernel time summed), its share of the unprofiled
+    host time in ``host_ms`` (the profiler slows the host), and the
+    kernels that take the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = min(64, batch["inputs"].shape[1])
+    _, cache = eng.prefill({"inputs": batch["inputs"][:, :n]})
+    torch.cuda.synchronize()
+    for name, prefill in (("prefill", True), ("decode", False)):
+        with warnings.catch_warnings(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("ignore", UserWarning)
+            t = time.perf_counter()
+            if prefill:
+                eng.prefill(batch)
+            else:
+                for i in range(steps):
+                    eng.decode_step(cache, out[:, i:i + 1], n + i)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+        total = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        per = 1 if prefill else steps
+        say(f"[phase5] profile {name} (per {'call' if prefill else 'step'}"
+            f"): card busy {total / per:.3f} ms, {total / per / host_ms[name]:.2f}"
+            f" of the unprofiled {host_ms[name]:.3f} ms (profiled host "
+            f"{prof_ms / per:.3f} ms); top kernels: "
+            + "; ".join(f"{k[:60]} {v / per:.3f} ms" for k, v in top)
+            + f"  [{card}]")
+
+
+def phase_lm(dev, card):
+    """Phase 5; returns (launches, max error, timings, bound) of the flash
+    kernel at the served shape."""
+    # (a) the kernel against its plain version on card tensors.
+    t = time.perf_counter()
+    err = 0.0
+    for name, b, s, kvh, g, dh, dv, causal, dt in FLASH_CASES:
+        q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        e = check_allclose(f"flash {name} {dt} vs plain", got, want,
+                           FLASH_TOL[dt])
+        err = max(err, e)
+        say(f"[phase5] flash vs plain, {name} (B={b}, S={s}, KV={kvh}, "
+            f"G={g}, dh={dh}, dv={dv}, causal={causal}, {dt}): max err "
+            f"{e:.3e} (tol {FLASH_TOL[dt]})")
+        del q, k, v, got, want
+    say(f"[phase5] kernel checks in {time.perf_counter() - t:.1f} s")
+
+    # (b) serve: qwen1.5-0.5b at full width and depth, random bf16 weights.
+    t = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    max_len = LM_PROMPT + LM_DECODE + 1
+    eng = ServeEngine(lm, params, max_len=max_len)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 4))).to(dev)
+    batch = {"inputs": prompts[:, :LM_PROMPT]}
+    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
+    torch.cuda.synchronize()
+    say(f"[phase5] {LM_ARCH}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads (KV {cfg.num_kv_heads}), dh={cfg.head_dim},"
+        f" vocab {cfg.vocab_padded}, {n_params / 1e6:.1f} M params in bf16,"
+        f" made on the card in {time.perf_counter() - t:.1f} s")
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, LM_DECODE + 1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve, not once per layer ({cfg.num_layers})")
+    if tuple(out.shape) != (LM_BATCH, LM_DECODE + 1) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+
+    # Prefill alone, then the decode steps alone, on the host clock.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(LM_DECODE):
+        _, cache = eng.decode_step(cache, tok, LM_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / LM_DECODE
+    say(f"[phase5] serve {LM_BATCH} x {LM_PROMPT} tokens + {LM_DECODE} "
+        f"greedy decode steps: generate {gen_s:.3f} s, launches {launches};"
+        f" prefill {prefill_ms:.2f} ms ({LM_BATCH * LM_PROMPT / prefill_ms:.1f}"
+        f" tokens/ms), decode {decode_ms:.3f} ms per step "
+        f"({LM_BATCH * 1e3 / decode_ms:.1f} tokens/s)  [{card}]")
+    say(f"[phase5] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms})
+
+    # The same prefill through the model's plain attention.
+    plain_logits, _ = LM(cfg, plain_attention=True).prefill(params, batch,
+                                                            max_len)
+    d_logits = float((plain_logits - logits).abs().max())
+    same = float((plain_logits.argmax(-1) == logits.argmax(-1)).float()
+                 .mean())
+    real = logits[:, :cfg.vocab_size]
+    say(f"[phase5] bf16 last-position logits, kernel vs plain attention: "
+        f"max |Δ| {d_logits:.4e} (tol {LM_BF16_LOGIT_TOL}; logits in "
+        f"[{float(real.min()):.3f}, {float(real.max()):.3f}]), greedy "
+        f"agreement {same:.2f}")
+    if not d_logits <= LM_BF16_LOGIT_TOL:
+        raise AssertionError(f"bf16 prefill logits differ by {d_logits}")
+    del cache, plain_logits
+
+    # Prefill/decode consistency in fp32 at full width.
+    t = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    lm32 = LM(cfg32)
+    params32 = tree_map(lambda x: x.float(), params)
+    del params, eng
+    logits, cache = lm32.prefill(params32, batch, max_len)
+    worst = 0.0
+    for i in range(4):
+        ref, _ = lm32.prefill(params32, {"inputs": prompts[:, :LM_PROMPT + i]},
+                              max_len)
+        worst = max(worst, float((logits - ref).abs().max()))
+        logits, cache = lm32.decode_step(
+            params32, cache, prompts[:, LM_PROMPT + i:LM_PROMPT + i + 1],
+            LM_PROMPT + i)
+    say(f"[phase5] fp32 decode vs prefill of the longer prompt, 4 steps: "
+        f"max |Δ| {worst:.3e} (tol {LM_FP32_DECODE_TOL}) in "
+        f"{time.perf_counter() - t:.1f} s")
+    if not worst <= LM_FP32_DECODE_TOL:
+        raise AssertionError(f"fp32 decode vs prefill differ by {worst}")
+    del params32, cache, lm32
+
+    # (c) timings with CUDA events.
+    t = time.perf_counter()
+    shapes = {"smoke": (LM_BATCH, LM_PROMPT, (20, 3, 20)),
+              "prefill_32k": (1, 32768, (3, 1, 3))}
+    times, bounds = {}, {}
+    for key, (b, s, iters) in shapes.items():
+        times[key] = time_flash(b, s, cfg.num_kv_heads, 1, cfg.head_dim,
+                                True, dev, iters)
+        bounds[key] = flash_bound(b, s, cfg.num_kv_heads, 1, cfg.head_dim,
+                                  cfg.head_dim, True)
+        tb = fa.traffic_bytes(b, s, s, cfg.num_kv_heads, 1, cfg.head_dim,
+                              cfg.head_dim) / HBM_BYTES_PER_S * 1e3
+        tm, (bd, by) = times[key], bounds[key]
+        say(f"[phase5] flash {key} (B={b}, S={s}, qwen heads, bf16, "
+            f"causal): kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f}"
+            f" ms, scaled_dot_product_attention {tm['library_ms']:.4f} ms, "
+            f"bound {bd:.4f} ms ({by}; the reference's traffic_bytes over "
+            f"HBM {tb:.4f} ms); {bd / tm['ms']:.3f} of the bound  [{card}]")
+    say(f"[phase5] timings in {time.perf_counter() - t:.1f} s")
+    return launches, err, times["smoke"], bounds["smoke"]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -642,11 +925,16 @@ def main() -> int:
         f"{torch.__version__}  cuda {torch.version.cuda}")
     say(json.dumps({"kernel_names": sorted(KERNELS)}))
 
+    # One nvcc per kernel source, all started together.
     t = time.perf_counter()
-    path, log = ks.build()
-    say(f"[build] {path.name} in {time.perf_counter() - t:.1f} s")
-    if log.strip():
-        say(log.strip())
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(b) for b in (ks.build, fa.build)]
+        for fut in builds:
+            path, log = fut.result()
+            say(f"[build] {path.name}")
+            if log.strip():
+                say(log.strip())
+    say(f"[build] both kernel sources in {time.perf_counter() - t:.1f} s")
 
     # -- setup: the G7 stand-in, encoded once by the registry -------------
     t = time.perf_counter()
@@ -818,7 +1106,14 @@ def main() -> int:
     # served path at full size.
     times["spmv_fused"] = ftimes["pagerank"]
     bounds["spmv_fused"] = fbounds["pagerank"]
-    say(f"[phase4] ok in {time.perf_counter() - t4:.1f} s; whole run "
+    say(f"[phase4] ok in {time.perf_counter() - t4:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 5: LM serving (the third slice's main path) ----------------
+    t5 = time.perf_counter()
+    launches["lm"], errs["flash_attention"], times["flash_attention"], \
+        bounds["flash_attention"] = phase_lm(dev, card)
+    say(f"[phase5] ok in {time.perf_counter() - t5:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

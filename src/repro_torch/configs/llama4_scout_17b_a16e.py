@@ -1,0 +1,19 @@
+"""llama4-scout-17b-a16e [moe] — 48L d=5120 40H (GQA kv=8) d_ff=8192
+vocab=202048, MoE 16 experts top-1, every layer MoE.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    arch_id="llama4-scout-17b-a16e",
+    family="moe",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=202_048,
+    layout=(("attn", "moe"),),
+    moe=MoEConfig(num_experts=16, top_k=1),
+)

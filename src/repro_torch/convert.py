@@ -1,6 +1,6 @@
-"""Carry an encoded plan across from its numpy fields.
+"""Carry an encoded plan, or an LM's weights, across from numpy arrays.
 
-The system's "weights" are its encoded channel-shard plans.
+The SpMV system's "weights" are its encoded channel-shard plans.
 :func:`plan_from_arrays` rebuilds this package's
 :class:`~repro_torch.core.partition.ChannelShardPlan` from plain numpy
 fields — those of a plan encoded by the JAX reference package, for
@@ -17,6 +17,10 @@ example — so both packages can run one and the same stream.
   ``num_segments``, ``idx``, ``val``, ``seg_ids``, ``aux_rows``,
   ``aux_cols`` and ``aux_vals``.  A bf16 ``val`` arrives as its ``uint16``
   bit patterns.
+
+:func:`lm_params_from_arrays` carries an LM's weights the same way (see
+there).  This module imports numpy only; torch is imported inside the
+function that needs it.
 """
 from __future__ import annotations
 
@@ -64,3 +68,38 @@ def plan_from_arrays(fields: dict) -> cpart.ChannelShardPlan:
     return cpart.finish_plan(shards, fields["shape"], cfg, spec,
                              int(fields["block_m"]), int(fields["block_k"]),
                              row_perm=row_perm)
+
+
+def lm_params_from_arrays(cfg, tree: dict, device="cpu") -> dict:
+    """The port's LM parameters from the reference's ``LM.init`` tree as
+    numpy arrays.
+
+    ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``);
+    the port holds one dict per period.  A bf16 array arrives as fp32 or
+    as its ``uint16`` bit patterns; every leaf is cast to
+    ``cfg.param_dtype`` and placed on ``device``.
+    """
+    import torch
+
+    dtype = {"bfloat16": torch.bfloat16,
+             "float32": torch.float32}[cfg.param_dtype]
+
+    def leaf(a):
+        a = np.require(a, requirements=["C", "W"])
+        if a.dtype == np.uint16:
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        elif a.dtype == np.float32:
+            t = torch.from_numpy(a)
+        else:
+            raise ValueError(f"weights arrive as float32 or uint16 bf16 "
+                             f"bits, not {a.dtype}")
+        return t.to(device=device, dtype=dtype)
+
+    def walk(node, period=None):
+        if isinstance(node, dict):
+            return {k: walk(v, period) for k, v in node.items()}
+        return leaf(node if period is None else node[period])
+
+    out = {k: walk(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [walk(tree["blocks"], p) for p in range(cfg.num_periods)]
+    return out

@@ -1,0 +1,146 @@
+"""Flash attention: the CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/flash_attention.cu``) replaces the reference package's
+TPU kernel ``flash_attention`` (``repro/kernels/flash_attention.py``): an
+online-softmax attention that keeps its running max, normaliser and
+accumulator in fp32 on chip, so each call reads Q, K and V and writes O
+once.  bf16 runs its products on the tensor cores (``mma.sync``), fp32 on
+CUDA-core FMAs (fp32 products, as the reference's).  It is compiled by
+``nvcc`` for ``sm_90a`` into ``build/`` at the repository root on first
+use (``kernels/build.py``), loaded with ``ctypes`` and launched on
+PyTorch's current stream.
+
+:func:`flash_attention` takes the reference's layout.  On CUDA tensors it
+launches the kernel (and counts the launch in :data:`flash_launches`); on
+CPU tensors it runs :func:`flash_attention_plain`.  Nothing falls back: a
+CUDA tensor either runs the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+# Launch counter: the wrapper adds one where it launches the kernel and
+# nowhere else, so a run can show that its path went through the kernel.
+flash_launches = 0
+
+NEG_INF = -1e30
+# The kernel keeps a 64-row tile of q, K and V in shared memory and acc in
+# registers: head dims up to 128.
+MAX_HEAD_DIM = 128
+_Q_TILE = 64
+_MAX_GRID_Y = 65535
+# Rows of q per step of the plain version: bounds its fp32 score tensor.
+_PLAIN_CHUNK = 512
+
+
+def build():
+    """Compile ``csrc/flash_attention.cu`` (see :func:`.build.build`)."""
+    return _build.build("flash_attention")
+
+
+def _declare(lib) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
+                                        i32, i32, i32, i32, ctypes.c_float,
+                                        p]
+    lib.flash_attention_fwd.restype = i32
+
+
+def _check(q, k, v) -> tuple[int, ...]:
+    """Shapes, dtypes and device of one call; returns
+    ``(b, sq, sk, kvh, g, dh, dv)``."""
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q (B, Sq, KV, G, dh), k (B, Sk, KV, dh), v "
+                         f"(B, Sk, KV, dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, kvh, g, dh = q.shape
+    sk, dv = k.shape[1], v.shape[3]
+    if tuple(k.shape) != (b, sk, kvh, dh) or \
+            tuple(v.shape) != (b, sk, kvh, dv):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if min(b, sq, sk, kvh, g, dh, dv) < 1:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype or \
+            q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must share float32 or bfloat16; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    return b, sq, sk, kvh, g, dh, dv
+
+
+def flash_attention_plain(q, k, v, *, causal=True):
+    """The kernel's function in torch ops: fp32 scores and softmax over
+    whole rows, P rounded to v's dtype before P·V in fp32, output in q's
+    dtype.  q runs in chunks of rows to bound the score tensor."""
+    b, sq, sk, kvh, g, dh, dv = _check(q, k, v)
+    scale = dh ** -0.5
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    for c0 in range(0, sq, _PLAIN_CHUNK):
+        qc = q[:, c0:c0 + _PLAIN_CHUNK].float()
+        s = torch.einsum("bckgd,bskd->bkgcs", qc, kf) * scale
+        if causal:
+            qpos = torch.arange(c0, c0 + qc.shape[1], device=q.device)
+            ok = kpos[None, :] <= qpos[:, None]
+            s = s.masked_fill(~ok, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        if causal:
+            p = p.masked_fill(~ok, 0.0)
+        den = p.sum(dim=-1).clamp_min(1e-30).permute(0, 3, 1, 2)
+        pv = torch.einsum("bkgcs,bskd->bckgd", p.to(v.dtype).float(), vf)
+        out[:, c0:c0 + _PLAIN_CHUNK] = (pv / den[..., None]).to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True):
+    """q: (B, Sq, KV, G, dh); k: (B, Sk, KV, dh); v: (B, Sk, KV, dv).
+
+    Returns (B, Sq, KV, G, dv) in q's dtype: attention of each q row over
+    the keys (``kpos <= qpos`` when causal, q and k both from position 0),
+    head ``(kv, g)`` reading kv head ``kv``.
+    """
+    b, sq, sk, kvh, g, dh, dv = _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {dev}")
+    if max(dh, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims dh={dh}, dv={dv}: the kernel takes up "
+                         f"to {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if -(-sq // _Q_TILE) > _MAX_GRID_Y or b * kvh * g >= 2 ** 31:
+        raise ValueError(f"q {tuple(q.shape)} is too large for one launch")
+    global flash_launches
+    lib = _build.load("flash_attention", _declare)
+    out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=dev)
+    status = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        kvh, g, dh, dv, int(causal), int(q.dtype == torch.bfloat16),
+        dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error "
+                           f"{status}")
+    flash_launches += 1
+    return out
+
+
+def traffic_bytes(b, sq, sk, kvh, g, dh, dv, dtype_bytes=2):
+    """Analytic HBM traffic of one call, as the reference counts it: Q
+    read once, O written once, and K/V conservatively once per 512-row q
+    block."""
+    nq = -(-sq // 512)
+    q_bytes = b * sq * kvh * g * dh * dtype_bytes
+    kv_bytes = b * sk * kvh * (dh + dv) * dtype_bytes * nq
+    o_bytes = b * sq * kvh * g * dv * dtype_bytes
+    return q_bytes + kv_bytes + o_bytes

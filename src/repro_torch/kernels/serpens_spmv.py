@@ -3,9 +3,9 @@ wrappers and plain versions.
 
 The kernels (``csrc/serpens_spmv.cu``) replace the reference package's TPU
 kernels ``spmv_pallas``, ``spmm_pallas`` and ``spmv_fused_pallas``.  They
-are compiled with
-``nvcc`` for ``sm_90a`` into ``build/`` at the repository root on first
-use, loaded with ``ctypes`` and launched on PyTorch's current stream.
+are compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the
+repository root on first use (``kernels/build.py``), loaded with
+``ctypes`` and launched on PyTorch's current stream.
 
 :func:`spmv` and :func:`spmm` take the stream and a padded x and return the
 fp32 accumulator.  On CUDA tensors they launch the kernel (and count the
@@ -29,17 +29,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from repro_torch.core.format import COL_MASK, ROW_BITS
+from repro_torch.kernels import build as _build
 
 # Launch counters: each wrapper adds one where it launches its kernel and
 # nowhere else, so a run can show that its path went through the kernels.
@@ -47,67 +42,28 @@ spmv_launches = 0
 spmm_launches = 0
 spmv_fused_launches = 0
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "serpens_spmv.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-# -Xptxas=-v only adds the registers/spills report to the build log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-_lib = None
-_lib_lock = threading.Lock()
+def build():
+    """Compile ``csrc/serpens_spmv.cu`` (see :func:`.build.build`)."""
+    return _build.build("serpens_spmv")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the Serpens CUDA kernels are built "
-                       "from source on first use and need the CUDA toolkit")
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel source into ``build/`` (cached by content hash).
-
-    Returns the shared library's path and nvcc's log ("" when the library
-    was already built).
-    """
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"serpens_spmv-{tag}.so"
-    if out.exists():
-        return out, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+def _declare(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
+                                 i64, i32, i32, p]
+    lib.serpens_spmv.restype = i32
+    lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
+                                 i64, i64, i32, i32, p]
+    lib.serpens_spmm.restype = i32
+    lib.serpens_spmv_fused.argtypes = [
+        i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, p, p,
+        p, p, p, p, i32, p, ctypes.c_float, i32, p]
+    lib.serpens_spmv_fused.restype = i32
 
 
 def _library() -> ctypes.CDLL:
     """Build (first call only) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()[0]))
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32,
-                                         i64, i64, i32, i32, p]
-            lib.serpens_spmv.restype = i32
-            lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32,
-                                         i32, i64, i64, i32, i32, p]
-            lib.serpens_spmm.restype = i32
-            lib.serpens_spmv_fused.argtypes = [
-                i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32,
-                p, p, p, p, p, p, i32, p, ctypes.c_float, i32, p]
-            lib.serpens_spmv_fused.restype = i32
-            _lib = lib
-        return _lib
+    return _build.load("serpens_spmv", _declare)
 
 
 # -- input checks (shared by kernel and plain paths) -------------------------

@@ -15,6 +15,7 @@ agree within ``1e-5 * sum(|terms|) + 1e-6`` and its state vectors within
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.core import format as TF
 from repro_torch.core import partition as TP
@@ -28,6 +29,12 @@ from repro_torch.data import matrices as TM
 from repro_torch.solvers.cg import _cg_epilogue
 from repro_torch.solvers.power_iteration import (_pagerank_epilogue,
                                                  _power_epilogue)
+
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import attention as tattn
+from repro_torch.models.model import LM
+from repro_torch.serve.engine import ServeEngine
 
 from torch_port_util import random_coo
 
@@ -317,3 +324,100 @@ def test_service_solve_on_the_card(card):
         res2 = svc.result(t, timeout=120)
     assert res2.solve.iterations == 20 and res2.solve.fused
     reg.close()
+
+
+# -- flash attention ----------------------------------------------------------
+FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
+    "gqa": (2, 64, 64, 2, 3, 16, 16, True),
+    "dv-ne-dh": (1, 100, 100, 1, 4, 32, 24, True),
+    "non-causal": (2, 80, 80, 2, 1, 16, 16, False),
+    "ragged": (1, 33, 33, 2, 2, 8, 8, True),
+    "sq-lt-sk": (1, 50, 70, 2, 2, 16, 16, True),
+    "dh128-gqa": (1, 200, 200, 2, 4, 128, 128, True),
+    "dh96-dv64": (2, 130, 130, 2, 2, 96, 64, False),
+    "odd-dims": (1, 45, 45, 2, 2, 20, 13, True),   # no 16-byte rows
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernel_matches_plain(card, shape, dtype):
+    b, sq, sk, kv, g, dh, dv, causal = FLASH_SHAPES[shape]
+    gen = torch.Generator(device=card).manual_seed(sq + dh)
+    q = torch.randn((b, sq, kv, g, dh), generator=gen, device=card)
+    k = torch.randn((b, sk, kv, dh), generator=gen, device=card)
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=card)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = fa.flash_launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_kernel_on_misaligned_inputs(card, dtype):
+    """Contiguous tensors that start one element into their storage: the
+    kernel must not take its 16-byte loads there."""
+    gen = torch.Generator(device=card).manual_seed(1)
+
+    def shifted(shape):
+        n = int(np.prod(shape))
+        base = torch.randn(n + 1, generator=gen, device=card).to(dtype)
+        return base[1:].view(shape)
+
+    q, k, v = shifted((2, 70, 2, 2, 64)), shifted((2, 70, 2, 64)), \
+        shifted((2, 70, 2, 64))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q = torch.randn((1, 16, 2, 2, 16), device=card)
+    k = torch.randn((1, 16, 2, 16), device=card)
+    v = torch.randn((1, 16, 2, 16), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="up to 128"):
+        fa.flash_attention(torch.randn((1, 16, 2, 2, 160), device=card),
+                           torch.randn((1, 16, 2, 160), device=card), v)
+    with pytest.raises(ValueError, match="cpu"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, k, v, prefix_len=4)
+    cfg = reduced_config("qwen1.5-0.5b")
+    p = tattn.attn_init(torch.Generator(device=card).manual_seed(0), cfg,
+                        torch.float32)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        tattn.attn_forward(p, torch.randn((1, 8, 64), device=card), cfg,
+                           prefix_len=4)
+
+
+def test_reduced_lm_generate_on_the_card(card):
+    """The card's prefill runs the kernel once per layer and matches the
+    CPU model; greedy tokens agree."""
+    cfg = reduced_config("qwen1.5-0.5b")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    before = fa.flash_launches
+    logits, _ = lm.prefill(on_card, {"inputs": toks.to(card)}, 48)
+    assert fa.flash_launches - before == cfg.num_layers
+    want, _ = lm.prefill(params, {"inputs": toks}, 48)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
+    ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
+    assert torch.equal(got.cpu(), ref)
