@@ -53,15 +53,20 @@ package.  Phases:
    qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32), chatglm3-6b heads
    (KV = 2, G = 16, dh = 128, S = 4096, bf16), one non-causal case and one
    with dv ≠ dh; elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in
-   fp32 (the reference kernel tests') and 2e-2 in bf16.  (b)
-   ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16 greedy decode
-   steps on qwen1.5-0.5b at full width and depth in bf16, random weights
-   from a seeded generator; the flash counter is set to 0 before
-   ``generate`` and must read one launch per layer after it.  The same
-   prefill through the model's plain attention gives last-position logits
-   within :data:`LM_BF16_LOGIT_TOL`; in fp32, 4 decode steps give the
-   logits of a prefill of the longer prompt within 2e-2 (the reference's
-   ``tests/test_decode.py`` bound).  (c) CUDA-event times of the kernel,
+   fp32 (the reference kernel tests') and 2e-2 in bf16, and in bf16 also
+   ``||Δ|| <= 5e-3·||plain||``, which a kernel that drops one kv tile
+   fails.  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
+   greedy decode steps on qwen1.5-0.5b at full width and depth in bf16,
+   random weights from a seeded generator; the flash counter is set to 0
+   before ``generate`` and must read one launch per layer after it.  The
+   same prefill with ``flash_attention_plain`` swapped in for the kernel
+   gives last-position logits and a last-layer attention output within
+   the ``LM_BF16_*`` bounds; in fp32, 4 decode steps give the logits and
+   the last-layer attention output of a prefill of the longer prompt
+   within the ``LM_FP32_*`` bounds.  Each of these bounds is held against
+   a control that must fail it (non-causal attention, one layer's
+   attention zeroed, a decode one position off).  (c) CUDA-event times
+   of the kernel,
    its plain version and ``scaled_dot_product_attention`` (a yardstick
    the port never calls) at the served shape and at the ``prefill_32k``
    length (B = 1, S = 32768).
@@ -73,6 +78,7 @@ before it is the kernels' JSON record.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -106,6 +112,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
@@ -665,6 +672,11 @@ LM_ARCH = "qwen1.5-0.5b"
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2000, 16
 # Elementwise flash kernel vs plain: |Δ| <= atol + rtol·|plain|.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 kernel vs plain in norm: ||Δ|| <= FLASH_BF16_REL·||plain||, about
+# 3x the first readings (1.4e-3 and 1.6e-3).  A control (the plain output
+# with one 64-key tile left out of the last 64 queries, a kernel that
+# skips a kv tile; it read 1.3e-2) must fail it.
+FLASH_BF16_REL = 5e-3
 # (name, b, s, kv heads, g, dh, dv, causal, dtype) of phase 5(a).
 FLASH_CASES = (
     ("qwen heads", 4, 2000, 16, 1, 64, 64, True, torch.bfloat16),
@@ -674,12 +686,22 @@ FLASH_CASES = (
     ("dv != dh", 2, 1000, 4, 2, 96, 64, True, torch.float32),
 )
 # Largest |Δ| allowed between the last-position logits of the bf16 prefill
-# with the kernel and with the model's plain chunked attention: about 3x
-# the first H100 run's 7.7e-2 (bf16 attention outputs rounded at other
-# points, carried through 24 layers).
+# with the kernel and with the plain attention: about 3x the first H100
+# run's 7.7e-2 (bf16 attention outputs rounded at other points, carried
+# through 24 layers).
 LM_BF16_LOGIT_TOL = 0.25
-# Prefill/decode consistency in fp32: the reference's test_decode bound.
-LM_FP32_DECODE_TOL = 2e-2
+# The same two prefills in norm, on the last layer's attention mixer
+# output: ||Δ|| <= LM_BF16_ATTN_REL·||plain||, about 4.5x the first
+# reading (4.4e-3).  Two controls must fail it: every layer's attention
+# non-causal, and layer 0's attention zeroed (they read 1.0 and 0.94).
+# Both fail the logits bound as well (3.2 and 2.9).
+LM_BF16_ATTN_REL = 2e-2
+# Prefill/decode consistency in fp32: the largest |Δ| of the logits, and
+# the last layer's attention mixer output in norm, each about 10x the
+# first reading (9.7e-6 and 7.0e-7).  A control (one decode step at the
+# position after the right one; it read 8.3e-2 and 7.5e-3) must fail both.
+LM_FP32_DECODE_TOL = 1e-4
+LM_FP32_ATTN_REL = 1e-5
 
 
 def attention_inputs(b, s, kvh, g, dh, dv, dtype, dev, seed):
@@ -703,6 +725,65 @@ def check_allclose(what, got, want, tol) -> float:
         raise AssertionError(f"{what}: {int(bad.sum())} elements out of "
                              f"tolerance {tol}; max |err| {float(err.max())}")
     return float(err.max())
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite values")
+    return float((got - want).norm() / want.norm())
+
+
+def dropped_tile_control(q, k, v, want, rows=64, tile=64):
+    """``want`` (the causal plain output) with one middle ``tile``-key
+    tile left out of the last ``rows`` queries: what a kernel that skips a
+    kv tile would give."""
+    s = q.shape[1]
+    t0 = s // 2 // tile * tile
+    kd = torch.cat([k[:, :t0], k[:, t0 + tile:]], 1)
+    vd = torch.cat([v[:, :t0], v[:, t0 + tile:]], 1)
+    ctl = want.clone()
+    # Keys past the tile move down by ``tile``; the queries' offset moves
+    # with them, so the causal mask keeps its pairs.
+    ctl[:, -rows:] = attn.chunked_attention(
+        q[:, -rows:], kd, vd, causal=True, q_offset=s - rows - tile,
+        chunk=rows)
+    return ctl
+
+
+@contextlib.contextmanager
+def patched(module, name, replacement):
+    """``module.name`` replaced for the block's duration."""
+    orig = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def last_mixer_output(attention=None):
+    """Records the attention mixer's output (B, S, D) of every layer of a
+    prefill or decode step into the yielded list; ``attention`` (optional)
+    stands in for the flash kernel in the prefill."""
+    outs = []
+
+    def recording(fn):
+        def rec(*args, **kwargs):
+            r = fn(*args, **kwargs)
+            outs.append(r[0])
+            return r
+        return rec
+
+    with contextlib.ExitStack() as stack:
+        for name in ("attn_forward", "attn_decode"):
+            stack.enter_context(patched(attn, name,
+                                        recording(getattr(attn, name))))
+        if attention is not None:
+            stack.enter_context(patched(fa, "flash_attention", attention))
+        yield outs
 
 
 def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
@@ -788,9 +869,27 @@ def phase_lm(dev, card):
         e = check_allclose(f"flash {name} {dt} vs plain", got, want,
                            FLASH_TOL[dt])
         err = max(err, e)
+        rel = ""
+        if dt == torch.bfloat16:
+            r = rel_err(got, want)
+            rel = f", ||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})"
+            if not r <= FLASH_BF16_REL:
+                raise AssertionError(f"flash {name} bf16 vs plain: "
+                                     f"||Δ||/||plain|| {r}")
         say(f"[phase5] flash vs plain, {name} (B={b}, S={s}, KV={kvh}, "
             f"G={g}, dh={dh}, dv={dv}, causal={causal}, {dt}): max err "
-            f"{e:.3e} (tol {FLASH_TOL[dt]})")
+            f"{e:.3e} (tol {FLASH_TOL[dt]}){rel}")
+        if dt == torch.bfloat16 and name == "qwen heads":
+            ctl = dropped_tile_control(q, k, v, want)
+            r, e = rel_err(ctl, want), float((ctl.float() - want.float())
+                                             .abs().max())
+            say(f"[phase5] control (one 64-key tile dropped for the last 64"
+                f" queries) vs plain: ||Δ||/||plain|| {r:.3e}, max err "
+                f"{e:.3e}")
+            if not r > FLASH_BF16_REL:
+                raise AssertionError(f"the bf16 norm check passes a kernel "
+                                     f"that drops a kv tile ({r})")
+            del ctl
         del q, k, v, got, want
     say(f"[phase5] kernel checks in {time.perf_counter() - t:.1f} s")
 
@@ -852,20 +951,53 @@ def phase_lm(dev, card):
     profile_serve(eng, batch, out, card,
                   {"prefill": prefill_ms, "decode": decode_ms})
 
-    # The same prefill through the model's plain attention.
-    plain_logits, _ = LM(cfg, plain_attention=True).prefill(params, batch,
-                                                            max_len)
-    d_logits = float((plain_logits - logits).abs().max())
-    same = float((plain_logits.argmax(-1) == logits.argmax(-1)).float()
-                 .mean())
-    real = logits[:, :cfg.vocab_size]
-    say(f"[phase5] bf16 last-position logits, kernel vs plain attention: "
-        f"max |Δ| {d_logits:.4e} (tol {LM_BF16_LOGIT_TOL}; logits in "
-        f"[{float(real.min()):.3f}, {float(real.max()):.3f}]), greedy "
-        f"agreement {same:.2f}")
-    if not d_logits <= LM_BF16_LOGIT_TOL:
-        raise AssertionError(f"bf16 prefill logits differ by {d_logits}")
-    del cache, plain_logits
+    # The same prefill with the plain attention in the kernel's place, and
+    # two controls that a wrong attention must not pass.
+    del cache, logits
+    plain = fa.flash_attention_plain
+
+    def non_causal(q, k, v, *, causal=True):
+        return plain(q, k, v, causal=False)
+
+    zeroed = []
+
+    def layer0_zeroed(q, k, v, *, causal=True):
+        o = plain(q, k, v, causal=causal)
+        if not zeroed:
+            zeroed.append(True)
+            o = torch.zeros_like(o)
+        return o
+
+    runs = {}
+    for run, attention in (("kernel", None), ("plain", plain),
+                           ("non-causal", non_causal),
+                           ("layer 0 zeroed", layer0_zeroed)):
+        with last_mixer_output(attention) as outs:
+            run_logits, _ = eng.prefill(batch)
+        runs[run] = (run_logits, outs[-1])
+        del outs[:-1]
+    plain_logits, plain_out = runs.pop("plain")
+    real = plain_logits[:, :cfg.vocab_size]
+    say(f"[phase5] bf16 prefill vs the same with plain attention (logits "
+        f"in [{float(real.min()):.3f}, {float(real.max()):.3f}]):")
+    for run, (run_logits, out) in runs.items():
+        d_logits = float((run_logits - plain_logits).abs().max())
+        same = float((run_logits.argmax(-1) == plain_logits.argmax(-1))
+                     .float().mean())
+        r = rel_err(out, plain_out)
+        say(f"[phase5]   {run}: last-position logits max |Δ| "
+            f"{d_logits:.4e} (tol {LM_BF16_LOGIT_TOL}), greedy agreement "
+            f"{same:.2f}; last layer's attention output ||Δ||/||plain|| "
+            f"{r:.4e} (tol {LM_BF16_ATTN_REL})")
+        if run == "kernel":
+            if not (d_logits <= LM_BF16_LOGIT_TOL and r <= LM_BF16_ATTN_REL):
+                raise AssertionError(f"bf16 prefill with the kernel differs "
+                                     f"from plain: logits {d_logits}, "
+                                     f"attention output {r}")
+        elif not r > LM_BF16_ATTN_REL:
+            raise AssertionError(f"control {run!r} passes the bf16 "
+                                 f"attention-output check ({r})")
+    del runs, plain_logits, plain_out
 
     # Prefill/decode consistency in fp32 at full width.
     t = time.perf_counter()
@@ -874,21 +1006,45 @@ def phase_lm(dev, card):
     lm32 = LM(cfg32)
     params32 = tree_map(lambda x: x.float(), params)
     del params, eng
-    logits, cache = lm32.prefill(params32, batch, max_len)
-    worst = 0.0
+
+    def prefill32(n):
+        with last_mixer_output() as outs:
+            lg, c = lm32.prefill(params32, {"inputs": prompts[:, :n]},
+                                 max_len)
+        return lg, c, outs[-1][:, -1:]
+
+    def decode32(c, i, pos):
+        with last_mixer_output() as outs:
+            lg, _ = lm32.decode_step(
+                params32, c, prompts[:, LM_PROMPT + i:LM_PROMPT + i + 1], pos)
+        return lg, outs[-1]
+
+    # Step i's logits and last-layer mixer output, held against a prefill
+    # of the prompt extended by i tokens.  The control decodes step 0's
+    # token one position too far, on a copy of the cache.
+    logits, cache, out = prefill32(LM_PROMPT)
+    ctl = decode32(tree_map(torch.clone, cache), 0, LM_PROMPT + 1)
+    worst, worst_rel = 0.0, 0.0
     for i in range(4):
-        ref, _ = lm32.prefill(params32, {"inputs": prompts[:, :LM_PROMPT + i]},
-                              max_len)
+        ref, _, ref_out = prefill32(LM_PROMPT + i)
         worst = max(worst, float((logits - ref).abs().max()))
-        logits, cache = lm32.decode_step(
-            params32, cache, prompts[:, LM_PROMPT + i:LM_PROMPT + i + 1],
-            LM_PROMPT + i)
+        worst_rel = max(worst_rel, rel_err(out, ref_out))
+        if i == 1:
+            ctl_d, ctl_rel = (float((ctl[0] - ref).abs().max()),
+                              rel_err(ctl[1], ref_out))
+        logits, out = decode32(cache, i, LM_PROMPT + i)
     say(f"[phase5] fp32 decode vs prefill of the longer prompt, 4 steps: "
-        f"max |Δ| {worst:.3e} (tol {LM_FP32_DECODE_TOL}) in "
-        f"{time.perf_counter() - t:.1f} s")
-    if not worst <= LM_FP32_DECODE_TOL:
-        raise AssertionError(f"fp32 decode vs prefill differ by {worst}")
-    del params32, cache, lm32
+        f"logits max |Δ| {worst:.3e} (tol {LM_FP32_DECODE_TOL}), last "
+        f"layer's attention output ||Δ||/||prefill|| {worst_rel:.3e} (tol "
+        f"{LM_FP32_ATTN_REL}); control (decoded one position too far): "
+        f"{ctl_d:.3e} and {ctl_rel:.3e}; in {time.perf_counter() - t:.1f} s")
+    if not (worst <= LM_FP32_DECODE_TOL and worst_rel <= LM_FP32_ATTN_REL):
+        raise AssertionError(f"fp32 decode vs prefill differ: logits "
+                             f"{worst}, attention output {worst_rel}")
+    if not (ctl_d > LM_FP32_DECODE_TOL and ctl_rel > LM_FP32_ATTN_REL):
+        raise AssertionError(f"a decode at the wrong position passes the "
+                             f"fp32 consistency check ({ctl_d}, {ctl_rel})")
+    del params32, cache, lm32, ctl
 
     # (c) timings with CUDA events.
     t = time.perf_counter()

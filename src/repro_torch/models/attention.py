@@ -147,15 +147,14 @@ def _project_qkv(p, x, cfg, positions=None):
 
 
 def attn_forward(p, x, cfg, *, causal=True, prefix_len=0, positions=None,
-                 return_kv=False, plain=False):
+                 return_kv=False):
     """Full-sequence attention.  x: (B, S, D).
 
-    Off the CPU the scores run in the flash-attention kernel unless
-    ``plain`` asks for :func:`chunked_attention` (the kernel's yardstick
-    on the card); on the CPU they always run in :func:`chunked_attention`.
+    Off the CPU the scores run in the flash-attention kernel; on the CPU
+    they run in :func:`chunked_attention`.
     """
     b, s, _ = x.shape
-    on_card = x.device.type != "cpu" and not plain
+    on_card = x.device.type != "cpu"
     if on_card and prefix_len:
         raise _not_ported("a prefix-LM mask (prefix_len > 0) in the "
                           "flash-attention kernel", "the VLM slice")

@@ -42,17 +42,11 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 class LM:
-    """``plain_attention`` runs prefill attention as
-    :func:`~repro_torch.models.attention.chunked_attention` on the card too
-    (the kernel's yardstick); by default a CUDA prefill runs the
-    flash-attention kernel."""
-
-    def __init__(self, cfg: ModelConfig, plain_attention: bool = False):
+    def __init__(self, cfg: ModelConfig):
         _check_ported(cfg)
         self.cfg = cfg
         self.pdtype = _dtype(cfg.param_dtype)
         self.adtype = _dtype(cfg.activation_dtype)
-        self.plain_attention = plain_attention
 
     # ------------------------------------------------------------------
     # Init
@@ -99,8 +93,7 @@ class LM:
             h = rms_norm(x, sp["norm_in"], cfg.norm_eps)
             if cache is None:
                 out, (k, v) = attn.attn_forward(
-                    sp["mixer"], h, cfg, causal=cfg.causal, return_kv=True,
-                    plain=self.plain_attention)
+                    sp["mixer"], h, cfg, causal=cfg.causal, return_kv=True)
                 new_cache[key] = {"k": k, "v": v}
             else:
                 out, _, _ = attn.attn_decode(
