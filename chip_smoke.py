@@ -49,31 +49,39 @@ package.  Phases:
    passed 8 minutes before the G5 part, G5 runs at scale 0.25 and says
    so; the G7 PageRank never shrinks.
 5. LM serving (the third slice's path) through the flash-attention
-   kernel.  (a) The kernel against its plain version on card tensors at
-   qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32), chatglm3-6b heads
-   (KV = 2, G = 16, dh = 128, S = 4096, bf16), one non-causal case and one
-   with dv ≠ dh; elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in
-   fp32 (the reference kernel tests') and 2e-2 in bf16, and in bf16 also
+   kernel, whose bf16 served heads run its Hopper body (``wgmma``: TMA
+   K/V ring, wgmma, a producer warpgroup); ``flash_body`` picks the body
+   from dtype, head dims and alignment, and the per-body counters show
+   which ran.  The wgmma body's ``-Xptxas=-v`` lines are printed (a spill
+   fails the run).  (a) The kernel against its plain version on card
+   tensors at qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32),
+   chatglm3-6b heads (KV = 2, G = 16, dh = 128, S = 4096, bf16), one
+   non-causal case and one with dv ≠ dh; each bf16 case runs the wgmma
+   body and, on a copy one element into its storage, the mma body;
+   elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in fp32 (the
+   reference kernel tests') and 2e-2 in bf16, and in bf16 also
    ``||Δ|| <= 5e-3·||plain||``, which a kernel that drops one kv tile
    fails.  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
    greedy decode steps on qwen1.5-0.5b at full width and depth in bf16,
-   random weights from a seeded generator; the flash counter is set to 0
-   before ``generate`` and must read one launch per layer after it.  The
-   same prefill with ``flash_attention_plain`` swapped in for the kernel
-   gives last-position logits and a last-layer attention output within
-   the ``LM_BF16_*`` bounds; in fp32, 4 decode steps give the logits and
-   the last-layer attention output of a prefill of the longer prompt
-   within the ``LM_FP32_*`` bounds.  Each of these bounds is held against
-   a control that must fail it (non-causal attention, one layer's
-   attention zeroed, a decode one position off).  (c) CUDA-event times
-   of the kernel,
-   its plain version and ``scaled_dot_product_attention`` (a yardstick
-   the port never calls) at the served shape and at the ``prefill_32k``
-   length (B = 1, S = 32768).
+   random weights from a seeded generator; the flash counters are set to
+   0 before ``generate`` and must read one wgmma launch per layer after
+   it.  The same prefill with ``flash_attention_plain`` swapped in for the
+   kernel gives last-position logits and a last-layer attention output
+   within the ``LM_BF16_*`` bounds; in fp32, 4 decode steps give the
+   logits and the last-layer attention output of a prefill of the longer
+   prompt within the ``LM_FP32_*`` bounds.  Each of these bounds is held
+   against a control that must fail it (non-causal attention, one layer's
+   attention zeroed, a decode one position off).  (c) CUDA-event times of
+   the wgmma body, the mma body (on an offset copy of the same tensors)
+   and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls), in turns, and of the plain version, at the served shape and at
+   the ``prefill_32k`` length (B = 1, S = 32768).
 
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it is the kernels' JSON record.
+before it is the kernels' JSON record, whose flash entry also lists each
+body's main-path launches and its times, bounds and library times at
+both timed shapes (``bodies``).
 """
 from __future__ import annotations
 
@@ -83,6 +91,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +150,8 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:80"},
 }
+# nvcc's output per kernel source (the -Xptxas=-v report), by stem.
+BUILD_LOGS: dict[str, str] = {}
 # The G5 part of phase 4 shrinks to this scale once the run has passed
 # SLOW_RUN_S seconds (the script must end well inside 1200 s).
 SLOW_RUN_S = 480.0
@@ -499,6 +510,8 @@ def fused_bound(name, op) -> tuple[float, str]:
 def zero_launches() -> None:
     ks.spmv_launches = ks.spmm_launches = ks.spmv_fused_launches = 0
     fa.flash_launches = 0
+    for body in fa.flash_launches_by_body:
+        fa.flash_launches_by_body[body] = 0
 
 
 def read_launches() -> dict:
@@ -799,22 +812,34 @@ def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
 
 
 def time_flash(b, s, kvh, g, dh, causal, dev, iters) -> dict:
-    """CUDA-event ms of the kernel, the plain version and, as a yardstick
-    the port never calls, ``scaled_dot_product_attention`` on the same
-    bf16 tensors (viewed as (B, H, S, dh))."""
+    """CUDA-event ms of the wgmma body, the mma body (on an offset copy of
+    the same tensors), ``scaled_dot_product_attention`` (a yardstick the
+    port never calls, on the same bf16 tensors viewed as (B, H, S, dh))
+    and the plain version.  The first three run in turns, in one order
+    and then the reverse; each reports the mean of its two readings."""
     q, k, v = attention_inputs(b, s, kvh, g, dh, dh, torch.bfloat16, dev,
                                SEED + 5)
+    qo, ko, vo = map(offset_copy, (q, k, v))
+    if (fa.flash_body(q, k, v), fa.flash_body(qo, ko, vo)) != \
+            ("wgmma", "mma"):
+        raise AssertionError("the timed tensors do not reach both bodies")
     h = kvh * g
-    sdpa = functools.partial(
-        torch.nn.functional.scaled_dot_product_attention,
-        q.view(b, s, h, dh).transpose(1, 2), k.transpose(1, 2),
-        v.transpose(1, 2), is_causal=causal, enable_gqa=g > 1)
     p = functools.partial
-    return {"ms": time_ms(p(fa.flash_attention, q, k, v, causal=causal),
-                          iters[0]),
-            "plain_ms": time_ms(p(fa.flash_attention_plain, q, k, v,
-                                  causal=causal), iters[1]),
-            "library_ms": time_ms(sdpa, iters[2])}
+    runs = {"wgmma": p(fa.flash_attention, q, k, v, causal=causal),
+            "mma": p(fa.flash_attention, qo, ko, vo, causal=causal),
+            "library": p(torch.nn.functional.scaled_dot_product_attention,
+                         q.view(b, s, h, dh).transpose(1, 2),
+                         k.transpose(1, 2), v.transpose(1, 2),
+                         is_causal=causal, enable_gqa=g > 1)}
+    reads = {n: [] for n in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for n in order:
+            reads[n].append(time_ms(runs[n], iters[0]))
+    out = {n: sum(r) / len(r) for n, r in reads.items()}
+    out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
+                             causal=causal), iters[1])
+    out["reads"] = reads
+    return out
 
 
 def profile_serve(eng, batch, out, card, host_ms: dict,
@@ -855,30 +880,87 @@ def profile_serve(eng, batch, out, card, host_ms: dict,
             + f"  [{card}]")
 
 
+def offset_copy(x):
+    """x's values in a tensor that starts one element into its storage:
+    contiguous but not 16-byte aligned, so the shape rule sends it to the
+    mma body."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = base[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def launch_body(q, k, v, causal):
+    """The kernel's output on (q, k, v) and the body that ran, read from
+    the per-body counters; the body must be the one the shape rule names."""
+    before = dict(fa.flash_launches_by_body)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ran = [n for n, c in fa.flash_launches_by_body.items() if c != before[n]]
+    if ran != [fa.flash_body(q, k, v)]:
+        raise AssertionError(f"flash ran {ran}, the shape rule names "
+                             f"{fa.flash_body(q, k, v)!r}")
+    return got, ran[0]
+
+
+def wgmma_build_report() -> str:
+    """The wgmma body's ``-Xptxas=-v`` lines (registers, spills) at each
+    head dim and its dynamic shared memory; raises on a spill."""
+    log = BUILD_LOGS.get("flash_attention", "")
+    if not log:
+        return "no nvcc log (the library was already built)"
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "flash_fwd_wgmma_kernel" not in line:
+            continue
+        d = int(re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)[1])
+        props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
+                         else x.strip() for x in lines[i + 2:i + 4])
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
+            raise AssertionError(f"the wgmma body spills at D={d}: {props}")
+        out.append(f"D={d}: {props}, {fa.wgmma_smem_bytes(d)} bytes "
+                   f"dynamic shared memory")
+    if len(out) != len(fa.WGMMA_HEAD_DIMS):
+        raise AssertionError(f"no ptxas report for every wgmma build: {out}")
+    return "; ".join(out)
+
+
 def phase_lm(dev, card):
-    """Phase 5; returns (launches, max error, timings, bound) of the flash
-    kernel at the served shape."""
-    # (a) the kernel against its plain version on card tensors.
+    """Phase 5; returns (launches, max error, timings, bound, per-body
+    record) of the flash kernel at the served shape."""
+    say(f"[phase5] flash wgmma body, ptxas: {wgmma_build_report()}")
+    # (a) the kernel against its plain version on card tensors; in bf16
+    # the wgmma body on the tensors and the mma body on an offset copy.
     t = time.perf_counter()
     err = 0.0
     for name, b, s, kvh, g, dh, dv, causal, dt in FLASH_CASES:
         q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
-        got = fa.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
-        e = check_allclose(f"flash {name} {dt} vs plain", got, want,
-                           FLASH_TOL[dt])
-        err = max(err, e)
-        rel = ""
+        runs = [(q, k, v)]
         if dt == torch.bfloat16:
-            r = rel_err(got, want)
-            rel = f", ||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})"
-            if not r <= FLASH_BF16_REL:
-                raise AssertionError(f"flash {name} bf16 vs plain: "
-                                     f"||Δ||/||plain|| {r}")
-        say(f"[phase5] flash vs plain, {name} (B={b}, S={s}, KV={kvh}, "
-            f"G={g}, dh={dh}, dv={dv}, causal={causal}, {dt}): max err "
-            f"{e:.3e} (tol {FLASH_TOL[dt]}){rel}")
+            if fa.flash_body(q, k, v) != "wgmma":
+                raise AssertionError(f"bf16 case {name} is not on the "
+                                     f"wgmma body")
+            runs.append(tuple(map(offset_copy, (q, k, v))))
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        for qq, kk, vv in runs:
+            got, body = launch_body(qq, kk, vv, causal)
+            e = check_allclose(f"flash {name} {dt} {body} vs plain", got,
+                               want, FLASH_TOL[dt])
+            err = max(err, e)
+            rel = ""
+            if dt == torch.bfloat16:
+                r = rel_err(got, want)
+                rel = f", ||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})"
+                if not r <= FLASH_BF16_REL:
+                    raise AssertionError(f"flash {name} bf16 {body} vs "
+                                         f"plain: ||Δ||/||plain|| {r}")
+            say(f"[phase5] flash {body} body vs plain, {name} (B={b}, "
+                f"S={s}, KV={kvh}, G={g}, dh={dh}, dv={dv}, "
+                f"causal={causal}, {dt}): max err {e:.3e} (tol "
+                f"{FLASH_TOL[dt]}){rel}")
+            del got
         if dt == torch.bfloat16 and name == "qwen heads":
             ctl = dropped_tile_control(q, k, v, want)
             r, e = rel_err(ctl, want), float((ctl.float() - want.float())
@@ -890,7 +972,7 @@ def phase_lm(dev, card):
                 raise AssertionError(f"the bf16 norm check passes a kernel "
                                      f"that drops a kv tile ({r})")
             del ctl
-        del q, k, v, got, want
+        del q, k, v, want, runs
     say(f"[phase5] kernel checks in {time.perf_counter() - t:.1f} s")
 
     # (b) serve: qwen1.5-0.5b at full width and depth, random bf16 weights.
@@ -919,10 +1001,13 @@ def phase_lm(dev, card):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
     launches = read_launches()
-    if launches["flash_attention"] != cfg.num_layers:
+    by_body = dict(fa.flash_launches_by_body)
+    if launches["flash_attention"] != cfg.num_layers or \
+            by_body["wgmma"] != cfg.num_layers:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times in the "
-                             f"serve, not once per layer ({cfg.num_layers})")
+                             f"serve ({by_body}), not the wgmma body once "
+                             f"per layer ({cfg.num_layers})")
     if tuple(out.shape) != (LM_BATCH, LM_DECODE + 1) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
@@ -1048,24 +1133,38 @@ def phase_lm(dev, card):
 
     # (c) timings with CUDA events.
     t = time.perf_counter()
-    shapes = {"smoke": (LM_BATCH, LM_PROMPT, (20, 3, 20)),
-              "prefill_32k": (1, 32768, (3, 1, 3))}
+    shapes = {"smoke": (LM_BATCH, LM_PROMPT, (20, 3)),
+              "prefill_32k": (1, 32768, (3, 1))}
     times, bounds = {}, {}
     for key, (b, s, iters) in shapes.items():
-        times[key] = time_flash(b, s, cfg.num_kv_heads, 1, cfg.head_dim,
-                                True, dev, iters)
-        bounds[key] = flash_bound(b, s, cfg.num_kv_heads, 1, cfg.head_dim,
-                                  cfg.head_dim, True)
+        times[key] = tm = time_flash(b, s, cfg.num_kv_heads, 1, cfg.head_dim,
+                                     True, dev, iters)
+        bounds[key] = bd, by = flash_bound(
+            b, s, cfg.num_kv_heads, 1, cfg.head_dim, cfg.head_dim, True)
         tb = fa.traffic_bytes(b, s, s, cfg.num_kv_heads, 1, cfg.head_dim,
                               cfg.head_dim) / HBM_BYTES_PER_S * 1e3
-        tm, (bd, by) = times[key], bounds[key]
+        reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                          for n, r in tm["reads"].items())
+        wg, mma, lib = tm["wgmma"], tm["mma"], tm["library"]
         say(f"[phase5] flash {key} (B={b}, S={s}, qwen heads, bf16, "
-            f"causal): kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f}"
-            f" ms, scaled_dot_product_attention {tm['library_ms']:.4f} ms, "
-            f"bound {bd:.4f} ms ({by}; the reference's traffic_bytes over "
-            f"HBM {tb:.4f} ms); {bd / tm['ms']:.3f} of the bound  [{card}]")
+            f"causal): wgmma body {wg:.4f} ms ({bd / wg:.3f} of the bound),"
+            f" mma body {mma:.4f} ms ({bd / mma:.3f}), "
+            f"scaled_dot_product_attention {lib:.4f} ms ({bd / lib:.3f}), "
+            f"plain {tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}; the "
+            f"reference's traffic_bytes over HBM {tb:.4f} ms); wgmma "
+            f"{mma / wg:.2f}x the mma body's speed, {lib / wg:.2f}x the "
+            f"library's; readings in turns: {reads}  [{card}]")
     say(f"[phase5] timings in {time.perf_counter() - t:.1f} s")
-    return launches, err, times["smoke"], bounds["smoke"]
+    smoke = times["smoke"]
+    row = {"ms": smoke["wgmma"], "plain_ms": smoke["plain"],
+           "library_ms": smoke["library"]}
+    bodies = {body: {"launches": by_body[body]} for body in by_body}
+    for body in ("wgmma", "mma"):
+        for key in shapes:
+            bodies[body][key] = {"ms": times[key][body],
+                                 "bound_ms": bounds[key][0],
+                                 "library_ms": times[key]["library"]}
+    return launches, err, row, bounds["smoke"], bodies
 
 
 def main() -> int:
@@ -1084,9 +1183,11 @@ def main() -> int:
     # One nvcc per kernel source, all started together.
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(b) for b in (ks.build, fa.build)]
-        for fut in builds:
+        builds = {name: pool.submit(b) for name, b in (
+            ("serpens_spmv", ks.build), ("flash_attention", fa.build))}
+        for name, fut in builds.items():
             path, log = fut.result()
+            BUILD_LOGS[name] = log
             say(f"[build] {path.name}")
             if log.strip():
                 say(log.strip())
@@ -1268,7 +1369,7 @@ def main() -> int:
     # -- phase 5: LM serving (the third slice's main path) ----------------
     t5 = time.perf_counter()
     launches["lm"], errs["flash_attention"], times["flash_attention"], \
-        bounds["flash_attention"] = phase_lm(dev, card)
+        bounds["flash_attention"], flash_bodies = phase_lm(dev, card)
     say(f"[phase5] ok in {time.perf_counter() - t5:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
@@ -1284,6 +1385,11 @@ def main() -> int:
              plain_ms=times[name]["plain_ms"], bound_ms=bounds[name][0],
              bound_by=bounds[name][1], library_ms=times[name]["library_ms"])
         for name in sorted(KERNELS)]}
+    # The flash kernel's bodies: launches on the main path, and ms, bound
+    # and library ms at the served shape and at prefill_32k.
+    for entry in record["kernels"]:
+        if entry["name"] == "flash_attention":
+            entry["bodies"] = flash_bodies
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,22 +9,35 @@
 // masked, GQA by grouping and dv != dh allowed.
 //
 // What bounds it on an H100: at the served shapes (Sq = Sk >= 2000,
-// dh = 64) the work is 4·Sq·Sk·dh flops per head (halved when causal)
-// against (Sq + 2·Sk)·dh elements moved, so the arithmetic bounds it by
-// two orders of magnitude over the bytes: the least time is the flops over
-// the tensor cores' bf16 rate.  Two kernels share one design:
-//   * bf16 (the served path): Q·K^T and P·V on the tensor cores with
-//     mma.sync m16n8k16 (fp32 accumulate), S and P never leaving registers;
-//     no TMA, wgmma or software pipelining yet.
-//   * fp32: fp32 FMAs on the CUDA cores (tensor cores would round the
-//     inputs to TF32), so the fp32 results keep fp32 products.
-// The shared design keeps the traffic at the floor:
-//   * One block per (head, 64-row q tile); a loop inside the block walks
-//     the kv tiles (the TPU's sequential kv grid axis), so nothing carries
-//     between blocks, which Hopper runs in no order.
-//   * The q tile stays on chip for the whole loop; each 64-key K and V
-//     tile is staged in shared memory once per block and read by all of
-//     its 128 threads.  m, l and acc live in registers; O is written once.
+// dh = 64 or 128) the work is 4·Sq·Sk·dh flops per head (halved when
+// causal) against (Sq + 2·Sk)·dh elements moved, so the arithmetic bounds
+// it by two orders of magnitude over the bytes: the least time is the
+// flops over the tensor cores' bf16 rate.  Three bodies; the wrapper
+// (kernels/flash_attention.py, flash_body) picks one from dtype, head dims
+// and alignment alone:
+//   * flash_fwd_wgmma_kernel, bf16 with dh = dv in {64, 128} and 16-byte
+//     aligned bases (the served heads): built for that rate.  A producer
+//     warpgroup keeps a ring of K/V tiles in flight with TMA (128-byte
+//     swizzle, rows past S zero-filled on load and clipped on store), so
+//     loads overlap the math; two consumer warpgroups of 64 q rows each
+//     run Q·K^T and P·V on wgmma (operands by shared-memory descriptor, V
+//     read through the transpose bit, P from registers), so no thread
+//     stages or transposes a tile.  The softmax runs in exp2 with
+//     scale·log2(e) folded in, and masks only tiles that straddle the
+//     diagonal or Sk.
+//   * flash_fwd_mma_kernel, every other bf16 shape (odd or mixed head
+//     dims, misaligned views): mma.sync m16n8k16 with tiles staged by all
+//     threads, no pipelining.
+//   * flash_fwd_kernel, fp32: fp32 FMAs on the CUDA cores (tensor cores
+//     would round the inputs to TF32), so the fp32 results keep fp32
+//     products.
+// All three keep the traffic at the floor:
+//   * One block per (head, q tile); a loop inside the block walks the kv
+//     tiles (the TPU's sequential kv grid axis), so nothing carries between
+//     blocks, which Hopper runs in no order.
+//   * The q tile stays on chip for the whole loop; each K and V tile is
+//     brought into shared memory once per block.  m, l and acc live in
+//     registers; O is written once.
 //   * GQA indexes kv head h / G instead of repeating K and V (the TPU
 //     wrapper's jnp.repeat), so K and V are read once per group.
 //   * Under causal masking the loop stops at the diagonal: kv tiles wholly
@@ -32,8 +45,10 @@
 //     first, on grid y, so the long rows of every head start first.
 //   * In bf16, P is rounded to bf16 before P·V, which accumulates in fp32
 //     (the reference's p.astype(v.dtype) with preferred_element_type f32).
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda at link time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -537,6 +552,560 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: a TMA-fed K/V ring, wgmma, a warp-specialised producer
+// ---------------------------------------------------------------------------
+// One block per (head, 128-row q tile), 3 warpgroups.  Warpgroup 0 is the
+// producer: one thread loads the q tile once and then keeps a ring of
+// (K tile, V tile) stages full with TMA, each stage guarded by a `full`
+// mbarrier (TMA's byte count) and an `empty` one (the consumers' release).
+// Warpgroups 1 and 2 consume, 64 q rows each: S = Q K^T on wgmma with both
+// operands read from shared memory by descriptor, online softmax on S in
+// registers, then O += P V on wgmma with P (bf16) taken from registers in
+// the accumulator's own layout and V read as TMA left it (keys x dv, dv
+// contiguous: the descriptor's transpose bit).  Every tile lands with
+// 128-byte swizzle in boxes of 64 columns (128 bytes); a head dim of 128
+// is two boxes side by side, each its own [rows][64] block in shared
+// memory.  Rows past S are zero on load and clipped on store by TMA.
+constexpr int kWgBQ = 128;       // q rows per block: 64 per consumer
+constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kBoxCols = 64;     // bf16 per 128-byte swizzled box row
+constexpr int kRowBytes = 128;
+constexpr int kQBoxRows = 64;    // q and o boxes: one consumer's rows
+
+template <int D> struct WgCfg {
+  static constexpr int BK = 128;                  // keys per kv tile
+  static constexpr int STAGES = 3;                // ring depth
+  static constexpr int CB = D / kBoxCols;         // column boxes per row
+  static constexpr int Q_BYTES = kWgBQ * D * 2;
+  static constexpr int TILE_BYTES = BK * D * 2;   // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int DATA_BYTES = Q_BYTES + STAGES * STAGE_BYTES;
+  // + the mbarriers (q, full[STAGES], empty[STAGES]) and room to align
+  // the base to the 1024 bytes the swizzle pattern repeats over.
+  static constexpr int SMEM_BYTES = 1024 + DATA_BYTES + 128;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arrives on `bar` and adds `bytes` to the transaction count it awaits.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of `bar` with this parity to complete.  A wait past
+// any real one (2^34 cycles, seconds) traps, so a lost TMA transaction
+// shows as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One box of a rank-4 map, coordinates innermost first, into shared memory;
+// completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; -inf
+// gives 0).  exp2f would add a range fix-up around it on every score.
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers at this point of the instruction stream: what wgmma
+// writes asynchronously is read only after the wait, and what the threads
+// write is in place before the fence.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D (64 x 128, fp32) = A (64 x 16, smem) B^T (128 x 16, smem, K-major)
+// (+ D when scale_d).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, registers) B (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// S = Q K^T for one consumer: 64 q rows x BK keys, D/16 steps of 16
+// columns; a step's 32 bytes advance the descriptor inside its 128-byte
+// swizzled row, and every 64 columns move to the next column box.
+template <int D, int BK>
+__device__ __forceinline__ void qk_issue(float (&sc)[BK / 2], uint32_t sQw,
+                                         uint32_t ks) {
+  static_assert(BK == 128, "S is one m64n128k16 product per 16 columns");
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4;                // column box
+    const uint32_t off = (kk % 4) * 32;  // 16 columns in it
+    wgmma_ss_n128(sc,
+                  smem_desc(sQw + c * kWgBQ * kRowBytes + off, 16, 1024),
+                  smem_desc(ks + c * BK * kRowBytes + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V for one consumer: BK/16 steps of 16 keys (16 rows of the V
+// tile, 2048 bytes); V is keys x dv with dv contiguous (MN-major, the
+// transpose bit), column boxes BK rows apart (the leading byte offset).
+template <int D, int BK>
+__device__ __forceinline__ void pv_issue(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t vs) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<D>(o, pa[kk],
+                smem_desc(vs + kk * 16 * kRowBytes, BK * kRowBytes, 1024));
+}
+
+// One online-softmax step on an S tile in the wgmma accumulator layout,
+// in place (S becomes P in fp32): element e of n-tile j is row
+// my_row + 8·(e >> 1), key k0 + 8j + 2·(lane % 4) + (e & 1).  Updates m
+// and this thread's share of l, and returns O's rescale factor per row.
+template <int NS>
+__device__ __forceinline__ void softmax_step(float (&sc)[NS], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool mask, int k0, int sk,
+                                             int causal, int my_row,
+                                             int lane, float scale_log2) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+        const int row = my_row + 8 * (e >> 1);
+        if (key >= sk || (causal && key > row)) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+    // A row with no live key yet keeps m = -inf: subtract 0 instead.
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = exp2_fast(m[h] - m_use);
+    neg_m[h] = -m_use;
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    sc[i] = exp2_fast(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+}
+
+// P rounded to bf16 (the reference's p.astype(v.dtype)) as P·V's A
+// operand: 16 keys are n-tiles 2kk and 2kk + 1 of S.
+template <int NS>
+__device__ __forceinline__ void to_bf16(const float (&sc)[NS],
+                                        uint32_t (&pa)[NS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// `heads` = KV·G q heads; grid x = B·heads, grid y = q tiles (longest
+// causal rows first).  scale_log2 = scale·log2(e): p = 2^(dot·scale_log2 -
+// m) with m the running row max of dot·scale_log2.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                           __grid_constant__ const CUtensorMap tk,
+                           __grid_constant__ const CUtensorMap tv,
+                           __grid_constant__ const CUtensorMap to, int sq,
+                           int sk, int heads, int g, int causal,
+                           float scale_log2) {
+  using C = WgCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;  // [CB][kWgBQ rows][128 B]
+  // Stage s: K [CB][BK][128 B], then V likewise.
+  const uint32_t sKV = base + C::Q_BYTES;
+  const uint32_t q_bar = base + C::DATA_BYTES;
+  const uint32_t full_bar = q_bar + 8;
+  const uint32_t empty_bar = full_bar + 8 * C::STAGES;
+
+  const int hq = blockIdx.x % heads;  // q head in the flattened KV·G axis
+  const int b = blockIdx.x / heads;
+  const int kv = hq / g;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;
+  // Keys past the tile's last row are all masked under causal.
+  const int kv_end = causal ? min(sk, q0 + kWgBQ) : sk;
+  const int n_tiles = (kv_end + C::BK - 1) / C::BK;
+  const int wg = threadIdx.x / 128;
+  const int tw = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: one thread issues every copy.  The block holds
+    // 384 x 168 registers; the producer gives back 128 x (168 - 40), which
+    // is what the consumers take (256 x (232 - 168)).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tw == 0) {
+      mbar_expect_tx(q_bar, C::Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < C::CB; ++c)
+          tma_load(sQ + (c * kWgBQ + kQBoxRows * w) * kRowBytes, &tq, q_bar,
+                   c * kBoxCols, hq, q0 + kQBoxRows * w, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::STAGES;
+        // A fresh barrier passes the wait on parity 1: the first lap of
+        // the ring finds every stage free.
+        mbar_wait(empty_bar + 8 * s, ((t / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
+        const uint32_t ks = sKV + s * C::STAGE_BYTES;
+        for (int c = 0; c < C::CB; ++c) {
+          tma_load(ks + c * C::BK * kRowBytes, &tk, full_bar + 8 * s,
+                   c * kBoxCols, kv, t * C::BK, b);
+          tma_load(ks + C::TILE_BYTES + c * C::BK * kRowBytes, &tv,
+                   full_bar + 8 * s, c * kBoxCols, kv, t * C::BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer: 64 q rows; warp w of it holds rows 16w + lane/4 (+ 8).
+  // Each consumer runs S = Q K^T, the softmax and O += P V of a tile in
+  // turn; the two consumers overlap each other's softmax with their
+  // products on the tensor cores.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  constexpr int NS = C::BK / 2;  // S: BK/8 n-tiles of 4 floats
+  constexpr int NO = D / 2;      // O: D/8 n-tiles of 4 floats
+  const int cw = wg - 1;
+  const int warp = tw / 32, lane = tw % 32;
+  const int row0 = q0 + kQBoxRows * cw;            // this consumer's rows:
+  const int my_row = row0 + 16 * warp + lane / 4;  // this thread's, and + 8
+  const uint32_t sQw = sQ + kQBoxRows * cw * kRowBytes;
+  // The block's kv tiles end at its last row, and a 128-key tile reaches
+  // both consumers' rows: each consumer computes every tile.
+  static_assert(C::BK == kWgBQ, "a tile wholly above a consumer's rows");
+  auto stage = [&](int t) { return sKV + (t % C::STAGES) * C::STAGE_BYTES; };
+  auto wait_full = [&](int t) {
+    mbar_wait(full_bar + 8 * (t % C::STAGES), (t / C::STAGES) & 1);
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * (t % C::STAGES));
+  };
+  // Only tiles that straddle the diagonal or Sk are masked.
+  auto edge = [&](int t) {
+    return (t + 1) * C::BK > sk || (causal && (t + 1) * C::BK - 1 > row0);
+  };
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // m: running max of dot·scale_log2; l: this thread's share of the row
+  // sum (the 4 threads of a row add theirs at the end).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    wait_full(t);
+    float sc[NS], corr[2];
+    wgmma_fence();
+    qk_issue<D, C::BK>(sc, sQw, stage(t));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
+    softmax_step(sc, m, l, corr, edge(t), t * C::BK, sk, causal, my_row,
+                 lane, scale_log2);
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+    uint32_t pa[C::BK / 16][4];
+    to_bf16(sc, pa);
+    pin(o);
+    pin(pa);
+    wgmma_fence();
+    pv_issue<D, C::BK>(o, pa, stage(t) + C::TILE_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    release(t);
+  }
+
+  // O = acc / l in bf16, staged in this consumer's (now dead) q rows with
+  // the map's swizzle, then one TMA store per column box.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + lane / 4 + 8 * h;
+      const uint32_t addr = sQw + (j / 8) * kWgBQ * kRowBytes +
+                            r * kRowBytes + (((j % 8) ^ (r % 8)) << 4) +
+                            (lane % 4) * 4;
+      const uint32_t val =
+          pack_bf16(o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(val)
+                   : "memory");
+    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+  if (tw == 0 && row0 < sq) {
+    for (int c = 0; c < C::CB; ++c)
+      tma_store(&to, sQw + c * kWgBQ * kRowBytes, c * kBoxCols, hq, row0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query, so the library links no libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <int D>
+int launch_wgmma(const void* const ptrs[4], const long long* dims,
+                 const long long* strides, const int* boxes, int b, int sq,
+                 int sk, int heads, int g, int causal, float scale,
+                 cudaStream_t stream) {
+  using C = WgCfg<D>;
+  // The maps' geometry comes from the caller; the boxes must be the tiles
+  // this build was compiled for: q, k, v, o in that order.
+  const int box_rows[4] = {kQBoxRows, C::BK, C::BK, kQBoxRows};
+  for (int i = 0; i < 4; ++i)
+    if (boxes[4 * i] != kBoxCols || boxes[4 * i + 1] != 1 ||
+        boxes[4 * i + 2] != box_rows[i] || boxes[4 * i + 3] != 1 ||
+        dims[4 * i] != D)
+      return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    cuuint64_t gdim[4], gstride[3];
+    cuuint32_t box[4], estride[4] = {1, 1, 1, 1};
+    for (int j = 0; j < 4; ++j) {
+      gdim[j] = (cuuint64_t)dims[4 * i + j];
+      box[j] = (cuuint32_t)boxes[4 * i + j];
+    }
+    for (int j = 0; j < 3; ++j) gstride[j] = (cuuint64_t)strides[3 * i + j];
+    const CUresult r = encode(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+        const_cast<void*>(ptrs[i]), gdim, gstride, box, estride,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -(int)r;  // the CUresult, negated
+  }
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(b * heads), (unsigned)((sq + kWgBQ - 1) / kWgBQ));
+  kern<<<grid, kWgThreads, C::SMEM_BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], sq, sk, heads, g, causal,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: contiguous, in the layouts above, all fp32 or all bf16.
@@ -567,4 +1136,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                             scale, s);
   }
   return (int)err;
+}
+
+// The Hopper bf16 body: q, k, v, o contiguous bf16 in the layouts above,
+// dh = dv = d in {64, 128}, 16-byte-aligned bases.  dims, strides and
+// boxes describe the rank-4 maps of q, k, v and o in that order (4 dims
+// innermost first, the byte strides of dims 1-3, 4 box dims each);
+// col_boxes = d / 64.  Returns the CUDA status, or minus the CUresult if a
+// map cannot be encoded.
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
+                                         const void* v, void* o,
+                                         const long long* dims,
+                                         const long long* strides,
+                                         const int* boxes, int col_boxes,
+                                         int b, int sq, int sk, int heads,
+                                         int g, int d, int causal,
+                                         float scale, void* stream) {
+  if ((d != 64 && d != 128) || col_boxes * kBoxCols != d || sq < 1 ||
+      sk < 1 || b < 1 || heads < 1 || g < 1 || heads % g != 0)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, o};
+  auto s = static_cast<cudaStream_t>(stream);
+  return d == 64 ? launch_wgmma<64>(ptrs, dims, strides, boxes, b, sq, sk,
+                                    heads, g, causal, scale, s)
+                 : launch_wgmma<128>(ptrs, dims, strides, boxes, b, sq, sk,
+                                     heads, g, causal, scale, s);
+}
+
+// Dynamic shared memory of the wgmma body at head dim d (0 if none).
+extern "C" int flash_attention_wgmma_smem_bytes(int d) {
+  return d == 64 ? WgCfg<64>::SMEM_BYTES
+                 : d == 128 ? WgCfg<128>::SMEM_BYTES : 0;
 }

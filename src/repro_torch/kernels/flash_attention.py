@@ -4,20 +4,31 @@ The kernel (``csrc/flash_attention.cu``) replaces the reference package's
 TPU kernel ``flash_attention`` (``repro/kernels/flash_attention.py``): an
 online-softmax attention that keeps its running max, normaliser and
 accumulator in fp32 on chip, so each call reads Q, K and V and writes O
-once.  bf16 runs its products on the tensor cores (``mma.sync``), fp32 on
-CUDA-core FMAs (fp32 products, as the reference's).  It is compiled by
-``nvcc`` for ``sm_90a`` into ``build/`` at the repository root on first
-use (``kernels/build.py``), loaded with ``ctypes`` and launched on
-PyTorch's current stream.
+once.  It has three bodies, and :func:`flash_body` picks one from the
+inputs' dtype, head dims and alignment alone:
+
+* ``"wgmma"``: bf16 with ``dh == dv`` in :data:`WGMMA_HEAD_DIMS` and
+  16-byte-aligned bases (the served heads).  TMA brings K/V tiles into a
+  ring of shared-memory stages and ``wgmma`` runs both products; its
+  rank-4 tensor maps are described by :func:`tma_geometry`.
+* ``"mma"``: every other bf16 shape, on ``mma.sync`` tensor cores.
+* ``"fma"``: fp32, on CUDA-core FMAs (fp32 products, as the reference's).
+
+The choice is no fallback: a body that fails to build or launch raises.
+The source is compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
+repository root on first use (``kernels/build.py``), loaded with
+``ctypes`` and launched on PyTorch's current stream.
 
 :func:`flash_attention` takes the reference's layout.  On CUDA tensors it
-launches the kernel (and counts the launch in :data:`flash_launches`); on
-CPU tensors it runs :func:`flash_attention_plain`.  Nothing falls back: a
-CUDA tensor either runs the kernel or raises.
+launches the kernel (and counts the launch in :data:`flash_launches` and
+:data:`flash_launches_by_body`); on CPU tensors it runs
+:func:`flash_attention_plain`.  Nothing falls back: a CUDA tensor either
+runs the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +37,7 @@ from repro_torch.kernels import build as _build
 # Launch counter: the wrapper adds one where it launches the kernel and
 # nowhere else, so a run can show that its path went through the kernel.
 flash_launches = 0
+flash_launches_by_body = {"wgmma": 0, "mma": 0, "fma": 0}
 
 NEG_INF = -1e30
 # The kernel keeps a 64-row tile of q, K and V in shared memory and acc in
@@ -35,6 +47,17 @@ _Q_TILE = 64
 _MAX_GRID_Y = 65535
 # Rows of q per step of the plain version: bounds its fp32 score tensor.
 _PLAIN_CHUNK = 512
+
+# The wgmma body: head dims it is built for; q rows per TMA box (one
+# consumer warpgroup's rows; a block takes two) and keys per kv tile at
+# each head dim, both compiled into the kernel; 64 bf16 columns per box,
+# the most a 128-byte swizzle takes, so a head of 128 is two boxes side by
+# side.
+WGMMA_HEAD_DIMS = (64, 128)
+_WG_Q_BOX_ROWS = 64
+_WG_KV_TILE = {64: 128, 128: 128}
+_BOX_COLS = 64
+_BF16_BYTES = 2
 
 
 def build():
@@ -48,6 +71,60 @@ def _declare(lib) -> None:
                                         i32, i32, i32, i32, ctypes.c_float,
                                         p]
     lib.flash_attention_fwd.restype = i32
+    i64s, i32s = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i32)
+    lib.flash_attention_fwd_wgmma.argtypes = [
+        p, p, p, p, i64s, i64s, i32s, i32, i32, i32, i32, i32, i32, i32,
+        i32, ctypes.c_float, p]
+    lib.flash_attention_fwd_wgmma.restype = i32
+    lib.flash_attention_wgmma_smem_bytes.argtypes = [i32]
+    lib.flash_attention_wgmma_smem_bytes.restype = i32
+
+
+class TensorMap(NamedTuple):
+    """One rank-4 TMA map: global dims and box dims innermost first, and
+    the byte strides of dims 1-3 (dim 0 is contiguous)."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+
+
+def tma_geometry(b, sq, sk, kvh, g, d) -> dict:
+    """The wgmma body's maps of q, k, v and o, each the reference layout
+    read as (d, heads, S, B) with no reshaping copy: a box spans one head
+    and rows along S, so a tile never crosses a batch.  Also
+    ``"col_boxes"``, the boxes side by side across a head dim of ``d``."""
+    def tmap(rows, heads, box_rows):
+        row = heads * d * _BF16_BYTES
+        return TensorMap((d, heads, rows, b), (d * _BF16_BYTES, row,
+                                                rows * row),
+                         (_BOX_COLS, 1, box_rows, 1))
+    return {"q": tmap(sq, kvh * g, _WG_Q_BOX_ROWS),
+            "k": tmap(sk, kvh, _WG_KV_TILE[d]),
+            "v": tmap(sk, kvh, _WG_KV_TILE[d]),
+            "o": tmap(sq, kvh * g, _WG_Q_BOX_ROWS),
+            "col_boxes": -(-d // _BOX_COLS)}
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory one block of the wgmma body takes at head dim
+    ``d`` (q tile, K/V ring, barriers), from the built library."""
+    return _build.load("flash_attention",
+                       _declare).flash_attention_wgmma_smem_bytes(d)
+
+
+def flash_body(q, k, v) -> str:
+    """The body that runs these (checked) inputs on the card: ``"fma"``
+    for fp32; ``"wgmma"`` for bf16 with ``dh == dv`` in
+    :data:`WGMMA_HEAD_DIMS` and every base 16-byte aligned (so every row
+    stride is a multiple of 16 bytes, as TMA needs); ``"mma"`` for any
+    other bf16 shape."""
+    if q.dtype == torch.float32:
+        return "fma"
+    dh, dv = q.shape[-1], v.shape[-1]
+    if dh == dv and dh in WGMMA_HEAD_DIMS and \
+            all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        return "wgmma"
+    return "mma"
 
 
 def _check(q, k, v) -> tuple[int, ...]:
@@ -122,16 +199,33 @@ def flash_attention(q, k, v, *, causal=True):
     if -(-sq // _Q_TILE) > _MAX_GRID_Y or b * kvh * g >= 2 ** 31:
         raise ValueError(f"q {tuple(q.shape)} is too large for one launch")
     global flash_launches
+    body = flash_body(q, k, v)
     lib = _build.load("flash_attention", _declare)
     out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=dev)
-    status = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-        kvh, g, dh, dv, int(causal), int(q.dtype == torch.bfloat16),
-        dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if body == "wgmma":
+        geo = tma_geometry(b, sq, sk, kvh, g, dh)
+        maps = [geo[n] for n in ("q", "k", "v", "o")]
+        dims = (ctypes.c_longlong * 16)(*(x for m in maps for x in m.dims))
+        strides = (ctypes.c_longlong * 12)(
+            *(x for m in maps for x in m.strides))
+        boxes = (ctypes.c_int * 16)(*(x for m in maps for x in m.box))
+        status = lib.flash_attention_fwd_wgmma(
+            *ptrs, dims, strides, boxes, geo["col_boxes"], b, sq, sk,
+            kvh * g, g, dh, int(causal), dh ** -0.5, stream)
+    else:
+        status = lib.flash_attention_fwd(
+            *ptrs, b, sq, sk, kvh, g, dh, dv, int(causal),
+            int(body == "mma"), dh ** -0.5, stream)
+    if status < 0:
+        raise RuntimeError(f"flash_attention ({body}): cuTensorMapEncodeTiled"
+                           f" failed with CUresult {-status}")
     if status != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error "
-                           f"{status}")
+        raise RuntimeError(f"flash_attention ({body}) launch failed: CUDA "
+                           f"error {status}")
     flash_launches += 1
+    flash_launches_by_body[body] += 1
     return out
 
 

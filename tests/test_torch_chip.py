@@ -337,6 +337,29 @@ FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
     "dh96-dv64": (2, 130, 130, 2, 2, 96, 64, False),
     "odd-dims": (1, 45, 45, 2, 2, 20, 13, True),   # no 16-byte rows
 }
+# The bf16 bodies against plain in norm: ||Δ|| <= FLASH_BF16_REL·||plain||
+# (chip_smoke.py's bound, which a kernel that drops one kv tile fails).
+FLASH_BF16_REL = 5e-3
+
+
+def flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b, sq, kv, g, dh), generator=gen, device=card)
+    k = torch.randn((b, sk, kv, dh), generator=gen, device=card)
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=card)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def run_flash(q, k, v, causal=True):
+    """The kernel's output and the body it ran, read from the counters."""
+    before = dict(fa.flash_launches_by_body)
+    total = fa.flash_launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ran = [n for n, c in fa.flash_launches_by_body.items()
+           if c != before[n]]
+    assert fa.flash_launches == total + 1 and len(ran) == 1
+    return got, ran[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -344,26 +367,56 @@ FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
 @pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
 def test_flash_kernel_matches_plain(card, shape, dtype):
     b, sq, sk, kv, g, dh, dv, causal = FLASH_SHAPES[shape]
-    gen = torch.Generator(device=card).manual_seed(sq + dh)
-    q = torch.randn((b, sq, kv, g, dh), generator=gen, device=card)
-    k = torch.randn((b, sk, kv, dh), generator=gen, device=card)
-    v = torch.randn((b, sk, kv, dv), generator=gen, device=card)
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = fa.flash_launches
-    got = fa.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert fa.flash_launches == before + 1
+    q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv, sq + dh)
+    got, body = run_flash(q, k, v, causal)
+    # bf16 runs the wgmma body only at dh = dv in {64, 128}; odd dims and
+    # the other head dims take the mma body.
+    assert body == ("fma" if dtype == torch.float32 else
+                    "wgmma" if shape == "dh128-gqa" else "mma")
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# The wgmma body's shapes: b, sq, sk, kv, g, d, causal.  Ragged S with
+# B >= 2 (a tile that crossed a batch would read the next one's rows),
+# chatglm3's GQA (G = 16), non-causal, Sq < Sk.
+WGMMA_SHAPES = {
+    "d64-s130": (2, 130, 130, 2, 1, 64, True),
+    "d128-s130": (2, 130, 130, 2, 2, 128, True),
+    "d64-s2000": (2, 2000, 2000, 4, 1, 64, True),
+    "d128-s2000": (2, 2000, 2000, 2, 1, 128, True),
+    "chatglm3-g16": (1, 600, 600, 2, 16, 128, True),
+    "d64-non-causal": (2, 300, 300, 2, 2, 64, False),
+    "d128-non-causal": (2, 300, 300, 2, 1, 128, False),
+    "d64-sq-lt-sk": (2, 200, 333, 2, 2, 64, True),
+    "d128-sq-lt-sk": (2, 77, 260, 1, 3, 128, True),
+    "d64-one-row": (3, 1, 1, 2, 1, 64, True),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(WGMMA_SHAPES))
+def test_flash_wgmma_body_matches_plain(card, shape):
+    b, sq, sk, kv, g, d, causal = WGMMA_SHAPES[shape]
+    q, k, v = flash_inputs(card, torch.bfloat16, b, sq, sk, kv, g, d, d,
+                           sq + sk + d)
+    got, body = run_flash(q, k, v, causal)
+    assert body == "wgmma"
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(err) <= FLASH_BF16_REL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_flash_kernel_on_misaligned_inputs(card, dtype):
     """Contiguous tensors that start one element into their storage: the
-    kernel must not take its 16-byte loads there."""
+    kernel must not take its 16-byte loads there, and in bf16 the shape
+    rule sends them to the mma body."""
     gen = torch.Generator(device=card).manual_seed(1)
 
     def shifted(shape):
@@ -374,7 +427,8 @@ def test_flash_kernel_on_misaligned_inputs(card, dtype):
     q, k, v = shifted((2, 70, 2, 2, 64)), shifted((2, 70, 2, 64)), \
         shifted((2, 70, 2, 64))
     assert q.data_ptr() % 16 != 0 and q.is_contiguous()
-    got = fa.flash_attention(q, k, v)
+    got, body = run_flash(q, k, v)
+    assert body == ("fma" if dtype == torch.float32 else "mma")
     want = fa.flash_attention_plain(q, k, v)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,0 +1,131 @@
+"""What surrounds the flash-attention kernel, on the CPU: which body the
+shape rule picks, and the wgmma body's TMA tensor-map geometry.
+
+The kernel itself runs only on the card (``tests/test_torch_chip.py``);
+its plain version is held against the reference's Pallas kernel in
+``tests/test_torch_attention.py``.  Here the rule and the geometry, both
+plain Python in ``kernels/flash_attention.py``, are checked against the
+tensors they describe.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+
+
+def qkv(b, sq, sk, kv, g, dh, dv, dtype=torch.bfloat16, offset=0):
+    """q, k, v in the reference layout; ``offset`` elements into their
+    storage (contiguous views that start there)."""
+    def make(shape):
+        n = int(np.prod(shape))
+        return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+    return (make((b, sq, kv, g, dh)), make((b, sk, kv, dh)),
+            make((b, sk, kv, dv)))
+
+
+@pytest.mark.parametrize("dtype,dh,dv,offset,body", [
+    (torch.bfloat16, 64, 64, 0, "wgmma"),      # qwen1.5 heads
+    (torch.bfloat16, 128, 128, 0, "wgmma"),    # chatglm3, codeqwen1.5
+    (torch.bfloat16, 64, 64, 1, "mma"),        # misaligned view
+    (torch.bfloat16, 128, 128, 4, "mma"),      # 8-byte aligned only
+    (torch.bfloat16, 128, 128, 8, "wgmma"),    # 16-byte aligned view
+    (torch.bfloat16, 96, 64, 0, "mma"),        # dv != dh
+    (torch.bfloat16, 64, 128, 0, "mma"),
+    (torch.bfloat16, 96, 96, 0, "mma"),        # a head dim it is not built for
+    (torch.bfloat16, 32, 32, 0, "mma"),
+    (torch.bfloat16, 20, 13, 0, "mma"),        # odd dims
+    (torch.float32, 64, 64, 0, "fma"),
+    (torch.float32, 128, 128, 0, "fma"),
+    (torch.float32, 64, 64, 1, "fma"),
+])
+def test_body_follows_dtype_dims_and_alignment(dtype, dh, dv, offset, body):
+    q, k, v = qkv(2, 10, 10, 2, 2, dh, dv, dtype, offset)
+    assert fa.flash_body(q, k, v) == body
+
+
+def test_one_misaligned_tensor_is_enough_for_the_mma_body():
+    q, k, v = qkv(1, 8, 8, 2, 1, 64, 64)
+    _, k_off, _ = qkv(1, 8, 8, 2, 1, 64, 64, offset=1)
+    assert fa.flash_body(q, k, v) == "wgmma"
+    assert fa.flash_body(q, k_off, v) == "mma"
+
+
+SERVED = {                      # arch -> (kv heads, group, head dim)
+    arch: (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+           cfg.head_dim)
+    for arch, cfg in ((a, get_config(a)) for a in
+                      ("qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b"))}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED))
+@pytest.mark.parametrize("b,sq,sk", [(4, 2000, 2000), (1, 32768, 32768),
+                                     (2, 77, 260)])
+def test_tma_geometry_describes_the_reference_layout(arch, b, sq, sk):
+    kvh, g, d = SERVED[arch]
+    assert d in fa.WGMMA_HEAD_DIMS
+    geo = fa.tma_geometry(b, sq, sk, kvh, g, d)
+    assert geo["col_boxes"] == d // 64 and geo["col_boxes"] * 64 == d
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    q = o = torch.empty((b, sq, kvh, g, d), **meta)
+    k = v = torch.empty((b, sk, kvh, d), **meta)
+    for name, t, heads, rows in (("q", q, kvh * g, sq), ("k", k, kvh, sk),
+                                 ("v", v, kvh, sk), ("o", o, kvh * g, sq)):
+        m = geo[name]
+        # Innermost first: (d, heads, S, B), with no reshaping copy.
+        assert m.dims == (d, heads, rows, b)
+        # Byte strides of dims 1-3 are the tensor's own: (G, KV) fold into
+        # one heads axis because they are adjacent and contiguous.
+        es = t.element_size()
+        flat = t.reshape(b, rows, heads, d)
+        assert m.strides == tuple(s * es for s in reversed(flat.stride()[:3]))
+        assert all(s % 16 == 0 and s < 2 ** 40 for s in m.strides)
+        # 128-byte swizzle: the inner box is at most 128 bytes; one head
+        # and rows along S, one batch.
+        assert m.box[0] * es <= 128 and (m.box[0] * es) % 16 == 0
+        assert m.box[1] == 1 and m.box[3] == 1 and 0 < m.box[2] <= 256
+    # q and o share their geometry; k and v theirs.
+    assert geo["q"] == geo["o"] and geo["k"] == geo["v"]
+
+
+@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
+def test_tma_geometry_addresses_every_element(d):
+    """Element (b, s, h, c) of each map sits at the byte offset the
+    reference layout gives it, for random coordinates across boxes."""
+    b, sq, sk, kvh, g = 3, 130, 70, 2, 3
+    geo = fa.tma_geometry(b, sq, sk, kvh, g, d)
+    rng = np.random.default_rng(d)
+    for name, rows, heads in (("q", sq, kvh * g), ("k", sk, kvh),
+                              ("v", sk, kvh), ("o", sq, kvh * g)):
+        m = geo[name]
+        ref = torch.arange(b * rows * heads * d).view(b, rows, heads, d)
+        for _ in range(50):
+            bi, si, hi, ci = (int(rng.integers(n)) for n in
+                              (b, rows, heads, d))
+            off = 2 * ci + sum(c * s for c, s in
+                               zip((hi, si, bi), m.strides))
+            assert off % 2 == 0
+            assert int(ref[bi, si, hi, ci]) == off // 2
+        # Box coordinates: column box j starts 64 columns in, so a head
+        # of 128 reads columns [0, 64) and [64, 128) as two boxes.
+        assert [j * m.box[0] for j in range(geo["col_boxes"])] == \
+            list(range(0, d, 64))
+
+
+def test_wgmma_head_dims_are_the_served_heads():
+    assert sorted({d for _, _, d in SERVED.values()}) == \
+        sorted(fa.WGMMA_HEAD_DIMS)
+
+
+def test_per_body_counters_start_with_every_body():
+    assert set(fa.flash_launches_by_body) == {"wgmma", "mma", "fma"}
+
+
+def test_cpu_tensors_launch_no_body():
+    q, k, v = (torch.randn(t.shape).bfloat16()
+               for t in qkv(1, 16, 16, 2, 1, 64, 64))
+    before = dict(fa.flash_launches_by_body), fa.flash_launches
+    out = fa.flash_attention(q, k, v)
+    assert (dict(fa.flash_launches_by_body), fa.flash_launches) == before
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v))

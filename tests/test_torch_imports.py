@@ -60,3 +60,21 @@ def test_chip_smoke_refuses_without_a_card():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_flash_variants_tool_imports_no_jax_and_needs_a_card():
+    """``tools/flash_variants.py`` (kernel variants timed on the card)
+    imports nothing of JAX, and its edits still apply to the source."""
+    run(textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tools")
+        import flash_variants as fv
+        for edits in fv.VARIANTS.values():
+            fv.variant_source(edits)
+    """) + LEAKS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "tools/flash_variants.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Variants of the flash kernel's wgmma body, built and timed on one GPU.
+
+Run from the repository root::
+
+    python3 tools/flash_variants.py
+
+Each variant is the committed ``csrc/flash_attention.cu`` with the edits
+listed in ``VARIANTS``.  All are built at once, with the repository's nvcc
+flags, into ``build/variants/``; each prints its ptxas report, is held
+against the plain version at the bf16 shapes of ``chip_smoke.py`` phase 5
+(``||Δ|| <= 5e-3·||plain||``), and is then timed with CUDA events beside
+``scaled_dot_product_attention``, every entry twice in turns (one order,
+then the reverse), at the served shape, at ``prefill_32k`` and at two
+dh = 128 shapes.  The last line is one JSON object of the mean times.
+It needs a CUDA card and ``nvcc``, and imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import functools
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+import torch  # noqa: E402
+
+fa = cs.fa
+build = fa._build
+SOURCE = build.CSRC / "flash_attention.cu"
+OUT = os.path.join(ROOT, "build", "variants")
+
+STAGES = "  static constexpr int STAGES = 3;                // ring depth"
+EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
+# Ping-pong: the two consumers take turns to issue each product (named
+# barriers 3 and 4; consumer 0 first).
+TURN = 'asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + cw) : "memory");\n'
+PASS = 'asm volatile("bar.arrive %0, 256;\\n" ::"r"(4 - cw) : "memory");\n'
+QK = ("    wgmma_fence();\n    qk_issue<D, C::BK>(sc, sQw, stage(t));\n"
+      "    wgmma_commit();\n")
+PV = ("    wgmma_fence();\n"
+      "    pv_issue<D, C::BK>(o, pa, stage(t) + C::TILE_BYTES);\n"
+      "    wgmma_commit();\n")
+FIRST = "  mbar_wait(q_bar, 0);\n  for (int t = 0; t < n_tiles; ++t) {\n"
+
+# name -> [(text in the committed source, its replacement)]
+VARIANTS = {
+    "built": [],
+    "exp2f": [(EX2, "y = exp2f(x);")],
+    "2 stages": [(STAGES, "  static constexpr int STAGES = 2;")],
+    "4 stages at dh 64": [(STAGES, "  static constexpr int STAGES = "
+                                   "D == 64 ? 4 : 3;")],
+    "ping-pong": [(FIRST, '  if (cw == 1) asm volatile("bar.arrive 3, 256;'
+                          '\\n" ::: "memory");\n' + FIRST),
+                  (QK, "    " + TURN + QK + "    " + PASS),
+                  (PV, "    " + TURN + PV + "    " + PASS)],
+}
+# (name, b, s, kv heads, g, d) of the timings; causal.
+SHAPES = (("smoke", 4, 2000, 16, 1, 64), ("prefill_32k", 1, 32768, 16, 1, 64),
+          ("chatglm3 S 4096", 1, 4096, 2, 16, 128),
+          ("dh 128 S 16384", 1, 16384, 8, 1, 128))
+
+
+def variant_source(edits) -> str:
+    src = SOURCE.read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise AssertionError(f"variant edit not found once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variant(name: str):
+    """nvcc of one variant; returns (library, ptxas summary per dh)."""
+    stem = re.sub(r"\W+", "_", name)
+    cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
+    with open(cu, "w") as f:
+        f.write(variant_source(VARIANTS[name]))
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    lines = (proc.stdout + proc.stderr).splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        hit = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)
+        if hit and "Compiling entry function" in line:
+            report[int(hit[1])] = " ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+    lib = ctypes.CDLL(so)
+    fa._declare(lib)
+    return lib, report
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("flash_variants: no CUDA device is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(card, flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    libs = {name: lib for name, (lib, _) in built.items()}
+    for name, (_, report) in built.items():
+        print(f"[variants] {name}: " + "; ".join(
+            f"dh {d}: {r}" for d, r in sorted(report.items())), flush=True)
+
+    def use(name):
+        build._libs["flash_attention"] = libs[name]
+
+    for case in cs.FLASH_CASES:
+        _, b, s, kvh, g, dh, dv, causal, dt = case
+        if dt != torch.bfloat16:
+            continue
+        q, k, v = cs.attention_inputs(b, s, kvh, g, dh, dv, dt, dev, s)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        for name in libs:
+            use(name)
+            got, body = cs.launch_body(q, k, v, causal)
+            r = cs.rel_err(got, want)
+            if body != "wgmma" or not r <= cs.FLASH_BF16_REL:
+                raise AssertionError(f"{name} at {case[0]}: {body}, {r}")
+        print(f"[variants] {case[0]}: every variant within "
+              f"{cs.FLASH_BF16_REL} of plain in norm", flush=True)
+
+    times = {}
+    for key, b, s, kvh, g, d in SHAPES:
+        q, k, v = cs.attention_inputs(b, s, kvh, g, d, d, torch.bfloat16,
+                                      dev, 5)
+        runs = {name: functools.partial(fa.flash_attention, q, k, v)
+                for name in libs}
+        runs["sdpa"] = functools.partial(
+            torch.nn.functional.scaled_dot_product_attention,
+            q.view(b, s, kvh * g, d).transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), is_causal=True, enable_gqa=g > 1)
+        reads = {name: [] for name in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for name in order:
+                if name in libs:
+                    use(name)
+                reads[name].append(cs.time_ms(runs[name], 10))
+        times[key] = {n: sum(r) / len(r) for n, r in reads.items()}
+        bound = cs.flash_bound(b, s, kvh, g, d, d, True)[0]
+        print(f"[variants] {key} (B={b}, S={s}, KV={kvh}, G={g}, dh={d}, "
+              f"causal; bound {bound:.4f} ms): " + ", ".join(
+                  f"{n} {t:.4f} ms" for n, t in times[key].items())
+              + f"  [{card}]", flush=True)
+        del q, k, v, runs
+    build._libs.pop("flash_attention", None)
+    print(json.dumps({"card": card, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
