@@ -12,20 +12,32 @@ package.  Phases:
 
 1. Each CUDA kernel against its plain PyTorch version on the card, at the
    shapes of the G7 ``soc_pokec`` stand-in at full size (fp32 and bf16
-   streams; SpMM at N = 2 and 16), and on an ``OPTIMIZED_CONFIG`` plan
-   (raw window 2, hot-row spill) at scale 0.1.  Elementwise tolerance:
+   streams), and on an ``OPTIMIZED_CONFIG`` plan (raw window 2, hot-row
+   spill) at scale 0.1.  Elementwise tolerance:
    ``|y_kernel - y_plain| <= 1e-5 * (|A| @ |x|) + 1e-6`` — the kernels sum
-   with fp32 atomics in another order than the plain ``index_add_``.
+   with fp32 atomics in another order than the plain ``index_add_``.  The
+   SpMM kernel's ``-Xptxas=-v`` lines are printed (a spill fails the run),
+   and each of its vector widths runs on both streams and on the
+   ``OPTIMIZED_CONFIG`` plan: v4 at N = 16 (four column passes at G7) or
+   64 (two at scale 0.1), v2 at N = 2, v1 at N = 3 and, at G7, at N = 16
+   on an X one element into its storage.  The width that ran is read from
+   ``spmm_launches_by_width``; each check has a control, the same stream
+   with its first live tile emptied, that must fail it.
 2. The server answers requests: ``MatrixRegistry(device="cuda")`` holds
    the G7 stand-in, and ``SpMVService`` serves 48 requests from 3 owners
    with mixed alpha/beta, first synchronously and then pipelined, each run
    checked against an fp64 host reference under the same tolerance.  The
    kernels' launch counters are set to 0 just before each run and read
-   just after; each kernel must have launched.  Both runs are traced
-   (``repro_torch.obs``) and print the host seconds spent in each span.
+   just after; each kernel must have launched, and the served batches
+   must have run the v4 SpMM body (the launches by width are printed).
+   Both runs are traced (``repro_torch.obs``) and print the host seconds
+   spent in each span.
 3. Timings with CUDA events at the G7 shapes: kernel, plain version, and
    one ``torch.sparse`` CSR product as a yardstick (the port never calls
-   it), beside the bound the card's memory rate sets.
+   it), beside the bound the card's memory rate sets.  SpMM is timed at
+   each served width N = 2, 4, 8, 16, in turns with ``torch.mm`` on CSR
+   (kernel, CSR, CSR, kernel), each line with its bound, its column
+   passes, the bound with the stream counted once per pass, and the card.
 4. The solvers (the second slice's path), through ``SpMVService.solve``:
    PageRank on the column-normalised G7 stand-in at full size
    (``tol=1e-6``: the fp32 L1 delta's noise floor is near n·ulp(1/n) ≈
@@ -81,7 +93,9 @@ Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-both timed shapes (``bodies``).
+both timed shapes (``bodies``), and whose spmm entry lists each vector
+width's main-path launches (``bodies``) and, at each served width, its
+time, CSR's, the bound and the passes (``by_n``).
 """
 from __future__ import annotations
 
@@ -217,16 +231,14 @@ def stream_on_card(plan, dev):
     return idx, val, seg, geo
 
 
-def compare_kernel(name: str, idx, val, seg, x, geo, tpc: int) -> float:
-    """One kernel launch against the plain version on the same inputs."""
-    kern = ks.spmv if name == "spmv" else ks.spmm
-    plain = ks.spmv_plain if name == "spmv" else ks.spmm_plain
-    got = kern(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
+def compare_spmv(idx, val, seg, x, geo, tpc: int) -> float:
+    """One spmv launch against the plain version on the same inputs."""
+    got = ks.spmv(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
     torch.cuda.synchronize()
-    want = plain(idx, val, seg, x, **geo)
-    scale = plain(idx, val.abs(), seg, x.abs(), **geo)
+    want = ks.spmv_plain(idx, val, seg, x, **geo)
+    scale = ks.spmv_plain(idx, val.abs(), seg, x.abs(), **geo)
     torch.cuda.synchronize()
-    return check_close(f"{name} kernel vs plain", got, want, scale)
+    return check_close("spmv kernel vs plain", got, want, scale)
 
 
 def host_reference(rows, cols, vals, m, x, alpha, beta, y):
@@ -310,21 +322,107 @@ def span_seconds() -> dict:
     return out
 
 
-def bound_ms(plan, n: int) -> tuple[float, str]:
-    """Least time for one stream pass on this card: the stream's bytes
-    (idx 4 B + value per slot, x read once, y written once) over the
-    memory rate, or its flops over the fp32 rate, whichever is larger."""
+def bound_ms(plan, n: int, passes: int = 1) -> tuple[float, str]:
+    """Least time for the product on this card: the stream's bytes (idx
+    4 B + value per slot), x read once and y written once, over the memory
+    rate, or its flops over the fp32 rate, whichever is larger.  With
+    ``passes`` > 1 the stream is counted once per column pass of the SpMM
+    (the bound of that design, printed beside the function's own)."""
     cfg = plan.config
     slots = int(plan.idx.size)
     live = int(np.count_nonzero(plan.idx != -1))
     x_rows = plan.num_segments_local * cfg.segment_width
-    nbytes = (slots * (4 + cfg.value_bytes) + 4 * plan.idx.shape[1]
+    nbytes = (passes * (slots * (4 + cfg.value_bytes) + 4 * plan.idx.shape[1])
               + 4 * n * (x_rows + plan.out_rows_padded))
     flops = 2 * live * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+# -- the SpMM kernel: plans, checks, build report ------------------------------
+# Served batch widths (powers of two up to the service's max_bucket).
+SPMM_NS = (2, 4, 8, 16)
+
+
+def spmm_plan_on_card(x, geo):
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    return ks.spmm_plan(x, geo["num_rows_padded"], l2)
+
+
+def check_spmm(what, idx, val, seg, x, geo, tpc) -> tuple[float, str]:
+    """:func:`ks.spmm` against its plain version, and the same stream with
+    its first live tile emptied, which must fail the same check.  The
+    vector width that ran is read from the per-width counter and must be
+    the plan's, once per pass.  Returns the error and the line to print."""
+    plan = spmm_plan_on_card(x, geo)
+    before = dict(ks.spmm_launches_by_width)
+    got = ks.spmm(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
+    torch.cuda.synchronize()
+    moved = {v: c - before[v] for v, c in ks.spmm_launches_by_width.items()
+             if c != before[v]}
+    if moved != {plan.vec: len(plan.groups)}:
+        raise AssertionError(f"{what}: launches by width {moved}, the plan "
+                             f"is {plan}")
+    want = ks.spmm_plain(idx, val, seg, x, **geo)
+    scale = ks.spmm_plain(idx, val.abs(), seg, x.abs(), **geo)
+    err = check_close(f"{what} spmm kernel vs plain", got, want, scale)
+    first = int(torch.nonzero((idx != -1).flatten(1).any(1))[0])
+    cut = idx.clone()
+    cut[first] = -1
+    ctl = ks.spmm(cut, val, seg, x, tiles_per_chunk=tpc, **geo)
+    torch.cuda.synchronize()
+    try:
+        check_close(f"{what} control", ctl, want, scale)
+    except AssertionError as fail:
+        msg = str(fail)
+    else:
+        raise AssertionError(f"{what}: the control without tile {first} "
+                             f"passes the check")
+    del cut, ctl, want, scale
+    return err, (
+        f"N={x.shape[1]} v{plan.vec}, {len(plan.groups)} pass(es): err "
+        f"{err:.3e}; control without tile {first} fails as it must "
+        f"({msg.split(': ', 1)[1].split(';')[0]})")
+
+
+def spmm_build_report() -> str:
+    """The ``spmm`` instantiations' ``-Xptxas=-v`` lines (registers,
+    spills); raises on a spill."""
+    log = BUILD_LOGS.get("serpens_spmv", "")
+    if not log:
+        return "no nvcc log (the library was already built)"
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or \
+                "spmm_kernel" not in line:
+            continue
+        m = re.search(r"spmm_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
+        name = f"{'fp32' if m[1] == 'f' else 'bf16'} v{m[2]}"
+        props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
+                         else x.strip() for x in lines[i + 2:i + 4])
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
+            raise AssertionError(f"spmm {name} spills: {props}")
+        out.append(f"{name}: {props}")
+    if len(out) != 6:
+        raise AssertionError(f"no ptxas report for every spmm build: {out}")
+    return "; ".join(out)
+
+
+def time_spmm(idx, val, seg, x, geo, tpc, csr, k) -> dict:
+    """spmm and torch.mm on CSR, read in turns (kernel, CSR, CSR,
+    kernel); means and the readings."""
+    fns = {"kernel": functools.partial(ks.spmm, idx, val, seg, x,
+                                       tiles_per_chunk=tpc, **geo),
+           "library": functools.partial(torch.mm, csr,
+                                        x[:k].contiguous())}
+    reads = {name: [] for name in fns}
+    for name in ("kernel", "library", "library", "kernel"):
+        reads[name].append(time_ms(fns[name], 20))
+    return {name: float(np.mean(r)) for name, r in reads.items()} | {
+        "reads": reads}
 
 
 # -- phase 4: the solvers -----------------------------------------------------
@@ -509,6 +607,8 @@ def fused_bound(name, op) -> tuple[float, str]:
 
 def zero_launches() -> None:
     ks.spmv_launches = ks.spmm_launches = ks.spmv_fused_launches = 0
+    for vec in ks.spmm_launches_by_width:
+        ks.spmm_launches_by_width[vec] = 0
     fa.flash_launches = 0
     for body in fa.flash_launches_by_body:
         fa.flash_launches_by_body[body] = 0
@@ -1220,14 +1320,27 @@ def main() -> int:
         rng.standard_normal(k).astype(np.float32)).to(dev),
         plan.num_segments_local, plan.config.segment_width)
     errs["spmv"] = max(errs["spmv"],
-                       compare_kernel("spmv", idx, val, seg, x1, geo, tpc))
-    for n in (2, 16):
-        xn = ops.pad_rows(torch.from_numpy(
-            rng.standard_normal((k, n)).astype(np.float32)).to(dev), kp)
-        errs["spmm"] = max(errs["spmm"], compare_kernel(
-            "spmm", idx, val, seg, xn, geo, tpc))
-    say(f"[phase1] G7 fp32 stream: spmv err {errs['spmv']:.3e}, "
-        f"spmm (N=2,16) err {errs['spmm']:.3e}")
+                       compare_spmv(idx, val, seg, x1, geo, tpc))
+    say(f"[phase1] G7 fp32 stream: spmv err {errs['spmv']:.3e}")
+    say(f"[phase1] spmm instantiations, ptxas: {spmm_build_report()}")
+
+    def spmm_cases(label, sidx, sval, sseg, sgeo, stpc, skp, sk, ns):
+        """Every vector width (N = 16 or 64: v4 in column passes; 2: v2;
+        3, and 16 one element into its storage: v1) against plain."""
+        for n, offset in ns:
+            xn = torch.from_numpy(rng.standard_normal(
+                (sk, n)).astype(np.float32)).to(dev)
+            xn = ops.pad_rows(xn, skp)
+            if offset:
+                xn = offset_copy(xn)
+            e, line = check_spmm(f"{label} N={n}", sidx, sval, sseg, xn,
+                                 sgeo, stpc)
+            errs["spmm"] = max(errs["spmm"], e)
+            say(f"[phase1] {label}: {line}"
+                + (" [X one element into its storage]" if offset else ""))
+
+    spmm_cases("G7 fp32", idx, val, seg, geo, tpc, kp, k,
+               ((16, 0), (2, 0), (3, 0), (16, 1)))
 
     bf_plan = cpart.make_plan(
         rows, cols, vals, shape,
@@ -1235,9 +1348,11 @@ def main() -> int:
     bidx, bval, bseg, bgeo = stream_on_card(bf_plan, dev)
     if bval.dtype != torch.bfloat16:
         raise AssertionError(f"bf16 stream arrived as {bval.dtype}")
-    e = compare_kernel("spmv", bidx, bval, bseg, x1, bgeo, tpc)
+    e = compare_spmv(bidx, bval, bseg, x1, bgeo, tpc)
     errs["spmv"] = max(errs["spmv"], e)
     say(f"[phase1] G7 bf16 stream: spmv err {e:.3e}")
+    spmm_cases("G7 bf16", bidx, bval, bseg, bgeo, tpc, kp, k,
+               ((16, 0), (2, 0), (3, 0)))
 
     r2, c2, v2, shape2, _ = paper_matrix("G7", scale=0.1, seed=SEED)
     opt_plan = cpart.make_plan(r2, c2, v2, shape2, sformat.OPTIMIZED_CONFIG,
@@ -1247,13 +1362,12 @@ def main() -> int:
     okp = opt_plan.num_segments_local * ocfg.segment_width
     xo = rng.standard_normal(shape2[1]).astype(np.float32)
     xo_d = ops.pad_rows(torch.from_numpy(xo).to(dev), okp)
-    e1 = compare_kernel("spmv", oidx, oval, oseg, xo_d, ogeo,
+    e1 = compare_spmv(oidx, oval, oseg, xo_d, ogeo,
                         ocfg.tiles_per_chunk)
-    xo16 = ops.pad_rows(torch.from_numpy(rng.standard_normal(
-        (shape2[1], 16)).astype(np.float32)).to(dev), okp)
-    e2 = compare_kernel("spmm", oidx, oval, oseg, xo16, ogeo,
-                        ocfg.tiles_per_chunk)
-    errs["spmv"], errs["spmm"] = max(errs["spmv"], e1), max(errs["spmm"], e2)
+    errs["spmv"] = max(errs["spmv"], e1)
+    spmm_cases("G7 x0.1 OPTIMIZED_CONFIG", oidx, oval, oseg, ogeo,
+               ocfg.tiles_per_chunk, okp, shape2[1],
+               ((64, 0), (16, 0), (2, 0), (3, 0)))
     oop = SerpensOperator(opt_plan, device=dev)
     ref, scale = host_reference(r2, c2, v2.astype(np.float64), shape2[0],
                                 xo, 1.0, 0.0, None)
@@ -1261,9 +1375,8 @@ def main() -> int:
                      oop.matvec(xo).cpu(), torch.from_numpy(ref).float(),
                      torch.from_numpy(scale).float())
     say(f"[phase1] G7 x0.1 OPTIMIZED_CONFIG ({opt_plan.n_aux} spilled): "
-        f"spmv err {e1:.3e}, spmm err {e2:.3e}, operator vs fp64 "
-        f"{e3:.3e}")
-    del oop, oidx, oval, oseg, xo_d, xo16
+        f"spmv err {e1:.3e}, operator vs fp64 {e3:.3e}")
+    del oop, oidx, oval, oseg, xo_d
     say(f"[phase1] ok in {time.perf_counter() - t:.1f} s")
 
     # -- phase 2: the server answers requests (the main path) -------------
@@ -1275,6 +1388,7 @@ def main() -> int:
     say(f"[phase2] fp64 host references in {time.perf_counter() - t:.1f} s")
     svc = SpMVService(reg, max_bucket=16, device="cuda")
     launches = {}
+    by_width = {}
     rps = {}
     t2 = time.perf_counter()
     for run, drive in (("sync", serve_sync), ("pipelined", serve_pipelined)):
@@ -1287,12 +1401,14 @@ def main() -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches[run] = read_launches()
+        by_width[run] = dict(ks.spmm_launches_by_width)
         obs.disable()
         spans = span_seconds()
         rps[run] = len(res) / dt
         worst = check_results(f"{run} service vs fp64 reference", res, refs)
         say(f"[phase2] {run}: {len(res)} requests in {dt:.3f} s "
-            f"({rps[run]:.1f} req/s), launches {launches[run]}, "
+            f"({rps[run]:.1f} req/s), launches {launches[run]}, spmm "
+            f"launches by width {by_width[run]}, "
             f"batches {sorted({(r.batch_size, r.bucket_n) for r in res})}, "
             f"max err {worst:.3e}")
         say(f"[phase2] {run} host seconds by span: " + ", ".join(
@@ -1302,6 +1418,11 @@ def main() -> int:
         if sum(v[name] for v in launches.values()) == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serving path")
+    served_widths = {vec: sum(v[vec] for v in by_width.values())
+                     for vec in ks.spmm_launches_by_width}
+    if served_widths[4] == 0:
+        raise AssertionError(f"the served batches never ran the vec = 4 "
+                             f"spmm body: {served_widths}")
     stats = reg.stats_snapshot()
     if stats.evictions or stats.bindings_dropped:
         raise AssertionError(f"registry shed the G7 entry: {stats}")
@@ -1326,30 +1447,48 @@ def main() -> int:
                                   **geo), 10),
             "library_ms": time_ms(p(torch.mv, csr,
                                     x1[:k].contiguous()), 50)},
-        "spmm": {
-            "ms": time_ms(p(ks.spmm, idx, val, seg, x16,
-                            tiles_per_chunk=tpc, **geo), 20),
-            "plain_ms": time_ms(p(ks.spmm_plain, idx, val, seg, x16,
-                                  **geo), 5),
-            "library_ms": time_ms(p(torch.mm, csr,
-                                    x16[:k].contiguous()), 20)},
     }
     bf_ms = time_ms(p(ks.spmv, bidx, bval, bseg, x1, tiles_per_chunk=tpc,
                       **bgeo), 50)
-    bounds = {"spmv": bound_ms(plan, 1), "spmm": bound_ms(plan, 16)}
+    bounds = {"spmv": bound_ms(plan, 1)}
     bf_bound = bound_ms(bf_plan, 1)
-    for name in ("spmv", "spmm"):
-        b, by = bounds[name]
-        tm = times[name]
-        n = 1 if name == "spmv" else 16
-        say(f"[phase3] {name} (N={n}, fp32, G7): kernel {tm['ms']:.4f} ms, "
-            f"plain {tm['plain_ms']:.4f} ms, torch.sparse CSR "
-            f"{tm['library_ms']:.4f} ms, bound {b:.4f} ms ({by}); "
-            f"{b / tm['ms']:.3f} of the bound "
-            f"({b / tm['ms'] * HBM_BYTES_PER_S / 1e9:.1f} GB/s)  [{card}]")
+    b, by = bounds["spmv"]
+    tm = times["spmv"]
+    say(f"[phase3] spmv (N=1, fp32, G7): kernel {tm['ms']:.4f} ms, "
+        f"plain {tm['plain_ms']:.4f} ms, torch.sparse CSR "
+        f"{tm['library_ms']:.4f} ms, bound {b:.4f} ms ({by}); "
+        f"{b / tm['ms']:.3f} of the bound "
+        f"({b / tm['ms'] * HBM_BYTES_PER_S / 1e9:.1f} GB/s)  [{card}]")
     say(f"[phase3] spmv (N=1, bf16, G7): kernel {bf_ms:.4f} ms, bound "
         f"{bf_bound[0]:.4f} ms; {bf_bound[0] / bf_ms:.3f} of the bound  "
         f"[{card}]")
+    # spmm at each served width, in turns with torch.mm on CSR.
+    spmm_by_n = {}
+    for n in SPMM_NS:
+        xn = x16 if n == 16 else ops.pad_rows(torch.from_numpy(
+            rng.standard_normal((k, n)).astype(np.float32)).to(dev), kp)
+        sp = spmm_plan_on_card(xn, geo)
+        tn = time_spmm(idx, val, seg, xn, geo, tpc, csr, k)
+        bn, byn = bound_ms(plan, n)
+        bp = bound_ms(plan, n, len(sp.groups))[0]
+        spmm_by_n[str(n)] = {"ms": tn["kernel"], "library_ms": tn["library"],
+                             "bound_ms": bn, "passes": len(sp.groups),
+                             "bound_ms_passes": bp, "vec": sp.vec}
+        reads = ", ".join(f"{name} " + " / ".join(f"{x:.4f}" for x in r)
+                          for name, r in tn["reads"].items())
+        say(f"[phase3] spmm (N={n}, fp32, G7): kernel {tn['kernel']:.4f} ms"
+            f" (v{sp.vec}, {len(sp.groups)} pass(es)), torch.sparse CSR "
+            f"{tn['library']:.4f} ms; bound {bn:.4f} ms ({byn}), with the "
+            f"stream once per pass {bp:.4f} ms; {bn / tn['kernel']:.3f} of "
+            f"the bound, {tn['library'] / tn['kernel']:.2f}x the speed of "
+            f"CSR; readings in turns: {reads}  [{card}]")
+    times["spmm"] = {
+        "ms": spmm_by_n["16"]["ms"],
+        "plain_ms": time_ms(p(ks.spmm_plain, idx, val, seg, x16, **geo), 5),
+        "library_ms": spmm_by_n["16"]["library_ms"]}
+    bounds["spmm"] = bound_ms(plan, 16)
+    say(f"[phase3] spmm (N=16, fp32, G7) plain {times['spmm']['plain_ms']:.4f}"
+        f" ms  [{card}]")
     say(f"[phase3] requests/s: sync {rps['sync']:.1f}, pipelined "
         f"{rps['pipelined']:.1f}  [{card}]")
     say(f"[phase3] ok in {time.perf_counter() - t3:.1f} s")
@@ -1387,9 +1526,17 @@ def main() -> int:
         for name in sorted(KERNELS)]}
     # The flash kernel's bodies: launches on the main path, and ms, bound
     # and library ms at the served shape and at prefill_32k.
+    # The spmm kernel's vector widths (main-path launches, one per column
+    # pass) and its time, bound and library time at each served width.
+    spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]
+                                               for v in by_width.values())}
+                   for vec in ks.spmm_launches_by_width}
     for entry in record["kernels"]:
         if entry["name"] == "flash_attention":
             entry["bodies"] = flash_bodies
+        if entry["name"] == "spmm":
+            entry["bodies"] = spmm_bodies
+            entry["by_n"] = spmm_by_n
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

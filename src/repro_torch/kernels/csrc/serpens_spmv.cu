@@ -20,21 +20,26 @@
 // written once.  At the G7 stand-in (33.5 M slots at the default config)
 // that is 0.28 GB in fp32, 0.084 ms.
 //
-// Design (first, simple version).  One 128-thread block walks tiles with a
-// grid stride; thread l is lane l, so each warp's idx/val loads are
+// SpMV design (first, simple version).  One 128-thread block walks tiles
+// with a grid stride; thread l is lane l, so each warp's idx/val loads are
 // coalesced.  Each thread walks its SUB slots: decode, gather x, and an
 // fp32 atomicAdd into acc in global memory.  Atomics are required: with
 // raw_window < SUB a destination row may repeat inside a tile, and blocks
 // share rows.  They reorder the fp32 sums, so results match the plain
-// version within a tolerance, not bitwise.  The scattered fp32 atomics to
-// L2 are the likely limiter of this design; a shared-memory row-block
-// accumulator and TMA streaming of idx/val are later work.
+// version within a tolerance, not bitwise.
 //
-// Traps handled here: the packed word is decoded with unsigned shifts (a
-// live row of 0xFFFF packs into a negative int32 that is not the -1
-// sentinel), and every slot / x / acc offset is 64-bit.  Offsets that would
-// leave x or acc are skipped, as the reference's scatter drops them (and
-// as zero padding of x to the segment grid would give).
+// SpMM design (Hopper).  A slot's N columns are spread over `chunks`
+// threads of its lane, the column chunk the fastest index, so the threads
+// of one lane read one contiguous X row and update one contiguous acc row
+// together.  Each thread moves VEC columns at a time: a float4/float2 load
+// of X and one sm_90 vector fp32 reduction (atomicAdd on float4/float2,
+// compiled to RED.F32x4/x2) into acc; VEC = 1 is the scalar case.  A
+// thread decodes up to kSpmmBatch slots of its lane first and then issues
+// their X loads together, so the loads of a batch are in flight at once.
+// The wrapper picks VEC from N and the alignment of X, and runs the
+// kernel once per column group when acc would not fit in L2
+// (kernels/serpens_spmv.py::spmm_plan): each pass takes the row strides
+// of X and acc, so no copy of X is made per pass.
 //
 // The fused solver step (serpens_spmv_fused) is one pass over A followed by
 // one solver iteration's vector work, with the loop's state on the card.
@@ -58,6 +63,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -92,31 +99,101 @@ __global__ void spmv_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-template <typename V>
-__global__ void spmm_kernel(const int32_t* __restrict__ idx,
-                            const V* __restrict__ val,
-                            const int32_t* __restrict__ seg,
-                            const float* __restrict__ x,
-                            float* __restrict__ acc, int64_t num_tiles,
-                            int sub, int lanes, int seg_width, int n,
-                            int64_t x_rows, int64_t acc_rows) {
-  const int lane = threadIdx.x;
+// -- SpMM --------------------------------------------------------------------
+// Threads of an SpMM block at most: lanes × chunks, with chunks sized so
+// the block stays within it (a block of lanes > 512 loops over its lanes).
+constexpr int kSpmmMaxThreads = 512;
+// Slots a thread decodes before it issues their X loads.
+constexpr int kSpmmBatch = 8;
+
+template <int VEC> struct FVec;
+template <> struct FVec<1> { using T = float; };
+template <> struct FVec<2> { using T = float2; };
+template <> struct FVec<4> { using T = float4; };
+
+__device__ __forceinline__ float scaled(float v, float a) { return v * a; }
+__device__ __forceinline__ float2 scaled(float v, float2 a) {
+  return make_float2(v * a.x, v * a.y);
+}
+__device__ __forceinline__ float4 scaled(float v, float4 a) {
+  return make_float4(v * a.x, v * a.y, v * a.z, v * a.w);
+}
+
+// acc: (row_hi, lda) with this pass's columns at [0, groups * VEC); x:
+// (x_rows, ldx) likewise.  Both bases and strides are VEC-float aligned.
+// Only slots whose row lies in [row_lo, row_hi) are applied.
+template <typename V, int VEC>
+__global__ void __launch_bounds__(kSpmmMaxThreads)
+spmm_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
+            const int32_t* __restrict__ seg, const float* __restrict__ x,
+            int64_t ldx, float* __restrict__ acc, int64_t lda,
+            int64_t num_tiles, int sub, int lanes, int seg_width, int groups,
+            int chunks, int64_t x_rows, int64_t row_lo, int64_t row_hi) {
+  using T = typename FVec<VEC>::T;
   for (int64_t t = blockIdx.x; t < num_tiles; t += gridDim.x) {
     const int64_t xbase = static_cast<int64_t>(seg[t]) * seg_width;
-    const int64_t base = t * sub * lanes + lane;
-    for (int s = 0; s < sub; ++s) {
-      const int64_t off = base + static_cast<int64_t>(s) * lanes;
-      const uint32_t w = static_cast<uint32_t>(idx[off]);
-      if (w == 0xFFFFFFFFu) continue;
-      const int64_t col = xbase + (w & 0xFFFFu);
-      const int64_t dst = static_cast<int64_t>(w >> 16) * lanes + lane;
-      if (col >= x_rows || dst >= acc_rows) continue;
-      const float v = to_f32(val[off]);
-      const float* xr = x + col * n;
-      float* ar = acc + dst * n;
-      for (int j = 0; j < n; ++j) atomicAdd(ar + j, v * xr[j]);
+    // One (lane, chunk) pair a thread; a block takes them all once lanes
+    // fit, and loops only when lanes > kSpmmMaxThreads.
+    for (int p = threadIdx.x; p < lanes * chunks; p += blockDim.x) {
+      const int lane = p / chunks;
+      const int chunk = p - lane * chunks;
+      const int64_t base = t * sub * lanes + lane;
+      for (int s0 = 0; s0 < sub; s0 += kSpmmBatch) {
+        // Decode the batch: row and column of each live, in-range slot
+        // (-1: skip).  The launcher refuses x_rows or row_hi >= 2^31.
+        int32_t col[kSpmmBatch], dst[kSpmmBatch];
+        float v[kSpmmBatch];
+#pragma unroll
+        for (int i = 0; i < kSpmmBatch; ++i) {
+          col[i] = -1;
+          dst[i] = 0;
+          v[i] = 0.f;
+          if (s0 + i < sub) {
+            const int64_t off = base + static_cast<int64_t>(s0 + i) * lanes;
+            const uint32_t w = static_cast<uint32_t>(idx[off]);
+            const int64_t c = xbase + (w & 0xFFFFu);
+            const int64_t d = static_cast<int64_t>(w >> 16) * lanes + lane;
+            if (w != 0xFFFFFFFFu && c < x_rows && d >= row_lo &&
+                d < row_hi) {
+              col[i] = static_cast<int32_t>(c);
+              dst[i] = static_cast<int32_t>(d);
+              v[i] = to_f32(val[off]);
+            }
+          }
+        }
+        for (int g = chunk; g < groups; g += chunks) {
+          const int64_t j = static_cast<int64_t>(g) * VEC;
+          T xv[kSpmmBatch];
+#pragma unroll
+          for (int i = 0; i < kSpmmBatch; ++i)
+            if (col[i] >= 0)
+              xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j);
+#pragma unroll
+          for (int i = 0; i < kSpmmBatch; ++i)
+            if (col[i] >= 0)
+              atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j),
+                        scaled(v[i], xv[i]));
+        }
+      }
     }
   }
+}
+
+template <typename V, int VEC>
+cudaError_t launch_spmm(const void* idx, const void* val, const void* seg,
+                        const void* x, int64_t ldx, void* acc, int64_t lda,
+                        int64_t num_tiles, int sub, int lanes, int seg_width,
+                        int n, int64_t x_rows, int64_t row_lo,
+                        int64_t row_hi, int grid, cudaStream_t st) {
+  const int groups = n / VEC;
+  const int chunks = std::max(1, std::min(groups, kSpmmMaxThreads / lanes));
+  const int threads = std::min(lanes * chunks, kSpmmMaxThreads);
+  spmm_kernel<V, VEC><<<grid, threads, 0, st>>>(
+      static_cast<const int32_t*>(idx), static_cast<const V*>(val),
+      static_cast<const int32_t*>(seg), static_cast<const float*>(x), ldx,
+      static_cast<float*>(acc), lda, num_tiles, sub, lanes, seg_width,
+      groups, chunks, x_rows, row_lo, row_hi);
+  return cudaGetLastError();
 }
 
 // -- fused solver step: epilogue passes -------------------------------------
@@ -351,29 +428,42 @@ extern "C" int serpens_spmv(const void* idx, const void* val, const void* seg,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One SpMM pass over the stream for the n columns at x and acc (row
+// strides ldx and lda, in floats), VEC = vec floats a thread at a time,
+// applying the slots whose row lies in [row_lo, row_hi) (acc holds row_hi
+// rows).  Refuses (cudaErrorInvalidValue) a vec other than 1, 2 or 4, an
+// n or a stride that is not a multiple of vec, a base that is not
+// vec-aligned, and row counts of 2^31 or more.
 extern "C" int serpens_spmm(const void* idx, const void* val, const void* seg,
-                            const void* x, void* acc, int64_t num_tiles,
-                            int sub, int lanes, int seg_width, int n,
-                            int64_t x_rows, int64_t acc_rows, int value_bf16,
-                            int grid, void* stream) {
+                            const void* x, int64_t ldx, void* acc,
+                            int64_t lda, int64_t num_tiles, int sub,
+                            int lanes, int seg_width, int n, int vec,
+                            int64_t x_rows, int64_t row_lo, int64_t row_hi,
+                            int value_bf16, int grid, void* stream) {
+  const uintptr_t align = static_cast<uintptr_t>(vec) * sizeof(float);
+  if ((vec != 1 && vec != 2 && vec != 4) || n < 1 || n % vec ||
+      ldx % vec || lda % vec ||
+      reinterpret_cast<uintptr_t>(x) % align ||
+      reinterpret_cast<uintptr_t>(acc) % align ||
+      x_rows >= (int64_t{1} << 31) || row_hi >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
-    if (value_bf16) {
-      spmm_kernel<__nv_bfloat16><<<grid, lanes, 0, st>>>(
-          static_cast<const int32_t*>(idx),
-          static_cast<const __nv_bfloat16*>(val),
-          static_cast<const int32_t*>(seg), static_cast<const float*>(x),
-          static_cast<float*>(acc), num_tiles, sub, lanes, seg_width, n,
-          x_rows, acc_rows);
-    } else {
-      spmm_kernel<float><<<grid, lanes, 0, st>>>(
-          static_cast<const int32_t*>(idx), static_cast<const float*>(val),
-          static_cast<const int32_t*>(seg), static_cast<const float*>(x),
-          static_cast<float*>(acc), num_tiles, sub, lanes, seg_width, n,
-          x_rows, acc_rows);
-    }
+#define SERPENS_SPMM(V, VEC)                                                 \
+  launch_spmm<V, VEC>(idx, val, seg, x, ldx, acc, lda, num_tiles, sub,      \
+                      lanes, seg_width, n, x_rows, row_lo, row_hi, grid, st)
+  cudaError_t err;
+  if (value_bf16) {
+    err = vec == 4   ? SERPENS_SPMM(__nv_bfloat16, 4)
+          : vec == 2 ? SERPENS_SPMM(__nv_bfloat16, 2)
+                     : SERPENS_SPMM(__nv_bfloat16, 1);
+  } else {
+    err = vec == 4   ? SERPENS_SPMM(float, 4)
+          : vec == 2 ? SERPENS_SPMM(float, 2)
+                     : SERPENS_SPMM(float, 1);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef SERPENS_SPMM
+  return static_cast<int>(err);
 }
 
 // One fused solver step: zero acc, one pass over A (x read from x_len

@@ -89,32 +89,108 @@ def test_spmv_kernel_matches_plain(card, name):
                  ks.spmv_plain(idx, val.abs(), seg, x.abs(), **geo))
 
 
-@pytest.mark.parametrize("n", [1, 3, 16])
-@pytest.mark.parametrize("name", ["paper", "tpc2", "raw2-bf16"])
-def test_spmm_kernel_matches_plain(card, name, n):
-    idx, val, seg, geo, kp, tpc = card_stream(name, card)
-    x = torch.randn(kp, n, device=card)
-    before = ks.spmm_launches
-    got = ks.spmm(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
+def run_spmm(idx, val, seg, x, geo, tpc=1, plan=None):
+    """spmm (or, given a ``plan``, the runner on that plan) and the vector
+    width whose counter moved; the launches must match the plan's passes."""
+    forced = plan is not None
+    if not forced:
+        l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+        plan = ks.spmm_plan(x, geo["num_rows_padded"], l2)
+    before = (ks.spmm_launches, dict(ks.spmm_launches_by_width))
+    if forced:
+        got = ks._spmm_run(idx, val, seg, x, plan, **geo)
+    else:
+        got = ks.spmm(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
     torch.cuda.synchronize()
-    assert ks.spmm_launches == before + 1
+    moved = {w: c - before[1][w] for w, c in ks.spmm_launches_by_width.items()
+             if c != before[1][w]}
+    assert moved == {plan.vec: len(plan.groups)}
+    assert ks.spmm_launches == before[0] + len(plan.groups)
+    return got, plan.vec
+
+
+def assert_spmm_close(got, idx, val, seg, x, geo):
     assert_close(got, ks.spmm_plain(idx, val, seg, x, **geo),
                  ks.spmm_plain(idx, val.abs(), seg, x.abs(), **geo))
 
 
-def test_row_0xffff_on_the_card(card):
+# N -> the vector width an aligned X of N columns runs at.
+SPMM_VEC = {1: 1, 2: 2, 3: 1, 4: 4, 8: 4, 16: 4, 17: 1, 64: 4}
+
+
+@pytest.mark.parametrize("n", sorted(SPMM_VEC))
+@pytest.mark.parametrize("name", ["paper", "tpc2", "raw2-bf16"])
+def test_spmm_kernel_matches_plain(card, name, n):
+    idx, val, seg, geo, kp, tpc = card_stream(name, card)
+    x = torch.randn(kp, n, device=card)
+    got, vec = run_spmm(idx, val, seg, x, geo, tpc)
+    assert vec == SPMM_VEC[n]
+    assert ks.spmm_plan(x, geo["num_rows_padded"], 50 << 20).groups == (
+        (0, n),)                                 # a small acc: one pass
+    assert_spmm_close(got, idx, val, seg, x, geo)
+
+
+@pytest.mark.parametrize("offset,vec", [(1, 1), (2, 2), (3, 1), (4, 4)])
+@pytest.mark.parametrize("name", ["paper", "raw2-bf16"])
+def test_spmm_on_an_offset_x(card, name, offset, vec):
+    """X one or more elements into its storage, as a slice of a padded
+    buffer may be: the width follows the real address."""
+    idx, val, seg, geo, kp, tpc = card_stream(name, card)
+    base = torch.randn(kp * 16 + offset, device=card)
+    x = base[offset:].view(kp, 16)
+    got, ran = run_spmm(idx, val, seg, x, geo, tpc)
+    assert ran == vec
+    assert_spmm_close(got, idx, val, seg, x, geo)
+
+
+@pytest.mark.parametrize("n,plan", [
+    (16, ks.SpmmPlan(4, ((0, 4), (4, 4), (8, 8)))),
+    (16, ks.SpmmPlan(2, ((0, 6), (6, 6), (12, 4)))),
+    (6, ks.SpmmPlan(2, ((0, 2), (2, 4)))),
+    (5, ks.SpmmPlan(1, ((0, 3), (3, 2)))),
+    (64, ks.SpmmPlan(4, ((0, 32), (32, 32)))),
+], ids=["v4-3passes", "v2-3passes", "v2-2passes", "v1-2passes",
+        "v4-64cols"])
+@pytest.mark.parametrize("name", ["paper", "raw2-bf16"])
+def test_spmm_forced_multi_pass(card, name, n, plan):
+    """Column passes, each from its own first column of X (row stride N)
+    into a scratch acc, copied into its columns of the output."""
+    idx, val, seg, geo, kp, _ = card_stream(name, card)
+    x = torch.randn(kp, n, device=card)
+    got, _ = run_spmm(idx, val, seg, x, geo, plan=plan)
+    assert_spmm_close(got, idx, val, seg, x, geo)
+
+
+def row_0xffff_stream(dev):
+    """A stream whose live row 0xFFFF packs into a negative int32."""
     cfg = TF.SerpensConfig(**SMALL)
     m = cfg.lanes * 0x10000
     r = np.array([m - 1, 3], np.int64)
     c = np.array([5, 60], np.int64)
     v = np.array([2.0, -1.0], np.float32)
     sm = TF.encode(r, c, v, (m, 64), cfg)
-    idx, val, seg = ops.device_arrays(sm, card)
+    idx, val, seg = ops.device_arrays(sm, dev)
+    return m, idx, val, seg, sm.padded_rows
+
+
+def test_row_0xffff_on_the_card(card):
+    m, idx, val, seg, rows = row_0xffff_stream(card)
     x = torch.arange(64, dtype=torch.float32, device=card)
-    got = ks.spmv(idx, val, seg, x, num_rows_padded=sm.padded_rows,
-                  segment_width=64)
+    got = ks.spmv(idx, val, seg, x, num_rows_padded=rows, segment_width=64)
     assert float(got[m - 1]) == 10.0 and float(got[3]) == -60.0
     assert float(got.abs().sum()) == 70.0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16])
+def test_row_0xffff_through_spmm(card, n):
+    m, idx, val, seg, rows = row_0xffff_stream(card)
+    scale = torch.arange(1, n + 1, dtype=torch.float32, device=card)
+    x = torch.arange(64, dtype=torch.float32, device=card)[:, None] * scale
+    got, _ = run_spmm(idx, val, seg, x.contiguous(),
+                      dict(num_rows_padded=rows, segment_width=64))
+    assert torch.equal(got[m - 1], 10.0 * scale)
+    assert torch.equal(got[3], -60.0 * scale)
+    assert float(got.abs().sum()) == float(70.0 * scale.sum())
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
