@@ -18,11 +18,11 @@ package.  Phases:
    with fp32 atomics in another order than the plain ``index_add_``.  The
    SpMM kernel's ``-Xptxas=-v`` lines are printed (a spill fails the run),
    and each of its vector widths runs on both streams and on the
-   ``OPTIMIZED_CONFIG`` plan: v4 at N = 16 (four column passes at G7) or
-   64 (two at scale 0.1), v2 at N = 2, v1 at N = 3 and, at G7, at N = 16
-   on an X one element into its storage.  The width that ran is read from
-   ``spmm_launches_by_width``; each check has a control, the same stream
-   with its first live tile emptied, that must fail it.
+   ``OPTIMIZED_CONFIG`` plan: v4 at N = 16 (four row-window passes at G7)
+   or 64 (two at scale 0.1), v2 at N = 2, v1 at N = 3 and, at G7, at
+   N = 16 on an X one element into its storage.  The width that ran is
+   read from ``spmm_launches_by_width``; each check has a control, the
+   same stream with its first live tile emptied, that must fail it.
 2. The server answers requests: ``MatrixRegistry(device="cuda")`` holds
    the G7 stand-in, and ``SpMVService`` serves 48 requests from 3 owners
    with mixed alpha/beta, first synchronously and then pipelined, each run
@@ -36,7 +36,7 @@ package.  Phases:
    one ``torch.sparse`` CSR product as a yardstick (the port never calls
    it), beside the bound the card's memory rate sets.  SpMM is timed at
    each served width N = 2, 4, 8, 16, in turns with ``torch.mm`` on CSR
-   (kernel, CSR, CSR, kernel), each line with its bound, its column
+   (kernel, CSR, CSR, kernel), each line with its bound, its row-window
    passes, the bound with the stream counted once per pass, and the card.
 4. The solvers (the second slice's path), through ``SpMVService.solve``:
    PageRank on the column-normalised G7 stand-in at full size
@@ -326,7 +326,7 @@ def bound_ms(plan, n: int, passes: int = 1) -> tuple[float, str]:
     """Least time for the product on this card: the stream's bytes (idx
     4 B + value per slot), x read once and y written once, over the memory
     rate, or its flops over the fp32 rate, whichever is larger.  With
-    ``passes`` > 1 the stream is counted once per column pass of the SpMM
+    ``passes`` > 1 the stream is counted once per row-window pass of the SpMM
     (the bound of that design, printed beside the function's own)."""
     cfg = plan.config
     slots = int(plan.idx.size)
@@ -341,7 +341,7 @@ def bound_ms(plan, n: int, passes: int = 1) -> tuple[float, str]:
                                  else "operations")
 
 
-# -- the SpMM kernel: plans, checks, build report ------------------------------
+# -- the SpMM kernel: plans, checks, build report ---------------------------
 # Served batch widths (powers of two up to the service's max_bucket).
 SPMM_NS = (2, 4, 8, 16)
 
@@ -362,7 +362,7 @@ def check_spmm(what, idx, val, seg, x, geo, tpc) -> tuple[float, str]:
     torch.cuda.synchronize()
     moved = {v: c - before[v] for v, c in ks.spmm_launches_by_width.items()
              if c != before[v]}
-    if moved != {plan.vec: len(plan.groups)}:
+    if moved != {plan.vec: len(plan.windows)}:
         raise AssertionError(f"{what}: launches by width {moved}, the plan "
                              f"is {plan}")
     want = ks.spmm_plain(idx, val, seg, x, **geo)
@@ -382,7 +382,7 @@ def check_spmm(what, idx, val, seg, x, geo, tpc) -> tuple[float, str]:
                              f"passes the check")
     del cut, ctl, want, scale
     return err, (
-        f"N={x.shape[1]} v{plan.vec}, {len(plan.groups)} pass(es): err "
+        f"N={x.shape[1]} v{plan.vec}, {len(plan.windows)} pass(es): err "
         f"{err:.3e}; control without tile {first} fails as it must "
         f"({msg.split(': ', 1)[1].split(';')[0]})")
 
@@ -1325,7 +1325,7 @@ def main() -> int:
     say(f"[phase1] spmm instantiations, ptxas: {spmm_build_report()}")
 
     def spmm_cases(label, sidx, sval, sseg, sgeo, stpc, skp, sk, ns):
-        """Every vector width (N = 16 or 64: v4 in column passes; 2: v2;
+        """Every vector width (N = 16 or 64: v4 in row windows; 2: v2;
         3, and 16 one element into its storage: v1) against plain."""
         for n, offset in ns:
             xn = torch.from_numpy(rng.standard_normal(
@@ -1470,14 +1470,14 @@ def main() -> int:
         sp = spmm_plan_on_card(xn, geo)
         tn = time_spmm(idx, val, seg, xn, geo, tpc, csr, k)
         bn, byn = bound_ms(plan, n)
-        bp = bound_ms(plan, n, len(sp.groups))[0]
+        bp = bound_ms(plan, n, len(sp.windows))[0]
         spmm_by_n[str(n)] = {"ms": tn["kernel"], "library_ms": tn["library"],
-                             "bound_ms": bn, "passes": len(sp.groups),
+                             "bound_ms": bn, "passes": len(sp.windows),
                              "bound_ms_passes": bp, "vec": sp.vec}
         reads = ", ".join(f"{name} " + " / ".join(f"{x:.4f}" for x in r)
                           for name, r in tn["reads"].items())
         say(f"[phase3] spmm (N={n}, fp32, G7): kernel {tn['kernel']:.4f} ms"
-            f" (v{sp.vec}, {len(sp.groups)} pass(es)), torch.sparse CSR "
+            f" (v{sp.vec}, {len(sp.windows)} pass(es)), torch.sparse CSR "
             f"{tn['library']:.4f} ms; bound {bn:.4f} ms ({byn}), with the "
             f"stream once per pass {bp:.4f} ms; {bn / tn['kernel']:.3f} of "
             f"the bound, {tn['library'] / tn['kernel']:.2f}x the speed of "

@@ -28,18 +28,21 @@
 // share rows.  They reorder the fp32 sums, so results match the plain
 // version within a tolerance, not bitwise.
 //
-// SpMM design (Hopper).  A slot's N columns are spread over `chunks`
-// threads of its lane, the column chunk the fastest index, so the threads
-// of one lane read one contiguous X row and update one contiguous acc row
-// together.  Each thread moves VEC columns at a time: a float4/float2 load
-// of X and one sm_90 vector fp32 reduction (atomicAdd on float4/float2,
-// compiled to RED.F32x4/x2) into acc; VEC = 1 is the scalar case.  A
-// thread decodes up to kSpmmBatch slots of its lane first and then issues
-// their X loads together, so the loads of a batch are in flight at once.
-// The wrapper picks VEC from N and the alignment of X, and runs the
-// kernel once per column group when acc would not fit in L2
-// (kernels/serpens_spmv.py::spmm_plan): each pass takes the row strides
-// of X and acc, so no copy of X is made per pass.
+// SpMM design (Hopper).  A 128-thread block decodes a tile's slots once,
+// coalesced, and packs the live ones (X row, acc row, value) into shared
+// memory, then spreads the tile's column work over all its threads: item k
+// is column group k % (N / VEC) of live slot k / (N / VEC), so the threads
+// of one slot are neighbours, read one contiguous X row and update one
+// contiguous acc row.
+// Each item moves VEC columns: a float4/float2 load of X and one sm_90
+// vector fp32 reduction (atomicAdd on float4/float2, RED.F32x4/x2) into
+// acc; VEC = 1 is the scalar case.  A thread issues the X loads of a batch
+// of items together.  The wrapper picks VEC from N and the alignment of X
+// and runs one pass per window of acc rows that fits in L2
+// (kernels/serpens_spmv.py::spmm_plan): a pass decodes the whole stream
+// but packs, and so gathers and reduces, only the slots of its window.
+// The kernel also takes row strides for X and acc, so a caller can run a
+// column slice without a copy.
 //
 // The fused solver step (serpens_spmv_fused) is one pass over A followed by
 // one solver iteration's vector work, with the loop's state on the card.
@@ -63,8 +66,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 namespace {
 
@@ -100,11 +101,10 @@ __global__ void spmv_kernel(const int32_t* __restrict__ idx,
 }
 
 // -- SpMM --------------------------------------------------------------------
-// Threads of an SpMM block at most: lanes × chunks, with chunks sized so
-// the block stays within it (a block of lanes > 512 loops over its lanes).
-constexpr int kSpmmMaxThreads = 512;
-// Slots a thread decodes before it issues their X loads.
-constexpr int kSpmmBatch = 8;
+// Threads of an SpMM block, and the slots it decodes into shared memory at
+// a time (one default tile).
+constexpr int kSpmmThreads = 128;
+constexpr int kSpmmChunk = 1024;
 
 template <int VEC> struct FVec;
 template <> struct FVec<1> { using T = float; };
@@ -123,58 +123,97 @@ __device__ __forceinline__ float4 scaled(float v, float4 a) {
 // (x_rows, ldx) likewise.  Both bases and strides are VEC-float aligned.
 // Only slots whose row lies in [row_lo, row_hi) are applied.
 template <typename V, int VEC>
-__global__ void __launch_bounds__(kSpmmMaxThreads)
+__global__ void __launch_bounds__(kSpmmThreads)
 spmm_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
             const int32_t* __restrict__ seg, const float* __restrict__ x,
             int64_t ldx, float* __restrict__ acc, int64_t lda,
             int64_t num_tiles, int sub, int lanes, int seg_width, int groups,
-            int chunks, int64_t x_rows, int64_t row_lo, int64_t row_hi) {
+            int64_t x_rows, int64_t row_lo, int64_t row_hi) {
   using T = typename FVec<VEC>::T;
+  // Column items a thread keeps in flight (its X loads issue together).
+  constexpr int kBatch = VEC == 4 ? 4 : 8;
+  constexpr int kPerThread = kSpmmChunk / kSpmmThreads;
+  __shared__ int32_t s_col[kSpmmChunk];
+  __shared__ int32_t s_dst[kSpmmChunk];
+  __shared__ float s_val[kSpmmChunk];
+  __shared__ int s_live;
+  const int wl = threadIdx.x & 31;
+  const int64_t slots = static_cast<int64_t>(sub) * lanes;
   for (int64_t t = blockIdx.x; t < num_tiles; t += gridDim.x) {
     const int64_t xbase = static_cast<int64_t>(seg[t]) * seg_width;
-    // One (lane, chunk) pair a thread; a block takes them all once lanes
-    // fit, and loops only when lanes > kSpmmMaxThreads.
-    for (int p = threadIdx.x; p < lanes * chunks; p += blockDim.x) {
-      const int lane = p / chunks;
-      const int chunk = p - lane * chunks;
-      const int64_t base = t * sub * lanes + lane;
-      for (int s0 = 0; s0 < sub; s0 += kSpmmBatch) {
-        // Decode the batch: row and column of each live, in-range slot
-        // (-1: skip).  The launcher refuses x_rows or row_hi >= 2^31.
-        int32_t col[kSpmmBatch], dst[kSpmmBatch];
-        float v[kSpmmBatch];
+    const int64_t tile = t * slots;
+    for (int64_t q0 = 0; q0 < slots; q0 += kSpmmChunk) {
+      const int nq = static_cast<int>(
+          slots - q0 < kSpmmChunk ? slots - q0 : kSpmmChunk);
+      if (threadIdx.x == 0) s_live = 0;
+      // Decode each slot once, coalesced, all loads of a thread in flight.
+      uint32_t w[kPerThread];
+      float v[kPerThread];
 #pragma unroll
-        for (int i = 0; i < kSpmmBatch; ++i) {
-          col[i] = -1;
-          dst[i] = 0;
-          v[i] = 0.f;
-          if (s0 + i < sub) {
-            const int64_t off = base + static_cast<int64_t>(s0 + i) * lanes;
-            const uint32_t w = static_cast<uint32_t>(idx[off]);
-            const int64_t c = xbase + (w & 0xFFFFu);
-            const int64_t d = static_cast<int64_t>(w >> 16) * lanes + lane;
-            if (w != 0xFFFFFFFFu && c < x_rows && d >= row_lo &&
-                d < row_hi) {
-              col[i] = static_cast<int32_t>(c);
-              dst[i] = static_cast<int32_t>(d);
-              v[i] = to_f32(val[off]);
-            }
-          }
-        }
-        for (int g = chunk; g < groups; g += chunks) {
-          const int64_t j = static_cast<int64_t>(g) * VEC;
-          T xv[kSpmmBatch];
-#pragma unroll
-          for (int i = 0; i < kSpmmBatch; ++i)
-            if (col[i] >= 0)
-              xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j);
-#pragma unroll
-          for (int i = 0; i < kSpmmBatch; ++i)
-            if (col[i] >= 0)
-              atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j),
-                        scaled(v[i], xv[i]));
+      for (int i = 0; i < kPerThread; ++i) {
+        const int q = i * kSpmmThreads + threadIdx.x;
+        w[i] = 0xFFFFFFFFu;
+        if (q < nq) {
+          w[i] = static_cast<uint32_t>(idx[tile + q0 + q]);
+          v[i] = to_f32(val[tile + q0 + q]);
         }
       }
+      __syncthreads();
+      // Keep the live slots whose row lies in the window, packed: X row,
+      // acc row, value.  The launcher refuses x_rows or row_hi >= 2^31.
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int64_t slot = q0 + i * kSpmmThreads + threadIdx.x;
+        const int64_t c = xbase + (w[i] & 0xFFFFu);
+        const int64_t d =
+            static_cast<int64_t>(w[i] >> 16) * lanes + slot % lanes;
+        const bool live = w[i] != 0xFFFFFFFFu && c < x_rows && d >= row_lo &&
+                          d < row_hi;
+        const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+        int base = 0;
+        if (wl == 0 && mask != 0u) base = atomicAdd(&s_live, __popc(mask));
+        base = __shfl_sync(0xFFFFFFFFu, base, 0);
+        if (live) {
+          const int at = base + __popc(mask & ((1u << wl) - 1u));
+          s_col[at] = static_cast<int32_t>(c);
+          s_dst[at] = static_cast<int32_t>(d);
+          s_val[at] = v[i];
+        }
+      }
+      __syncthreads();
+      // Item k is column group k % groups of live slot k / groups, so the
+      // threads of one slot are neighbours: one contiguous X row read and
+      // one contiguous acc row updated together.
+      const int items = s_live * groups;
+      for (int k0 = 0; k0 < items; k0 += kSpmmThreads * kBatch) {
+        int32_t col[kBatch], dst[kBatch], j[kBatch];
+        float a[kBatch];
+        T xv[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int k = k0 + i * kSpmmThreads + threadIdx.x;
+          col[i] = -1;
+          dst[i] = j[i] = 0;
+          a[i] = 0.f;
+          if (k < items) {
+            const int q = k / groups;
+            col[i] = s_col[q];
+            dst[i] = s_dst[q];
+            a[i] = s_val[q];
+            j[i] = (k - q * groups) * VEC;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          if (col[i] >= 0)
+            xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j[i]);
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          if (col[i] >= 0)
+            atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j[i]),
+                      scaled(a[i], xv[i]));
+      }
+      __syncthreads();
     }
   }
 }
@@ -185,14 +224,11 @@ cudaError_t launch_spmm(const void* idx, const void* val, const void* seg,
                         int64_t num_tiles, int sub, int lanes, int seg_width,
                         int n, int64_t x_rows, int64_t row_lo,
                         int64_t row_hi, int grid, cudaStream_t st) {
-  const int groups = n / VEC;
-  const int chunks = std::max(1, std::min(groups, kSpmmMaxThreads / lanes));
-  const int threads = std::min(lanes * chunks, kSpmmMaxThreads);
-  spmm_kernel<V, VEC><<<grid, threads, 0, st>>>(
+  spmm_kernel<V, VEC><<<grid, kSpmmThreads, 0, st>>>(
       static_cast<const int32_t*>(idx), static_cast<const V*>(val),
       static_cast<const int32_t*>(seg), static_cast<const float*>(x), ldx,
       static_cast<float*>(acc), lda, num_tiles, sub, lanes, seg_width,
-      groups, chunks, x_rows, row_lo, row_hi);
+      n / VEC, x_rows, row_lo, row_hi);
   return cudaGetLastError();
 }
 

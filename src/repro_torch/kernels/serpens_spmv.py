@@ -39,16 +39,13 @@ from repro_torch.kernels import build as _build
 
 # Launch counters: each wrapper adds one where it launches its kernel and
 # nowhere else, so a run can show that its path went through the kernels.
-# SpMM counts one launch per column pass, and each also by its vector width.
+# SpMM counts one launch per row-window pass, and each also by its vector
+# width.
 spmv_launches = 0
 spmm_launches = 0
 spmm_launches_by_width = {4: 0, 2: 0, 1: 0}
 spmv_fused_launches = 0
 
-# SpMM geometry (csrc: kSpmmMaxThreads): a block holds at most 512 threads,
-# lanes × column chunks.  An SM holds at most 2048 threads.
-_SPMM_MAX_THREADS = 512
-_SM_THREADS = 2048
 
 def build():
     """Compile ``csrc/serpens_spmv.cu`` (see :func:`.build.build`)."""
@@ -209,9 +206,10 @@ def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
 class SpmmPlan:
     """How :func:`spmm` runs: ``vec`` columns a thread moves at once (the
     kernel's instantiation: float4, float2 or scalar loads and reductions)
-    and ``groups``, the ``(first column, width)`` of each kernel pass."""
+    and ``windows``, the ``(first row, end row)`` of acc each kernel pass
+    applies."""
     vec: int
-    groups: tuple
+    windows: tuple
 
 
 def spmm_plan(x, num_rows_padded: int, l2_bytes: int) -> SpmmPlan:
@@ -219,76 +217,42 @@ def spmm_plan(x, num_rows_padded: int, l2_bytes: int) -> SpmmPlan:
 
     ``vec`` is 4 if N % 4 == 0 and X's base is 16-byte aligned, else 2 if
     N is even and the base 8-byte aligned, else 1 (acc is allocated by
-    :func:`spmm`, always aligned; a pass starts at a column that is a
-    multiple of ``vec``).  Every live slot updates a random acc row, so
-    once the fp32 acc ``num_rows_padded × N`` outgrows half the L2 (the
-    rest holds the X window of the segments in flight and the stream's
-    lines) the columns are split into the fewest groups whose acc fits
-    that half, each a multiple of ``vec`` wide and the widths at most
-    ``vec`` apart; each group is one pass over the stream.
+    :func:`spmm`, always aligned).  Every live slot updates a random acc
+    row, so once the fp32 acc ``num_rows_padded × N`` outgrows half the L2
+    (the rest holds the X window of the segments in flight and the
+    stream's lines) the rows are split into the fewest equal windows whose
+    acc fits that half; each window is one pass over the stream that
+    gathers and reduces only the slots of its rows.
     """
     n = x.shape[1]
     addr = x.data_ptr()
     vec = next(w for w in (4, 2, 1) if n % w == 0 and addr % (4 * w) == 0)
-    fit = l2_bytes // 2 // (4 * max(1, num_rows_padded)) // vec * vec
-    fit = max(vec, fit)
-    if n <= fit:
-        return SpmmPlan(vec, ((0, n),))
-    passes = -(-n // fit)
-    units, extra = divmod(n // vec, passes)
-    widths = [(units + (i < extra)) * vec for i in range(passes)]
-    return SpmmPlan(vec, tuple((sum(widths[:i]), w)
-                               for i, w in enumerate(widths)))
-
-
-def _spmm_grid(device: torch.device, num_tiles: int, lanes: int, width: int,
-               vec: int) -> int:
-    """Blocks of one pass: as many as the SMs hold at once by threads (the
-    kernel's block is lanes × column chunks, at most 512 threads)."""
-    chunks = max(1, min(width // vec, _SPMM_MAX_THREADS // lanes))
-    threads = min(lanes * chunks, _SPMM_MAX_THREADS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(num_tiles, sms * max(1, _SM_THREADS // threads)))
+    rows = num_rows_padded
+    passes = max(1, -(-rows * n * 4 // (l2_bytes // 2)))
+    return SpmmPlan(vec, tuple((rows * i // passes, rows * (i + 1) // passes)
+                               for i in range(passes)))
 
 
 def _spmm_run(idx, val, seg_ids, x, plan: SpmmPlan, *, num_rows_padded: int,
               segment_width: int):
-    """Launch the SpMM kernel once per column group of ``plan`` (checked
-    CUDA inputs).  One group accumulates straight into the output; more
-    accumulate each into a contiguous (R, width) scratch that the L2 can
-    hold, copied into its columns of the output after its pass.  X is read
-    in place: each pass gets its first column and X's row stride."""
+    """Launch the SpMM kernel once per row window of ``plan`` (checked
+    CUDA inputs), one block per tile, every pass into the one output."""
     global spmm_launches
     lib = _library()
     dev = x.device
     n = x.shape[1]
     num_tiles, sub, lanes = idx.shape
     stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16 = int(val.dtype == torch.bfloat16)
-    if len(plan.groups) == 1:
-        acc = torch.zeros((num_rows_padded, n), dtype=torch.float32,
-                          device=dev)
-        scratch = None
-    else:
-        acc = torch.empty((num_rows_padded, n), dtype=torch.float32,
-                          device=dev)
-        widest = max(w for _, w in plan.groups)
-        scratch = torch.empty(num_rows_padded * widest, dtype=torch.float32,
-                              device=dev)
-    for j0, w in plan.groups:
-        out = acc if scratch is None else \
-            scratch[:num_rows_padded * w].view(num_rows_padded, w).zero_()
+    acc = torch.zeros((num_rows_padded, n), dtype=torch.float32, device=dev)
+    for lo, hi in plan.windows:
         status = lib.serpens_spmm(
             idx.data_ptr(), val.data_ptr(), seg_ids.data_ptr(),
-            x.data_ptr() + 4 * j0, n, out.data_ptr(), w, num_tiles, sub,
-            lanes, segment_width, w, plan.vec, x.shape[0], 0,
-            num_rows_padded, bf16,
-            _spmm_grid(dev, num_tiles, lanes, w, plan.vec), stream)
+            x.data_ptr(), n, acc.data_ptr(), n, num_tiles, sub, lanes,
+            segment_width, n, plan.vec, x.shape[0], lo, hi,
+            int(val.dtype == torch.bfloat16), max(1, num_tiles), stream)
         _raise_on(status, "serpens_spmm")
         spmm_launches += 1
         spmm_launches_by_width[plan.vec] += 1
-        if scratch is not None:
-            acc[:, j0:j0 + w].copy_(out)
     return acc
 
 

@@ -104,8 +104,8 @@ def run_spmm(idx, val, seg, x, geo, tpc=1, plan=None):
     torch.cuda.synchronize()
     moved = {w: c - before[1][w] for w, c in ks.spmm_launches_by_width.items()
              if c != before[1][w]}
-    assert moved == {plan.vec: len(plan.groups)}
-    assert ks.spmm_launches == before[0] + len(plan.groups)
+    assert moved == {plan.vec: len(plan.windows)}
+    assert ks.spmm_launches == before[0] + len(plan.windows)
     return got, plan.vec
 
 
@@ -125,8 +125,8 @@ def test_spmm_kernel_matches_plain(card, name, n):
     x = torch.randn(kp, n, device=card)
     got, vec = run_spmm(idx, val, seg, x, geo, tpc)
     assert vec == SPMM_VEC[n]
-    assert ks.spmm_plan(x, geo["num_rows_padded"], 50 << 20).groups == (
-        (0, n),)                                 # a small acc: one pass
+    rows = geo["num_rows_padded"]                # a small acc: one pass
+    assert ks.spmm_plan(x, rows, 50 << 20).windows == ((0, rows),)
     assert_spmm_close(got, idx, val, seg, x, geo)
 
 
@@ -143,19 +143,17 @@ def test_spmm_on_an_offset_x(card, name, offset, vec):
     assert_spmm_close(got, idx, val, seg, x, geo)
 
 
-@pytest.mark.parametrize("n,plan", [
-    (16, ks.SpmmPlan(4, ((0, 4), (4, 4), (8, 8)))),
-    (16, ks.SpmmPlan(2, ((0, 6), (6, 6), (12, 4)))),
-    (6, ks.SpmmPlan(2, ((0, 2), (2, 4)))),
-    (5, ks.SpmmPlan(1, ((0, 3), (3, 2)))),
-    (64, ks.SpmmPlan(4, ((0, 32), (32, 32)))),
-], ids=["v4-3passes", "v2-3passes", "v2-2passes", "v1-2passes",
-        "v4-64cols"])
+@pytest.mark.parametrize("n,vec,passes", [
+    (16, 4, 3), (16, 2, 2), (6, 2, 2), (5, 1, 2), (64, 4, 2), (2, 2, 7)])
 @pytest.mark.parametrize("name", ["paper", "raw2-bf16"])
-def test_spmm_forced_multi_pass(card, name, n, plan):
-    """Column passes, each from its own first column of X (row stride N)
-    into a scratch acc, copied into its columns of the output."""
+def test_spmm_forced_row_windows(card, name, n, vec, passes):
+    """Passes over row windows, each applying only the slots of its rows,
+    all into the one output."""
     idx, val, seg, geo, kp, _ = card_stream(name, card)
+    rows = geo["num_rows_padded"]
+    plan = ks.SpmmPlan(vec, tuple((rows * i // passes,
+                                   rows * (i + 1) // passes)
+                                  for i in range(passes)))
     x = torch.randn(kp, n, device=card)
     got, _ = run_spmm(idx, val, seg, x, geo, plan=plan)
     assert_spmm_close(got, idx, val, seg, x, geo)

@@ -1,12 +1,12 @@
 """What surrounds the SpMM kernel, on the CPU: the vector width and the
-column passes that :func:`spmm_plan` picks.
+row windows that :func:`spmm_plan` picks.
 
 The kernel itself runs only on the card (``tests/test_torch_chip.py``);
 its plain version is held against the reference's Pallas kernel in
 ``tests/test_torch_kernels.py``.  Here the plan, plain Python in
 ``kernels/serpens_spmv.py``, is checked against the X it describes and
 the L2 rule: one pass while the fp32 acc ``R_pad × N`` fits half the L2,
-else the fewest equal groups whose acc does.
+else the fewest equal windows of rows whose acc does.
 """
 import pytest
 import torch
@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import serpens_spmv as ks
 
 L2 = 52_428_800            # an H100's L2_cache_size, 50 MiB
-G7_ROWS = 1_632_896        # the G7 stand-in's padded rows at the default
+G7_ROWS = 1_630_080        # the G7 stand-in's padded rows at the default
 SMALL_ROWS = 1024
 
 
@@ -36,49 +36,39 @@ def xmat(n, offset=0, rows=16):
 def test_vector_width_follows_n_and_alignment(n, offset, vec, rows):
     x = xmat(n, offset)
     assert x.is_contiguous() and x.storage_offset() == offset
-    plan = ks.spmm_plan(x, rows, L2)
-    assert plan.vec == vec
-    for j0, w in plan.groups:    # every pass's X base and width keep vec
-        assert (x.data_ptr() + 4 * j0) % (4 * vec) == 0 and w % vec == 0
+    assert ks.spmm_plan(x, rows, L2).vec == vec
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 16, 17, 64])
 def test_one_pass_while_acc_fits_half_the_l2(n):
-    assert ks.spmm_plan(xmat(n), SMALL_ROWS, L2).groups == ((0, n),)
+    assert ks.spmm_plan(xmat(n), SMALL_ROWS, L2).windows == (
+        (0, SMALL_ROWS),)
 
 
-@pytest.mark.parametrize("n,groups", [
-    (1, ((0, 1),)),
-    (2, ((0, 2),)),
-    (3, ((0, 3),)),                       # 19.6 MB of acc: one pass
-    (4, ((0, 4),)),                       # 26.1 MB, just inside 26.2 MB
-    (5, ((0, 3), (3, 2))),
-    (8, ((0, 4), (4, 4))),
-    (16, ((0, 4), (4, 4), (8, 4), (12, 4))),
-    (17, ((0, 4), (4, 4), (8, 3), (11, 3), (14, 3))),
-    (64, tuple((j, 4) for j in range(0, 64, 4))),
+@pytest.mark.parametrize("n,passes", [
+    (1, 1), (2, 1), (3, 1),               # 19.6 MB of acc: one pass
+    (4, 1),                               # 26.1 MB, just inside 26.2 MB
+    (5, 2), (8, 2), (16, 4), (17, 5), (64, 16),
 ])
-def test_column_passes_at_g7(n, groups):
-    assert ks.spmm_plan(xmat(n), G7_ROWS, L2).groups == groups
+def test_row_windows_at_g7(n, passes):
+    windows = ks.spmm_plan(xmat(n), G7_ROWS, L2).windows
+    assert len(windows) == passes
+    assert windows[0][0] == 0 and windows[-1][1] == G7_ROWS
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 16, 17, 64])
 @pytest.mark.parametrize("rows", [128, 200_000, G7_ROWS, 4_000_000,
                                   20_000_000])
 @pytest.mark.parametrize("offset", [0, 1, 2])
-def test_groups_cover_the_columns_in_the_fewest_passes(n, rows, offset):
-    plan = ks.spmm_plan(xmat(n, offset), rows, L2)
-    firsts = [j for j, _ in plan.groups]
-    widths = [w for _, w in plan.groups]
-    assert firsts == [sum(widths[:i]) for i in range(len(widths))]
-    assert sum(widths) == n and min(widths) >= 1
-    fit = max(plan.vec, L2 // 2 // (4 * rows) // plan.vec * plan.vec)
-    assert len(plan.groups) == -(-n // fit)
-    if len(plan.groups) > 1:      # each pass's acc fits half the L2 ...
-        assert max(widths) * 4 * rows <= L2 // 2 or max(widths) == plan.vec
-    else:                         # ... and one pass is taken when it fits
-        assert n * 4 * rows <= L2 // 2 or n <= plan.vec
-    assert max(widths) - min(widths) <= plan.vec      # near-equal groups
+def test_windows_cover_the_rows_in_the_fewest_passes(n, rows, offset):
+    windows = ks.spmm_plan(xmat(n, offset), rows, L2).windows
+    assert windows[0][0] == 0 and windows[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(windows, windows[1:]))
+    sizes = [hi - lo for lo, hi in windows]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1   # equal
+    assert all(size * n * 4 <= L2 // 2 for size in sizes)
+    if len(windows) > 1:          # one window fewer would not fit
+        assert -(-rows // (len(windows) - 1)) * n * 4 > L2 // 2
 
 
 def test_the_cpu_path_launches_nothing():

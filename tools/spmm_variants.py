@@ -17,13 +17,13 @@ mean is printed).  Every entry that computes the product is first held
 against ``spmm_plain`` within ``1e-5·(|A|·|X|) + 1e-6`` elementwise; the
 diagnostic variants compute something else and are timed only.
 
-Entries: ``planned`` (:func:`spmm` as the server calls it); each variant
-in one pass at ``GRID`` blocks per SM; the committed source at other
-blocks per SM; the committed source in column passes of 8 and 4 columns,
-each pass into a contiguous (R, c) scratch or straight into its columns
-of the (R, N) output (row stride N); in row passes, each over the whole
-stream applying the slots of one window of rows (the kernel's
-``[row_lo, row_hi)``); and narrower vector widths.
+Entries: ``planned`` (:func:`spmm` as the server calls it: ``spmm_plan``'s
+row windows); each variant in one pass, one block per tile; the committed
+source at ``GRIDS`` blocks per SM; in ``ROW_PASSES`` row passes, each over
+the whole stream applying the slots of one equal window of rows (the
+kernel's ``[row_lo, row_hi)``); in column passes of 4 columns, each pass
+into a contiguous (R, 4) scratch (X read in place, row stride N); and at
+narrower vector widths.
 
 It also counts, for the G7 stream and for an ``OPTIMIZED_CONFIG`` (raw
 window 2) stream of the stand-in at scale 0.1, the live slots, the
@@ -58,32 +58,29 @@ SOURCE = build.CSRC / "serpens_spmv.cu"
 OUT = os.path.join(ROOT, "build", "variants")
 NS = (2, 4, 8, 16)
 ITERS = 20
-GRID = 16                       # blocks per SM of the variants' runs
-GRIDS = (4, 8, 32, 64, 256)     # the committed source's other grids
-ROW_PASSES = (2, 4, 8)          # row windows of the row-pass entries
+GRIDS = (16, 64)                # blocks per SM, beside one block per tile
+ROW_PASSES = (1, 2, 3, 4, 6)    # row windows of the row-pass entries
 FOLD_ROWS = 262144              # rows the folded-acc diagnostic keeps
 
-RED = ("              atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j),\n"
-       "                        scaled(v[i], xv[i]));")
-GATHER = "xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j);"
-DST = "dst[i] = static_cast<int32_t>(d);"
+RED = ("            atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j[i]),"
+       "\n                      scaled(a[i], xv[i]));")
+GATHER = "xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j[i]);"
+
+DST = "s_dst[at] = static_cast<int32_t>(d);"
+BATCH = "constexpr int kBatch = VEC == 4 ? 4 : 8;"
 # name -> ([(text in the committed source, its replacement)], computes A·X)
 VARIANTS = {
     "built": ([], True),
-    "batch 4": ([("constexpr int kSpmmBatch = 8;",
-                  "constexpr int kSpmmBatch = 4;")], True),
-    "batch 2": ([("constexpr int kSpmmBatch = 8;",
-                  "constexpr int kSpmmBatch = 2;")], True),
+    "batch 8 at v4": ([(BATCH, "constexpr int kBatch = 8;")], True),
+    "batch 4 at v1, v2": ([(BATCH, "constexpr int kBatch = 4;")], True),
+    "batch 2": ([(BATCH, "constexpr int kBatch = 2;")], True),
     # Diagnostics: what the time is made of.
-    "stores, not reductions": ([(RED, "              *reinterpret_cast<T*>("
-                                "acc + dst[i] * lda + j) = scaled(v[i], "
+    "stores, not reductions": ([(RED, "            *reinterpret_cast<T*>(acc "
+                                "+ dst[i] * lda + j[i]) = scaled(a[i], "
                                 "xv[i]);")], False),
-    "no x gather": ([(GATHER, "xv[i] = *reinterpret_cast<const T*>(x + j);"
-                      )], False),
-    "consecutive rows": ([(DST, "dst[i] = static_cast<int32_t>((t * sub * "
-                           "lanes + (s0 + i) * lanes + lane) % row_hi);")],
-                         False),
-    "acc folded into L2": ([(DST, "dst[i] = static_cast<int32_t>(d % "
+    "no x gather": ([(GATHER, "xv[i] = *reinterpret_cast<const T*>(x + "
+                      "j[i]);")], False),
+    "acc folded into L2": ([(DST, "s_dst[at] = static_cast<int32_t>(d % "
                              f"{FOLD_ROWS});")], False),
 }
 
@@ -137,34 +134,36 @@ def duplicate_ratio(idx, seg) -> tuple[int, int, int]:
             distinct_pairs)
 
 
-def run_passes(lib, idx, val, seg, x, geo, vec, groups, *, strided=False,
-               grid=GRID, row_passes=1):
-    """A variant's kernel over column ``groups`` at ``grid`` blocks per SM
-    (no launch is counted): one group straight into the output; more each
-    into a contiguous scratch, or straight into their columns of the
-    output when ``strided``.  With ``row_passes`` > 1, one group and that
-    many passes, each applying the slots of one equal window of rows."""
+def run_passes(lib, idx, val, seg, x, geo, vec, *, groups=None,
+               row_passes=1, grid=None):
+    """A variant's kernel (no launch is counted), one block per tile or
+    ``grid`` blocks per SM: in ``row_passes`` equal windows of rows, all
+    into the output; or in column ``groups``, each pass into a contiguous
+    (R, width) scratch copied into its columns of the output."""
     r, n = geo["num_rows_padded"], x.shape[1]
     num_tiles, sub, lanes = idx.shape
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = num_tiles if grid is None else min(num_tiles, sms * grid)
     acc = torch.zeros((r, n), dtype=torch.float32, device=x.device)
-    windows = [(r * i // row_passes, r * (i + 1) // row_passes)
-               for i in range(row_passes)]
+
+    def launch(j0, w, x_ld, out, lda, lo, hi):
+        ks._raise_on(lib.serpens_spmm(
+            idx.data_ptr(), val.data_ptr(), seg.data_ptr(),
+            x.data_ptr() + 4 * j0, x_ld, out.data_ptr(), lda, num_tiles, sub,
+            lanes, geo["segment_width"], w, vec, x.shape[0], lo, hi,
+            int(val.dtype == torch.bfloat16), blocks, stream),
+            "serpens_spmm")
+
+    if groups is None:
+        for i in range(row_passes):
+            launch(0, n, n, acc, n, r * i // row_passes,
+                   r * (i + 1) // row_passes)
+        return acc
     for j0, w in groups:
-        if strided or len(groups) == 1:
-            out, lda = acc[:, j0:], n
-        else:
-            out, lda = torch.zeros((r, w), device=x.device), w
-        for lo, hi in windows:
-            ks._raise_on(lib.serpens_spmm(
-                idx.data_ptr(), val.data_ptr(), seg.data_ptr(),
-                x.data_ptr() + 4 * j0, n, out.data_ptr(), lda, num_tiles,
-                sub, lanes, geo["segment_width"], w, vec, x.shape[0], lo, hi,
-                int(val.dtype == torch.bfloat16), min(num_tiles, sms * grid),
-                stream), "serpens_spmm")
-        if lda != n:
-            acc[:, j0:j0 + w].copy_(out)
+        out = torch.zeros((r, w), device=x.device)
+        launch(j0, w, n, out, w, 0, r)
+        acc[:, j0:j0 + w].copy_(out)
     return acc
 
 
@@ -173,27 +172,22 @@ def groups_of(n, c):
 
 
 def entries(n, vec, libs):
-    """name -> (lib, vec, groups, options, passes, computes A·X)."""
-    one = ((0, n),)
-    out = {f"{name}, one pass": (libs[name], vec, one, {}, 1, checked)
+    """name -> (lib, vec, run_passes options, passes, computes A·X)."""
+    out = {f"{name}, one pass": (libs[name], vec, {}, 1, checked)
            for name, (_, checked) in VARIANTS.items()}
+    built = libs["built"]
     for g in GRIDS:
-        out[f"built, one pass, {g} blocks per SM"] = (
-            libs["built"], vec, one, {"grid": g}, 1, True)
-    for c in (8, 4):
-        if c < n and c % vec == 0:
-            for strided in (False, True):
-                out[f"built, passes of {c}"
-                    + (", strided acc" if strided else "")] = (
-                    libs["built"], vec, groups_of(n, c),
-                    {"strided": strided}, -(-n // c), True)
-    for rp in ROW_PASSES:
-        out[f"built, {rp} row passes"] = (libs["built"], vec, one,
-                                          {"row_passes": rp}, rp, True)
+        out[f"built, one pass, {g} blocks per SM"] = (built, vec,
+                                                      {"grid": g}, 1, True)
+    for rp in ROW_PASSES[1:]:
+        out[f"built, {rp} row passes"] = (built, vec, {"row_passes": rp}, rp,
+                                          True)
+    if n > 4 and 4 % vec == 0:
+        out["built, column passes of 4"] = (
+            built, vec, {"groups": groups_of(n, 4)}, -(-n // 4), True)
     for v in (2, 1):
         if v < vec:
-            out[f"built, one pass, vec {v}"] = (libs["built"], v, one, {}, 1,
-                                                True)
+            out[f"built, one pass, vec {v}"] = (built, v, {}, 1, True)
     return out
 
 
@@ -247,13 +241,12 @@ def main() -> int:
         want = ks.spmm_plain(idx, val, seg, x, **geo)
         scale = ks.spmm_plain(idx, val.abs(), seg, x.abs(), **geo)
         fns = {"planned": lambda x=x: ks.spmm(idx, val, seg, x, **geo)}
-        passes = {"planned": len(sp.groups)}
+        passes = {"planned": len(sp.windows)}
         checked = {"planned": True}
-        for name, (lib, vec, groups, kw, npass, ok) in entries(
-                n, sp.vec, libs).items():
-            fns[name] = (lambda x=x, lib=lib, vec=vec, groups=groups, kw=kw:
-                         run_passes(lib, idx, val, seg, x, geo, vec, groups,
-                                    **kw))
+        for name, (lib, vec, kw, npass, ok) in entries(n, sp.vec,
+                                                       libs).items():
+            fns[name] = (lambda x=x, lib=lib, vec=vec, kw=kw: run_passes(
+                lib, idx, val, seg, x, geo, vec, **kw))
             passes[name], checked[name] = npass, ok
         for name, fn in fns.items():
             if checked[name]:
@@ -279,7 +272,7 @@ def main() -> int:
                    f"/ {ms[name][1]:.4f}), {npass} pass(es), bound {b:.4f} "
                    f"ms, with its passes {bp:.4f} ms; {lib_ms / mean:.2f}x "
                    f"the speed of CSR  [{card}]")
-        cs.say(f"[N={n}] plan: vec {sp.vec}, groups {sp.groups}")
+        cs.say(f"[N={n}] plan: vec {sp.vec}, row windows {sp.windows}")
     cs.say(json.dumps(record))
     return 0
 
