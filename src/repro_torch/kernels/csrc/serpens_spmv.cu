@@ -41,8 +41,6 @@
 // and runs one pass per window of acc rows that fits in L2
 // (kernels/serpens_spmv.py::spmm_plan): a pass decodes the whole stream
 // but packs, and so gathers and reduces, only the slots of its window.
-// The kernel also takes row strides for X and acc, so a caller can run a
-// column slice without a copy.
 //
 // The fused solver step (serpens_spmv_fused) is one pass over A followed by
 // one solver iteration's vector work, with the loop's state on the card.
@@ -119,18 +117,19 @@ __device__ __forceinline__ float4 scaled(float v, float4 a) {
   return make_float4(v * a.x, v * a.y, v * a.z, v * a.w);
 }
 
-// acc: (row_hi, lda) with this pass's columns at [0, groups * VEC); x:
-// (x_rows, ldx) likewise.  Both bases and strides are VEC-float aligned.
-// Only slots whose row lies in [row_lo, row_hi) are applied.
+// x: (x_rows, n) and acc: (row_hi, n), n = groups * VEC, both bases
+// VEC-float aligned.  Only slots whose row lies in [row_lo, row_hi) are
+// applied.
 template <typename V, int VEC>
 __global__ void __launch_bounds__(kSpmmThreads)
 spmm_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
             const int32_t* __restrict__ seg, const float* __restrict__ x,
-            int64_t ldx, float* __restrict__ acc, int64_t lda,
-            int64_t num_tiles, int sub, int lanes, int seg_width, int groups,
-            int64_t x_rows, int64_t row_lo, int64_t row_hi) {
+            float* __restrict__ acc, int sub, int lanes, int seg_width,
+            int groups, int64_t x_rows, int64_t row_lo, int64_t row_hi) {
   using T = typename FVec<VEC>::T;
-  // Column items a thread keeps in flight (its X loads issue together).
+  const int64_t n = static_cast<int64_t>(groups) * VEC;
+  // Column items a thread keeps in flight (its X loads issue together);
+  // at VEC = 4, 8 items take 96 registers and slow the row-window passes.
   constexpr int kBatch = VEC == 4 ? 4 : 8;
   constexpr int kPerThread = kSpmmChunk / kSpmmThreads;
   __shared__ int32_t s_col[kSpmmChunk];
@@ -139,96 +138,95 @@ spmm_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
   __shared__ int s_live;
   const int wl = threadIdx.x & 31;
   const int64_t slots = static_cast<int64_t>(sub) * lanes;
-  for (int64_t t = blockIdx.x; t < num_tiles; t += gridDim.x) {
-    const int64_t xbase = static_cast<int64_t>(seg[t]) * seg_width;
-    const int64_t tile = t * slots;
-    for (int64_t q0 = 0; q0 < slots; q0 += kSpmmChunk) {
-      const int nq = static_cast<int>(
-          slots - q0 < kSpmmChunk ? slots - q0 : kSpmmChunk);
-      if (threadIdx.x == 0) s_live = 0;
-      // Decode each slot once, coalesced, all loads of a thread in flight.
-      uint32_t w[kPerThread];
-      float v[kPerThread];
+  const int64_t t = blockIdx.x;            // one block per tile
+  const int64_t xbase = static_cast<int64_t>(seg[t]) * seg_width;
+  const int64_t tile = t * slots;
+  for (int64_t q0 = 0; q0 < slots; q0 += kSpmmChunk) {
+    const int nq = static_cast<int>(
+        slots - q0 < kSpmmChunk ? slots - q0 : kSpmmChunk);
+    if (threadIdx.x == 0) s_live = 0;
+    // Decode each slot once, coalesced, all loads of a thread in flight.
+    uint32_t w[kPerThread];
+    float v[kPerThread];
 #pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int q = i * kSpmmThreads + threadIdx.x;
-        w[i] = 0xFFFFFFFFu;
-        if (q < nq) {
-          w[i] = static_cast<uint32_t>(idx[tile + q0 + q]);
-          v[i] = to_f32(val[tile + q0 + q]);
-        }
+    for (int i = 0; i < kPerThread; ++i) {
+      const int q = i * kSpmmThreads + threadIdx.x;
+      w[i] = 0xFFFFFFFFu;
+      if (q < nq) {
+        w[i] = static_cast<uint32_t>(idx[tile + q0 + q]);
+        v[i] = to_f32(val[tile + q0 + q]);
       }
-      __syncthreads();
-      // Keep the live slots whose row lies in the window, packed: X row,
-      // acc row, value.  The launcher refuses x_rows or row_hi >= 2^31.
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int64_t slot = q0 + i * kSpmmThreads + threadIdx.x;
-        const int64_t c = xbase + (w[i] & 0xFFFFu);
-        const int64_t d =
-            static_cast<int64_t>(w[i] >> 16) * lanes + slot % lanes;
-        const bool live = w[i] != 0xFFFFFFFFu && c < x_rows && d >= row_lo &&
-                          d < row_hi;
-        const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
-        int base = 0;
-        if (wl == 0 && mask != 0u) base = atomicAdd(&s_live, __popc(mask));
-        base = __shfl_sync(0xFFFFFFFFu, base, 0);
-        if (live) {
-          const int at = base + __popc(mask & ((1u << wl) - 1u));
-          s_col[at] = static_cast<int32_t>(c);
-          s_dst[at] = static_cast<int32_t>(d);
-          s_val[at] = v[i];
-        }
-      }
-      __syncthreads();
-      // Item k is column group k % groups of live slot k / groups, so the
-      // threads of one slot are neighbours: one contiguous X row read and
-      // one contiguous acc row updated together.
-      const int items = s_live * groups;
-      for (int k0 = 0; k0 < items; k0 += kSpmmThreads * kBatch) {
-        int32_t col[kBatch], dst[kBatch], j[kBatch];
-        float a[kBatch];
-        T xv[kBatch];
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i) {
-          const int k = k0 + i * kSpmmThreads + threadIdx.x;
-          col[i] = -1;
-          dst[i] = j[i] = 0;
-          a[i] = 0.f;
-          if (k < items) {
-            const int q = k / groups;
-            col[i] = s_col[q];
-            dst[i] = s_dst[q];
-            a[i] = s_val[q];
-            j[i] = (k - q * groups) * VEC;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i)
-          if (col[i] >= 0)
-            xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j[i]);
-#pragma unroll
-        for (int i = 0; i < kBatch; ++i)
-          if (col[i] >= 0)
-            atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j[i]),
-                      scaled(a[i], xv[i]));
-      }
-      __syncthreads();
     }
+    __syncthreads();
+    // Keep the live slots whose row lies in the window, packed: X row,
+    // acc row, value.  The launcher refuses x_rows or row_hi >= 2^31.
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int64_t slot = q0 + i * kSpmmThreads + threadIdx.x;
+      const int64_t c = xbase + (w[i] & 0xFFFFu);
+      const int64_t d =
+          static_cast<int64_t>(w[i] >> 16) * lanes + slot % lanes;
+      const bool live = w[i] != 0xFFFFFFFFu && c < x_rows && d >= row_lo &&
+                        d < row_hi;
+      const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+      int base = 0;
+      if (wl == 0 && mask != 0u) base = atomicAdd(&s_live, __popc(mask));
+      base = __shfl_sync(0xFFFFFFFFu, base, 0);
+      if (live) {
+        const int at = base + __popc(mask & ((1u << wl) - 1u));
+        s_col[at] = static_cast<int32_t>(c);
+        s_dst[at] = static_cast<int32_t>(d);
+        s_val[at] = v[i];
+      }
+    }
+    __syncthreads();
+    // Item k is column group k % groups of live slot k / groups, so the
+    // threads of one slot are neighbours: one contiguous X row read and
+    // one contiguous acc row updated together.
+    const int items = s_live * groups;
+    for (int k0 = 0; k0 < items; k0 += kSpmmThreads * kBatch) {
+      int32_t col[kBatch], dst[kBatch], j[kBatch];
+      float a[kBatch];
+      T xv[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int k = k0 + i * kSpmmThreads + threadIdx.x;
+        col[i] = -1;
+        dst[i] = j[i] = 0;
+        a[i] = 0.f;
+        if (k < items) {
+          const int q = k / groups;
+          col[i] = s_col[q];
+          dst[i] = s_dst[q];
+          a[i] = s_val[q];
+          j[i] = (k - q * groups) * VEC;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (col[i] >= 0)
+          xv[i] = *reinterpret_cast<const T*>(x + col[i] * n + j[i]);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (col[i] >= 0)
+          atomicAdd(reinterpret_cast<T*>(acc + dst[i] * n + j[i]),
+                    scaled(a[i], xv[i]));
+    }
+    __syncthreads();
   }
 }
 
 template <typename V, int VEC>
 cudaError_t launch_spmm(const void* idx, const void* val, const void* seg,
-                        const void* x, int64_t ldx, void* acc, int64_t lda,
-                        int64_t num_tiles, int sub, int lanes, int seg_width,
-                        int n, int64_t x_rows, int64_t row_lo,
-                        int64_t row_hi, int grid, cudaStream_t st) {
-  spmm_kernel<V, VEC><<<grid, kSpmmThreads, 0, st>>>(
+                        const void* x, void* acc, int64_t num_tiles, int sub,
+                        int lanes, int seg_width, int n, int64_t x_rows,
+                        int64_t row_lo, int64_t row_hi, cudaStream_t st) {
+  // One block per tile (fewer blocks that loop over tiles ran slower).
+  spmm_kernel<V, VEC><<<num_tiles, kSpmmThreads, 0, st>>>(
       static_cast<const int32_t*>(idx), static_cast<const V*>(val),
-      static_cast<const int32_t*>(seg), static_cast<const float*>(x), ldx,
-      static_cast<float*>(acc), lda, num_tiles, sub, lanes, seg_width,
-      n / VEC, x_rows, row_lo, row_hi);
+      static_cast<const int32_t*>(seg), static_cast<const float*>(x),
+      static_cast<float*>(acc), sub, lanes, seg_width, n / VEC, x_rows,
+      row_lo, row_hi);
   return cudaGetLastError();
 }
 
@@ -464,30 +462,28 @@ extern "C" int serpens_spmv(const void* idx, const void* val, const void* seg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One SpMM pass over the stream for the n columns at x and acc (row
-// strides ldx and lda, in floats), VEC = vec floats a thread at a time,
-// applying the slots whose row lies in [row_lo, row_hi) (acc holds row_hi
-// rows).  Refuses (cudaErrorInvalidValue) a vec other than 1, 2 or 4, an
-// n or a stride that is not a multiple of vec, a base that is not
-// vec-aligned, and row counts of 2^31 or more.
+// One SpMM pass over the stream for X (x_rows, n) into acc (row_hi, n),
+// VEC = vec floats a thread at a time, applying the slots whose row lies
+// in [row_lo, row_hi).  Refuses (cudaErrorInvalidValue) a vec other than
+// 1, 2 or 4, an n that is not a multiple of vec, a base that is not
+// vec-aligned, and row or tile counts of 2^31 or more.
 extern "C" int serpens_spmm(const void* idx, const void* val, const void* seg,
-                            const void* x, int64_t ldx, void* acc,
-                            int64_t lda, int64_t num_tiles, int sub,
-                            int lanes, int seg_width, int n, int vec,
+                            const void* x, void* acc, int64_t num_tiles,
+                            int sub, int lanes, int seg_width, int n, int vec,
                             int64_t x_rows, int64_t row_lo, int64_t row_hi,
-                            int value_bf16, int grid, void* stream) {
+                            int value_bf16, void* stream) {
   const uintptr_t align = static_cast<uintptr_t>(vec) * sizeof(float);
   if ((vec != 1 && vec != 2 && vec != 4) || n < 1 || n % vec ||
-      ldx % vec || lda % vec ||
       reinterpret_cast<uintptr_t>(x) % align ||
       reinterpret_cast<uintptr_t>(acc) % align ||
-      x_rows >= (int64_t{1} << 31) || row_hi >= (int64_t{1} << 31))
+      x_rows >= (int64_t{1} << 31) || row_hi >= (int64_t{1} << 31) ||
+      num_tiles >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SERPENS_SPMM(V, VEC)                                                 \
-  launch_spmm<V, VEC>(idx, val, seg, x, ldx, acc, lda, num_tiles, sub,      \
-                      lanes, seg_width, n, x_rows, row_lo, row_hi, grid, st)
+  launch_spmm<V, VEC>(idx, val, seg, x, acc, num_tiles, sub, lanes,         \
+                      seg_width, n, x_rows, row_lo, row_hi, st)
   cudaError_t err;
   if (value_bf16) {
     err = vec == 4   ? SERPENS_SPMM(__nv_bfloat16, 4)

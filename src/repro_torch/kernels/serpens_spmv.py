@@ -57,8 +57,8 @@ def _declare(lib) -> None:
     lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
                                  i64, i32, i32, p]
     lib.serpens_spmv.restype = i32
-    lib.serpens_spmm.argtypes = [p, p, p, p, i64, p, i64, i64, i32, i32,
-                                 i32, i32, i32, i64, i64, i64, i32, i32, p]
+    lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
+                                 i32, i64, i64, i64, i32, p]
     lib.serpens_spmm.restype = i32
     lib.serpens_spmv_fused.argtypes = [
         i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, p, p,
@@ -236,7 +236,7 @@ def spmm_plan(x, num_rows_padded: int, l2_bytes: int) -> SpmmPlan:
 def _spmm_run(idx, val, seg_ids, x, plan: SpmmPlan, *, num_rows_padded: int,
               segment_width: int):
     """Launch the SpMM kernel once per row window of ``plan`` (checked
-    CUDA inputs), one block per tile, every pass into the one output."""
+    CUDA inputs), every pass into the one output."""
     global spmm_launches
     lib = _library()
     dev = x.device
@@ -247,9 +247,9 @@ def _spmm_run(idx, val, seg_ids, x, plan: SpmmPlan, *, num_rows_padded: int,
     for lo, hi in plan.windows:
         status = lib.serpens_spmm(
             idx.data_ptr(), val.data_ptr(), seg_ids.data_ptr(),
-            x.data_ptr(), n, acc.data_ptr(), n, num_tiles, sub, lanes,
+            x.data_ptr(), acc.data_ptr(), num_tiles, sub, lanes,
             segment_width, n, plan.vec, x.shape[0], lo, hi,
-            int(val.dtype == torch.bfloat16), max(1, num_tiles), stream)
+            int(val.dtype == torch.bfloat16), stream)
         _raise_on(status, "serpens_spmm")
         spmm_launches += 1
         spmm_launches_by_width[plan.vec] += 1

@@ -18,11 +18,10 @@ against ``spmm_plain`` within ``1e-5·(|A|·|X|) + 1e-6`` elementwise; the
 diagnostic variants compute something else and are timed only.
 
 Entries: ``planned`` (:func:`spmm` as the server calls it: ``spmm_plan``'s
-row windows); each variant in one pass, one block per tile; the committed
-source at ``GRIDS`` blocks per SM; in ``ROW_PASSES`` row passes, each over
-the whole stream applying the slots of one equal window of rows (the
-kernel's ``[row_lo, row_hi)``); in column passes of 4 columns, each pass
-into a contiguous (R, 4) scratch (X read in place, row stride N); and at
+row windows); each variant in one pass, and each variant that computes the
+product also in the plan's windows; the committed source in
+``ROW_PASSES`` row passes, each over the whole stream applying the slots
+of one equal window of rows (the kernel's ``[row_lo, row_hi)``); and at
 narrower vector widths.
 
 It also counts, for the G7 stream and for an ``OPTIMIZED_CONFIG`` (raw
@@ -58,14 +57,12 @@ SOURCE = build.CSRC / "serpens_spmv.cu"
 OUT = os.path.join(ROOT, "build", "variants")
 NS = (2, 4, 8, 16)
 ITERS = 20
-GRIDS = (16, 64)                # blocks per SM, beside one block per tile
 ROW_PASSES = (1, 2, 3, 4, 6)    # row windows of the row-pass entries
 FOLD_ROWS = 262144              # rows the folded-acc diagnostic keeps
 
-RED = ("            atomicAdd(reinterpret_cast<T*>(acc + dst[i] * lda + j[i]),"
-       "\n                      scaled(a[i], xv[i]));")
-GATHER = "xv[i] = *reinterpret_cast<const T*>(x + col[i] * ldx + j[i]);"
-
+RED = ("atomicAdd(reinterpret_cast<T*>(acc + dst[i] * n + j[i]),\n"
+       "                    scaled(a[i], xv[i]));")
+GATHER = "xv[i] = *reinterpret_cast<const T*>(x + col[i] * n + j[i]);"
 DST = "s_dst[at] = static_cast<int32_t>(d);"
 BATCH = "constexpr int kBatch = VEC == 4 ? 4 : 8;"
 # name -> ([(text in the committed source, its replacement)], computes A·X)
@@ -73,11 +70,10 @@ VARIANTS = {
     "built": ([], True),
     "batch 8 at v4": ([(BATCH, "constexpr int kBatch = 8;")], True),
     "batch 4 at v1, v2": ([(BATCH, "constexpr int kBatch = 4;")], True),
-    "batch 2": ([(BATCH, "constexpr int kBatch = 2;")], True),
     # Diagnostics: what the time is made of.
-    "stores, not reductions": ([(RED, "            *reinterpret_cast<T*>(acc "
-                                "+ dst[i] * lda + j[i]) = scaled(a[i], "
-                                "xv[i]);")], False),
+    "stores, not reductions": ([(RED, "*reinterpret_cast<T*>(acc + dst[i] "
+                                "* n + j[i]) = scaled(a[i], xv[i]);")],
+                               False),
     "no x gather": ([(GATHER, "xv[i] = *reinterpret_cast<const T*>(x + "
                       "j[i]);")], False),
     "acc folded into L2": ([(DST, "s_dst[at] = static_cast<int32_t>(d % "
@@ -134,60 +130,38 @@ def duplicate_ratio(idx, seg) -> tuple[int, int, int]:
             distinct_pairs)
 
 
-def run_passes(lib, idx, val, seg, x, geo, vec, *, groups=None,
-               row_passes=1, grid=None):
-    """A variant's kernel (no launch is counted), one block per tile or
-    ``grid`` blocks per SM: in ``row_passes`` equal windows of rows, all
-    into the output; or in column ``groups``, each pass into a contiguous
-    (R, width) scratch copied into its columns of the output."""
+def run_passes(lib, idx, val, seg, x, geo, vec, *, row_passes=1):
+    """A variant's kernel in ``row_passes`` equal windows of rows, all into
+    the one output (no launch is counted)."""
     r, n = geo["num_rows_padded"], x.shape[1]
     num_tiles, sub, lanes = idx.shape
     stream = torch.cuda.current_stream().cuda_stream
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = num_tiles if grid is None else min(num_tiles, sms * grid)
     acc = torch.zeros((r, n), dtype=torch.float32, device=x.device)
-
-    def launch(j0, w, x_ld, out, lda, lo, hi):
+    for i in range(row_passes):
         ks._raise_on(lib.serpens_spmm(
-            idx.data_ptr(), val.data_ptr(), seg.data_ptr(),
-            x.data_ptr() + 4 * j0, x_ld, out.data_ptr(), lda, num_tiles, sub,
-            lanes, geo["segment_width"], w, vec, x.shape[0], lo, hi,
-            int(val.dtype == torch.bfloat16), blocks, stream),
-            "serpens_spmm")
-
-    if groups is None:
-        for i in range(row_passes):
-            launch(0, n, n, acc, n, r * i // row_passes,
-                   r * (i + 1) // row_passes)
-        return acc
-    for j0, w in groups:
-        out = torch.zeros((r, w), device=x.device)
-        launch(j0, w, n, out, w, 0, r)
-        acc[:, j0:j0 + w].copy_(out)
+            idx.data_ptr(), val.data_ptr(), seg.data_ptr(), x.data_ptr(),
+            acc.data_ptr(), num_tiles, sub, lanes, geo["segment_width"], n,
+            vec, x.shape[0], r * i // row_passes, r * (i + 1) // row_passes,
+            int(val.dtype == torch.bfloat16), stream), "serpens_spmm")
     return acc
 
 
-def groups_of(n, c):
-    return tuple((j, min(c, n - j)) for j in range(0, n, c))
-
-
-def entries(n, vec, libs):
+def entries(vec, windows, libs):
     """name -> (lib, vec, run_passes options, passes, computes A·X)."""
     out = {f"{name}, one pass": (libs[name], vec, {}, 1, checked)
            for name, (_, checked) in VARIANTS.items()}
-    built = libs["built"]
-    for g in GRIDS:
-        out[f"built, one pass, {g} blocks per SM"] = (built, vec,
-                                                      {"grid": g}, 1, True)
+    if windows > 1:
+        for name, (_, checked) in VARIANTS.items():
+            if checked and name != "built":
+                out[f"{name}, {windows} row passes"] = (
+                    libs[name], vec, {"row_passes": windows}, windows, True)
     for rp in ROW_PASSES[1:]:
-        out[f"built, {rp} row passes"] = (built, vec, {"row_passes": rp}, rp,
-                                          True)
-    if n > 4 and 4 % vec == 0:
-        out["built, column passes of 4"] = (
-            built, vec, {"groups": groups_of(n, 4)}, -(-n // 4), True)
+        out[f"built, {rp} row passes"] = (libs["built"], vec,
+                                          {"row_passes": rp}, rp, True)
     for v in (2, 1):
         if v < vec:
-            out[f"built, one pass, vec {v}"] = (built, v, {}, 1, True)
+            out[f"built, one pass, vec {v}"] = (libs["built"], v, {}, 1,
+                                                True)
     return out
 
 
@@ -243,8 +217,8 @@ def main() -> int:
         fns = {"planned": lambda x=x: ks.spmm(idx, val, seg, x, **geo)}
         passes = {"planned": len(sp.windows)}
         checked = {"planned": True}
-        for name, (lib, vec, kw, npass, ok) in entries(n, sp.vec,
-                                                       libs).items():
+        for name, (lib, vec, kw, npass, ok) in entries(
+                sp.vec, len(sp.windows), libs).items():
             fns[name] = (lambda x=x, lib=lib, vec=vec, kw=kw: run_passes(
                 lib, idx, val, seg, x, geo, vec, **kw))
             passes[name], checked[name] = npass, ok
