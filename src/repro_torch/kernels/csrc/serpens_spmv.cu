@@ -42,6 +42,12 @@
 // (kernels/serpens_spmv.py::spmm_plan): a pass decodes the whole stream
 // but packs, and so gathers and reduces, only the slots of its window.
 //
+// Traps handled here: the packed word is decoded with unsigned shifts (a
+// live row of 0xFFFF packs into a negative int32 that is not the -1
+// sentinel), and slot and element offsets are 64-bit.  Offsets that would
+// leave x or acc are skipped, as the reference's scatter drops them (and
+// as zero padding of x to the segment grid would give).
+//
 // The fused solver step (serpens_spmv_fused) is one pass over A followed by
 // one solver iteration's vector work, with the loop's state on the card.
 // The TPU kernel runs a traced Python epilogue in its last sequential grid
