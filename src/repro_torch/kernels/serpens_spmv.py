@@ -8,9 +8,10 @@ repository root on first use (``kernels/build.py``), loaded with
 ``ctypes`` and launched on PyTorch's current stream.
 
 :func:`spmv` and :func:`spmm` take the stream and a padded x and return the
-fp32 accumulator.  On CUDA tensors they launch the kernel (and count the
-launch in :data:`spmv_launches` / :data:`spmm_launches`, the SpMM's also
-by vector width in :data:`spmm_launches_by_width`); on CPU tensors
+fp32 accumulator.  On CUDA tensors they launch the kernel as their plans
+say (:func:`spmv_plan`, :func:`spmm_plan`) and count the launch in
+:data:`spmv_launches` / :data:`spmm_launches`, the SpMM's also by vector
+width in :data:`spmm_launches_by_width`; on CPU tensors
 they run the plain version, :func:`spmv_plain` / :func:`spmm_plain`, which
 decodes, gathers and ``index_add_``-s in fp32 like the reference's XLA
 stream path.  Nothing falls back: a CUDA tensor either runs the kernel or
@@ -45,6 +46,12 @@ spmv_launches = 0
 spmm_launches = 0
 spmm_launches_by_width = {4: 0, 2: 0, 1: 0}
 spmv_fused_launches = 0
+# The SpmvPlan of the latest stream pass launched (spmv or a fused step).
+spmv_last_plan = None
+
+# Dynamic shared memory one block may use on sm_90 (227 KB), the target the
+# kernels are built for (kSpmvMaxSmem in csrc/serpens_spmv.cu).
+SMEM_BYTES = 232_448
 
 
 def build():
@@ -55,14 +62,14 @@ def build():
 def _declare(lib) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
-                                 i64, i32, i32, p]
+                                 i64, i32, i32, i32, i32, i32, i32, p]
     lib.serpens_spmv.restype = i32
     lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
                                  i32, i64, i64, i64, i32, p]
     lib.serpens_spmm.restype = i32
     lib.serpens_spmv_fused.argtypes = [
-        i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, p, p,
-        p, p, p, p, i32, p, ctypes.c_float, i32, p]
+        i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, i32,
+        i32, i32, i32, p, p, p, p, p, p, i32, p, ctypes.c_float, i32, p]
     lib.serpens_spmv_fused.restype = i32
 
 
@@ -110,21 +117,12 @@ def _check_kernel_args(idx, val, seg_ids, x) -> None:
             raise ValueError(f"{name} must be contiguous")
     if x.dtype != torch.float32:
         raise ValueError(f"x must be float32, got {x.dtype}")
-    lanes = idx.shape[2]
-    if not 1 <= lanes <= 1024:
-        raise ValueError(f"lanes={lanes}: one thread per lane needs "
-                         f"1 <= lanes <= 1024")
 
 
 def _check_padded(x, segment_width: int) -> None:
     if x.shape[0] % segment_width:
         raise ValueError(f"x has {x.shape[0]} rows, not a multiple of "
                          f"segment_width={segment_width}")
-
-
-def _grid(device: torch.device, num_tiles: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(num_tiles, sms * 16))
 
 
 def _raise_on(status: int, what: str) -> None:
@@ -165,6 +163,188 @@ def spmm_plain(idx, val, seg_ids, x, *, num_rows_padded: int,
 
 
 # -- wrappers -----------------------------------------------------------------
+def _ranges(n: int, parts: int) -> tuple:
+    """``parts`` equal ``(lo, hi)`` ranges covering ``[0, n)``, the cut the
+    kernel makes from a count."""
+    return tuple((n * i // parts, n * (i + 1) // parts) for i in range(parts))
+
+
+# The TMA feed's ring (csrc/serpens_spmv.cu: kTmaStages stages of a box of
+# kTmaSlots idx words and as many value bytes) and its mbarriers.
+_TMA_STAGES = 3
+_TMA_SLOTS = 1024
+
+
+def _tma_box_lanes(lane_group: int, q: int = 4) -> int:
+    """Lanes of a TMA box: from the 16-byte boundary (q elements) at or
+    below a group's first lane, over the group, rounded up to q."""
+    span = lane_group + q - math.gcd(lane_group, q)
+    return -(-span // q) * q
+
+
+def _tma_ring_bytes(lane_group: int) -> int:
+    lanes = _tma_box_lanes(lane_group)
+    rows = min(256, _TMA_SLOTS // lanes)
+    return _TMA_STAGES * rows * lanes * 8 + 16 * _TMA_STAGES
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """How the SpMV stream pass runs: one block per (lane group, row
+    window, tile split) cell, each keeping its part of the accumulator in
+    shared memory.
+
+    ``lanes`` and ``rows`` (lane-local rows, ``ceil(num_rows_padded /
+    lanes)``) are the geometry; ``lane_group`` lanes per block (the last
+    group may be partial); ``windows``, the ``(lo, hi)`` lane-local rows of
+    each window, equal cuts of ``rows``; ``splits`` equal ranges of tiles
+    per cell; ``feed``, how the stream reaches the block: ``"tma"`` (a
+    ring of boxes loaded by TMA) or ``"loads"`` (each thread loads ``vec``
+    lanes, 4 or 1, at a time); ``smem_bytes`` the dynamic shared memory a
+    block asks for.
+    """
+    lanes: int
+    rows: int
+    lane_group: int
+    windows: tuple
+    splits: int
+    vec: int
+    feed: str
+    smem_bytes: int
+
+    @property
+    def groups(self) -> tuple:
+        """The ``(lo, hi)`` lanes of each lane group."""
+        lg = self.lane_group
+        return tuple((lo, min(lo + lg, self.lanes))
+                     for lo in range(0, self.lanes, lg))
+
+    @property
+    def blocks(self) -> int:
+        return len(self.groups) * len(self.windows) * self.splits
+
+    def tile_ranges(self, num_tiles: int) -> tuple:
+        """The ``(first, end)`` tiles of each split."""
+        return _ranges(num_tiles, self.splits)
+
+
+def spmv_plan_of(lanes: int, num_rows_padded: int, lane_group: int,
+                 windows: int, splits: int, vec: int | None = None,
+                 feed: str | None = None) -> SpmvPlan:
+    """The :class:`SpmvPlan` of these counts (equal windows).  ``feed`` is
+    ``"tma"`` where TMA can read the stream (``lanes`` a multiple of 4, a
+    box of at most 256 lanes), else ``"loads"``, unless given; ``vec``
+    is 4 where the groups allow 16-byte loads (``lane_group`` and
+    ``lanes`` multiples of 4), unless given."""
+    rows = max(1, -(-num_rows_padded // lanes))
+    if vec is None:
+        vec = 4 if lane_group % 4 == 0 and lanes % 4 == 0 else 1
+    if feed is None:
+        feed = ("tma" if lanes % 4 == 0 and _tma_box_lanes(lane_group) <= 256
+                else "loads")
+    acc = lane_group * -(-rows // windows) * 4
+    smem = (-(-acc // 128) * 128 + _tma_ring_bytes(lane_group)
+            if feed == "tma" else acc)
+    return SpmvPlan(lanes, rows, lane_group, _ranges(rows, windows), splits,
+                    vec, feed, smem)
+
+
+def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
+              smem_bytes: int = SMEM_BYTES, sms: int = 132) -> SpmvPlan:
+    """The SpMV plan for a stream of ``num_tiles`` (``sub``, ``lanes``)
+    tiles into ``num_rows_padded`` rows, on a card whose blocks may use
+    ``smem_bytes`` of shared memory and that has ``sms`` SMs.
+
+    The stream is fed by TMA where it can be (``lanes`` a multiple of 4
+    and a stream to read), which reserves its ring's bytes.  The lane
+    group is the largest whose accumulator (``lane_group × rows`` fp32)
+    fits in the rest, rounded down to a multiple of 8 (8 lanes' idx are
+    one 32-byte sector) or else of 4 (16-byte loads), unless it takes
+    every lane; it is at most ``lanes``.  When not even one lane's rows
+    fit (lane-local rows go up to 65,536, 256 KB), the group is one lane
+    and its rows are cut into the fewest equal windows that fit, each one
+    more read of the lane's stream.  Splits share each (group, window)
+    cell's tiles so that the blocks number about one per SM.  A stream of
+    2^31 slots or more is refused (the kernel counts slots in 32 bits).
+    """
+    if num_tiles * sub * lanes >= 1 << 31:
+        raise ValueError(f"a stream of {num_tiles} x {sub} x {lanes} slots "
+                         f"has 2^31 or more")
+    rows = max(1, -(-num_rows_padded // lanes))
+    tma = lanes % 4 == 0 and num_tiles > 0
+    # The largest ring (8 KB a stage) and the accumulator's alignment.
+    floats = (smem_bytes - (_tma_ring_bytes(4) + 127 if tma else 0)) // 4
+    fit = min(lanes, 256 if tma else lanes, floats // rows)
+    if fit >= 1:
+        lg = fit
+        if fit < lanes:
+            lg = fit // 8 * 8 or fit // 4 * 4 or fit
+        windows = 1
+    else:
+        lg, windows = 1, -(-rows // floats)
+    cells = -(-lanes // lg) * windows
+    splits = max(1, min(num_tiles, sms // cells))
+    return spmv_plan_of(lanes, num_rows_padded, lg, windows, splits,
+                        feed="tma" if tma else "loads")
+
+
+def _card_spmv_plan(idx, val, num_rows_padded: int) -> SpmvPlan:
+    """:func:`spmv_plan` for this card and stream, at 16-byte loads only
+    where the stream's bases are aligned for them."""
+    num_tiles, sub, lanes = idx.shape
+    sms = torch.cuda.get_device_properties(idx.device).multi_processor_count
+    plan = spmv_plan(num_tiles, sub, lanes, num_rows_padded, SMEM_BYTES,
+                     sms)
+    bf16 = val.dtype == torch.bfloat16
+    aligned = idx.data_ptr() % 16 == 0
+    if plan.feed == "tma" and not (aligned and val.data_ptr() % 16 == 0
+                                   and lanes % (8 if bf16 else 4) == 0):
+        plan = spmv_plan_of(lanes, num_rows_padded, plan.lane_group,
+                            len(plan.windows), plan.splits, feed="loads")
+    if plan.vec == 4 and not (aligned and
+                              val.data_ptr() % (4 * val.element_size()) == 0):
+        plan = dataclasses.replace(plan, vec=1)
+    return plan
+
+
+def _check_plan(plan: SpmvPlan, idx, num_rows_padded: int) -> None:
+    lanes = idx.shape[2]
+    if (plan.lanes, plan.rows) != (lanes,
+                                   max(1, -(-num_rows_padded // lanes))) \
+            or plan.windows != _ranges(plan.rows, len(plan.windows)):
+        raise ValueError(f"{plan} does not fit a stream of {lanes} lanes "
+                         f"into {num_rows_padded} rows")
+
+
+def _spmv_args(idx, val, seg_ids, x, plan: SpmvPlan, acc, segment_width):
+    """The stream pass's arguments to the C entries, from ``idx`` to
+    ``feed``."""
+    num_tiles, sub, lanes = idx.shape
+    return (idx.data_ptr(), val.data_ptr(), seg_ids.data_ptr(),
+            x.data_ptr(), acc.data_ptr(), num_tiles, sub, lanes,
+            segment_width, x.shape[0], acc.numel(),
+            int(val.dtype == torch.bfloat16), plan.lane_group,
+            len(plan.windows), plan.splits, plan.vec,
+            int(plan.feed == "tma"))
+
+
+def _spmv_run(idx, val, seg_ids, x, plan: SpmvPlan, *, num_rows_padded: int,
+              segment_width: int):
+    """Launch the stream pass on ``plan`` (checked CUDA inputs)."""
+    global spmv_launches, spmv_last_plan
+    _check_plan(plan, idx, num_rows_padded)
+    lib = _library()
+    alloc = torch.zeros if plan.splits > 1 else torch.empty
+    acc = alloc(num_rows_padded, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _raise_on(lib.serpens_spmv(
+        *_spmv_args(idx, val, seg_ids, x, plan, acc, segment_width), stream),
+        "serpens_spmv")
+    spmv_launches += 1
+    spmv_last_plan = plan
+    return acc
+
+
 def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
          tiles_per_chunk: int = 1):
     """``A @ x`` over the Serpens stream → fp32 ``(num_rows_padded,)``.
@@ -174,6 +354,9 @@ def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
       val: float32 or bfloat16 ``(tiles, sub, lanes)`` values.
       seg_ids: int32 ``(tiles,)`` x segment of each tile.
       x: float32 ``(num_segments * segment_width,)`` zero-padded vector.
+
+    On CUDA tensors the kernel runs as :func:`spmv_plan` says for this
+    stream and card.
     """
     _check_stream(idx, val, seg_ids, tiles_per_chunk)
     if x.dim() != 1:
@@ -187,19 +370,10 @@ def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
         raise ValueError(f"no Serpens kernel for device {dev}")
     _check_kernel_args(idx, val, seg_ids, x)
     _check_padded(x, segment_width)
-    global spmv_launches
-    lib = _library()
-    acc = torch.zeros(num_rows_padded, dtype=torch.float32, device=dev)
-    num_tiles, sub, lanes = idx.shape
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.serpens_spmv(
-        idx.data_ptr(), val.data_ptr(), seg_ids.data_ptr(), x.data_ptr(),
-        acc.data_ptr(), num_tiles, sub, lanes, segment_width, x.shape[0],
-        num_rows_padded, int(val.dtype == torch.bfloat16),
-        _grid(dev, num_tiles), stream)
-    _raise_on(status, "serpens_spmv")
-    spmv_launches += 1
-    return acc
+    return _spmv_run(idx, val, seg_ids, x,
+                     _card_spmv_plan(idx, val, num_rows_padded),
+                     num_rows_padded=num_rows_padded,
+                     segment_width=segment_width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -506,20 +680,30 @@ def spmv_fused(idx, val, seg_ids, x, extras=(), *, epilogue,
     if dev.type != "cuda":
         raise ValueError(f"no Serpens kernel for device {dev}")
     _check_kernel_args(idx, val, seg_ids, x)
-    global spmv_fused_launches
+    return _spmv_fused_run(spec, loop, idx, val, seg_ids, x, extras,
+                           _card_spmv_plan(idx, val, num_rows_padded),
+                           **geo)
+
+
+def _spmv_fused_run(spec, loop, idx, val, seg_ids, x, extras,
+                    plan: SpmvPlan, *, num_rows_padded: int,
+                    segment_width: int):
+    """Launch the fused step's kernel chain, its stream pass on ``plan``
+    (checked CUDA inputs)."""
+    global spmv_fused_launches, spmv_last_plan
+    _check_plan(plan, idx, num_rows_padded)
     lib = _library()
+    dev = x.device
     nb = _epi_blocks(dev, num_rows_padded)
     acc, part = loop._buffers(num_rows_padded, nb)
     ptrs = [e.data_ptr() for e in extras] + [None] * (4 - len(extras))
-    num_tiles, sub, lanes = idx.shape
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.serpens_spmv_fused(
-        spec.kernel_id, idx.data_ptr(), val.data_ptr(),
-        seg_ids.data_ptr(), x.data_ptr(), acc.data_ptr(), num_tiles, sub,
-        lanes, segment_width, x.shape[0], num_rows_padded,
-        int(val.dtype == torch.bfloat16), _grid(dev, num_tiles), *ptrs,
+        spec.kernel_id,
+        *_spmv_args(idx, val, seg_ids, x, plan, acc, segment_width), *ptrs,
         loop.scalars.data_ptr() or None, part.data_ptr(), nb,
         loop.ctrl.data_ptr(), loop.stop, loop.max_iters, stream)
     _raise_on(status, "serpens_spmv_fused")
     spmv_fused_launches += 1
+    spmv_last_plan = plan
     return acc, _state_outs(spec, extras, loop)

@@ -65,6 +65,27 @@ def test_flash_plain_matches_reference_kernel(b, s, kv, g, dh, dv, causal,
     close(got, want, FLASH_TOL)
 
 
+@pytest.mark.parametrize(
+    "b,sq,sk,kv,g,dh,dv,qb,kb",
+    [(1, 70, 33, 2, 2, 16, 16, 16, 16),
+     (2, 100, 64, 1, 3, 32, 24, 32, 32)])    # ragged, dv != dh
+def test_flash_plain_matches_reference_kernel_when_sq_exceeds_sk(
+        b, sq, sk, kv, g, dh, dv, qb, kb):
+    """Causal with more queries than keys: q and k both count from 0, so
+    every row at or past Sk sees all the keys."""
+    q, k, v = qkv(np.random.default_rng(sq + sk), b, sq, sk, kv, g, dh, dv)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True, q_block=qb,
+                               kv_block=kb, interpret=True)
+    got = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                   causal=True)
+    assert got.shape == want.shape == (b, sq, kv, g, dv)
+    close(got, want, FLASH_TOL)
+    full = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                    causal=False)
+    assert torch.equal(got[:, sk - 1:], full[:, sk - 1:])
+
+
 def test_flash_wrapper_on_cpu_runs_the_plain_version():
     q, k, v = qkv(np.random.default_rng(3), 2, 40, 40, 2, 2, 16, 8)
     before = fa.flash_launches

@@ -77,14 +77,48 @@ def card_stream(name, dev, m=3000, k=20000, nnz=40000, seed=0):
     return idx, val, seg, geo, kp, cfg.tiles_per_chunk
 
 
+# Stream-pass plans forced beside each stream's own: (lane_group, windows,
+# splits, vec, feed), None taking the default.  Both feeds; one lane, 4
+# and 8 lanes, several windows and splits, 4 lanes loaded one at a time,
+# and groups of 3 (a partial last group).
+SPMV_FORCED = [(1, 3, 2, None, None), (4, 1, 4, None, None),
+               (4, 2, 3, 1, "loads"), (4, 1, 4, 4, "loads"),
+               (8, 3, 1, None, None), (8, 1, 5, None, "loads"),
+               (3, 2, 2, None, None), (3, 2, 2, None, "loads")]
+SPMV_PLANS = [None] + SPMV_FORCED
+SPMV_IDS = ["planned"] + ["lg{}-w{}-s{}-v{}-{}".format(*f)
+                          for f in SPMV_FORCED]
+
+
+def forced_plan(idx, rows_padded, forced):
+    lg, windows, splits, vec, feed = forced
+    lanes = idx.shape[2]
+    return ks.spmv_plan_of(lanes, rows_padded, min(lg, lanes), windows,
+                           splits, vec, feed)
+
+
+def run_spmv(idx, val, seg, x, geo, tpc=1, forced=None):
+    """spmv (or, given ``forced``, the runner on that plan); one launch,
+    and the plan that ran must be the one asked for."""
+    rows = geo["num_rows_padded"]
+    before = ks.spmv_launches
+    if forced is None:
+        plan = ks._card_spmv_plan(idx, val, rows)
+        got = ks.spmv(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
+    else:
+        plan = forced_plan(idx, rows, forced)
+        got = ks._spmv_run(idx, val, seg, x, plan, **geo)
+    torch.cuda.synchronize()
+    assert ks.spmv_launches == before + 1 and ks.spmv_last_plan == plan
+    return got, plan
+
+
+@pytest.mark.parametrize("forced", SPMV_PLANS, ids=SPMV_IDS)
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_spmv_kernel_matches_plain(card, name):
+def test_spmv_kernel_matches_plain(card, name, forced):
     idx, val, seg, geo, kp, tpc = card_stream(name, card)
     x = torch.randn(kp, device=card)
-    before = ks.spmv_launches
-    got = ks.spmv(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
-    torch.cuda.synchronize()
-    assert ks.spmv_launches == before + 1
+    got, _ = run_spmv(idx, val, seg, x, geo, tpc, forced)
     assert_close(got, ks.spmv_plain(idx, val, seg, x, **geo),
                  ks.spmv_plain(idx, val.abs(), seg, x.abs(), **geo))
 
@@ -172,9 +206,13 @@ def row_0xffff_stream(dev):
 
 
 def test_row_0xffff_on_the_card(card):
+    """65,536 lane-local rows: not one lane fits in shared memory, so the
+    plan takes one lane per block in two windows."""
     m, idx, val, seg, rows = row_0xffff_stream(card)
     x = torch.arange(64, dtype=torch.float32, device=card)
-    got = ks.spmv(idx, val, seg, x, num_rows_padded=rows, segment_width=64)
+    got, plan = run_spmv(idx, val, seg, x,
+                         dict(num_rows_padded=rows, segment_width=64))
+    assert (plan.lane_group, len(plan.windows)) == (1, 2)
     assert float(got[m - 1]) == 10.0 and float(got[3]) == -60.0
     assert float(got.abs().sum()) == 70.0
 
@@ -301,9 +339,20 @@ def scalar_scale(name, i, acc, extras, want):
     return float(want.abs().sum())      # Σ r², Σ|Δr|, ‖Av − λv‖: all terms ≥ 0
 
 
+# The fused step's stream pass on forced plans too: several windows and
+# splits (acc zeroed first), and one split whose plain stores must write
+# every element of the uninitialised acc, with a partial last group.
+FUSED_FORCED = [(1, 2, 3, None, None), (4, 2, 2, None, "loads"),
+                (8, 1, 4, None, None), (3, 1, 1, None, None),
+                (3, 1, 1, None, "loads")]
+
+
+@pytest.mark.parametrize("forced", [None] + FUSED_FORCED,
+                         ids=["planned"] + ["lg{}-w{}-s{}-{}".format(
+                             *f[:3], f[4]) for f in FUSED_FORCED])
 @pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
 @pytest.mark.parametrize("name", sorted(EPILOGUES))
-def test_fused_kernel_matches_plain(card, name, cfg_name):
+def test_fused_kernel_matches_plain(card, name, cfg_name, forced):
     op, x, extras = fused_case(name, CONFIGS[cfg_name], card)
     ep = EPILOGUES[name]
     if not op.supports_fused_epilogue:
@@ -321,11 +370,20 @@ def test_fused_kernel_matches_plain(card, name, cfg_name):
     k_extras = tuple(e.clone() for e in extras)
     kx = op.from_acc_layout(k_extras[0 if name != "cg" else 2])
     before = ks.spmv_fused_launches
-    acc, got = op.matvec_fused(kx, ep, extras=k_extras)
+    spec = ks._EPILOGUES[ep]
+    if forced is None:
+        plan = ks._card_spmv_plan(idx, val, geo["num_rows_padded"])
+        acc, got = op.matvec_fused(kx, ep, extras=k_extras)
+    else:
+        plan = forced_plan(idx, geo["num_rows_padded"], forced)
+        loop = ks.FusedLoop(card, stop=-float("inf"), max_iters=1,
+                            scalars=(0.0,) * spec.scalars)
+        acc, got = ks._spmv_fused_run(spec, loop, idx, val, seg, kx,
+                                      k_extras, plan, **geo)
     torch.cuda.synchronize()
     assert ks.spmv_fused_launches == before + 1
+    assert ks.spmv_last_plan == plan
     assert_close(acc, want_acc, scale)
-    spec = ks._EPILOGUES[ep]
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -407,6 +465,7 @@ FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
     "non-causal": (2, 80, 80, 2, 1, 16, 16, False),
     "ragged": (1, 33, 33, 2, 2, 8, 8, True),
     "sq-lt-sk": (1, 50, 70, 2, 2, 16, 16, True),
+    "sq-gt-sk": (1, 70, 50, 2, 2, 16, 16, True),   # rows past Sk see all
     "dh128-gqa": (1, 200, 200, 2, 4, 128, 128, True),
     "dh96-dv64": (2, 130, 130, 2, 2, 96, 64, False),
     "odd-dims": (1, 45, 45, 2, 2, 20, 13, True),   # no 16-byte rows
@@ -455,7 +514,8 @@ def test_flash_kernel_matches_plain(card, shape, dtype):
 
 # The wgmma body's shapes: b, sq, sk, kv, g, d, causal.  Ragged S with
 # B >= 2 (a tile that crossed a batch would read the next one's rows),
-# chatglm3's GQA (G = 16), non-causal, Sq < Sk.
+# chatglm3's GQA (G = 16), non-causal, Sq < Sk, and Sq > Sk (causal rows
+# past Sk see every key: q and k both count from 0).
 WGMMA_SHAPES = {
     "d64-s130": (2, 130, 130, 2, 1, 64, True),
     "d128-s130": (2, 130, 130, 2, 2, 128, True),
@@ -466,6 +526,8 @@ WGMMA_SHAPES = {
     "d128-non-causal": (2, 300, 300, 2, 1, 128, False),
     "d64-sq-lt-sk": (2, 200, 333, 2, 2, 64, True),
     "d128-sq-lt-sk": (2, 77, 260, 1, 3, 128, True),
+    "d64-sq-gt-sk": (2, 333, 200, 2, 2, 64, True),
+    "d128-sq-gt-sk": (1, 260, 77, 1, 3, 128, True),
     "d64-one-row": (3, 1, 1, 2, 1, 64, True),
 }
 
