@@ -82,6 +82,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -94,6 +98,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 // (tile, sublane) row) each thread loads before it applies them.
 constexpr int kSpmvThreads = 512;
 constexpr int kSpmvUnroll = 2;
+// Stream rows a cluster walks between two of its barriers.
+constexpr int kSpmvStepRows = 2048;
 // The largest dynamic shared memory a block may ask for on sm_90 (227 KB).
 constexpr int kSpmvMaxSmem = 232448;
 
@@ -158,24 +164,31 @@ __device__ __forceinline__ void load_vals<__nv_bfloat16, 4>(
 // whose row lies in the window adds into it, and the block then writes it
 // out once: plain stores when it is the only split, else fp32 reductions.
 // rows = ceil(acc_len / lanes) lane-local rows, cut into `windows` equal
-// windows; the tiles into `splits` equal ranges.
+// windows; the tiles into `splits` equal ranges.  `cluster` consecutive
+// groups form a thread block cluster that walks the same tiles in step
+// (a cluster barrier every kSpmvStepRows stream rows), so that the
+// neighbours' reads of one 128-byte line of a row meet in L2 instead of
+// each fetching it from DRAM.  A cluster's last blocks may own no lane.
 template <typename V, int VEC>
 __global__ void __launch_bounds__(kSpmvThreads)
 spmv_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
             const int32_t* __restrict__ seg, const float* __restrict__ x,
             float* __restrict__ acc, int num_tiles, int sub, int lanes,
             int seg_width, int64_t x_len, int64_t acc_len, int lane_group,
-            int rows, int windows, int splits, const int* ctrl) {
+            int rows, int windows, int splits, int cluster,
+            const int* ctrl) {
   extern __shared__ float4 s_raw[];
   float* s_acc = reinterpret_cast<float*>(s_raw);
   // ctrl (fused solver step only): the loop has stopped, make no pass.
   if (ctrl != nullptr && ctrl[0] == 0) return;
-  const int groups = (lanes + lane_group - 1) / lane_group;
-  const int g = blockIdx.x % groups;
-  const int w = blockIdx.x / groups % windows;
-  const int s = blockIdx.x / groups / windows;
+  cg::cluster_group cl = cg::this_cluster();
+  const int cgroups =
+      ((lanes + lane_group - 1) / lane_group + cluster - 1) / cluster;
+  const int g = blockIdx.x % (cgroups * cluster);
+  const int w = blockIdx.x / (cgroups * cluster) % windows;
+  const int s = blockIdx.x / (cgroups * cluster) / windows;
   const int glo = g * lane_group;
-  const int gw = min(lane_group, lanes - glo);
+  const int gw = max(0, min(lane_group, lanes - glo));
   const int rlo = static_cast<int>(int64_t{rows} * w / windows);
   const int rhi = static_cast<int>(int64_t{rows} * (w + 1) / windows);
   // Lane-major: the window rows of one lane are contiguous, so the random
@@ -186,58 +199,62 @@ spmv_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
   __syncthreads();
 
   // Item k is VEC lanes of stream row (tile, sublane) row0 + k / per_row.
-  const int per_row = gw / VEC;
+  const int per_row = max(gw / VEC, 1);
   const int row0 = static_cast<int>(int64_t{num_tiles} * s / splits) * sub;
   const int row1 =
       static_cast<int>(int64_t{num_tiles} * (s + 1) / splits) * sub;
-  const int items = (row1 - row0) * per_row;
-  for (int k0 = threadIdx.x; k0 < items;
-       k0 += kSpmvThreads * kSpmvUnroll) {
-    uint32_t wd[kSpmvUnroll][VEC];
-    float v[kSpmvUnroll][VEC];
-    int lane[kSpmvUnroll], xseg[kSpmvUnroll];
-    // All of a thread's stream and segment loads in flight together.
+  for (int step = row0; step < row1; step += kSpmvStepRows) {
+    const int step_rows = min(kSpmvStepRows, row1 - step);
+    const int items = gw > 0 ? step_rows * per_row : 0;
+    for (int k0 = threadIdx.x; k0 < items;
+         k0 += kSpmvThreads * kSpmvUnroll) {
+      uint32_t wd[kSpmvUnroll][VEC];
+      float v[kSpmvUnroll][VEC];
+      int lane[kSpmvUnroll], xseg[kSpmvUnroll];
+      // All of a thread's stream and segment loads in flight together.
 #pragma unroll
-    for (int u = 0; u < kSpmvUnroll; ++u) {
-      const int k = k0 + u * kSpmvThreads;
-      lane[u] = -1;
-      xseg[u] = 0;
+      for (int u = 0; u < kSpmvUnroll; ++u) {
+        const int k = k0 + u * kSpmvThreads;
+        lane[u] = -1;
+        xseg[u] = 0;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) wd[u][e] = 0xFFFFFFFFu;
-      if (k < items) {
-        const int q = k / per_row;
-        const int r = row0 + q;
-        lane[u] = glo + (k - q * per_row) * VEC;
-        const int64_t off = int64_t{r} * lanes + lane[u];
-        load_words<VEC>(idx + off, wd[u]);
-        load_vals<V, VEC>(val + off, v[u]);
-        xseg[u] = seg[r / sub];
+        for (int e = 0; e < VEC; ++e) wd[u][e] = 0xFFFFFFFFu;
+        if (k < items) {
+          const int q = k / per_row;
+          const int r = step + q;
+          lane[u] = glo + (k - q * per_row) * VEC;
+          const int64_t off = int64_t{r} * lanes + lane[u];
+          load_words<VEC>(idx + off, wd[u]);
+          load_vals<V, VEC>(val + off, v[u]);
+          xseg[u] = seg[r / sub];
+        }
       }
-    }
-    // Decode (unsigned: a live row 0xFFFF packs negative), then all the
-    // x gathers, then the shared-memory reductions.
-    int dst[kSpmvUnroll][VEC];
-    float xv[kSpmvUnroll][VEC];
+      // Decode (unsigned: a live row 0xFFFF packs negative), then all the
+      // x gathers, then the shared-memory reductions.
+      int dst[kSpmvUnroll][VEC];
+      float xv[kSpmvUnroll][VEC];
 #pragma unroll
-    for (int u = 0; u < kSpmvUnroll; ++u) {
+      for (int u = 0; u < kSpmvUnroll; ++u) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const uint32_t word = wd[u][e];
-        const int row = static_cast<int>(word >> 16);
-        const int64_t col =
-            int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
-        const bool live = lane[u] >= 0 && word != 0xFFFFFFFFu &&
-                          row >= rlo && row < rhi && col < x_len;
-        dst[u][e] = live ? (lane[u] - glo + e) * wrows + row - rlo : -1;
-        xv[u][e] = live ? __ldg(x + col) : 0.f;
+        for (int e = 0; e < VEC; ++e) {
+          const uint32_t word = wd[u][e];
+          const int row = static_cast<int>(word >> 16);
+          const int64_t col =
+              int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
+          const bool live = lane[u] >= 0 && word != 0xFFFFFFFFu &&
+                            row >= rlo && row < rhi && col < x_len;
+          dst[u][e] = live ? (lane[u] - glo + e) * wrows + row - rlo : -1;
+          xv[u][e] = live ? __ldg(x + col) : 0.f;
+        }
       }
+#pragma unroll
+      for (int u = 0; u < kSpmvUnroll; ++u)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (dst[u][e] >= 0)
+            atomicAdd(s_acc + dst[u][e], v[u][e] * xv[u][e]);
     }
-#pragma unroll
-    for (int u = 0; u < kSpmvUnroll; ++u)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        if (dst[u][e] >= 0)
-          atomicAdd(s_acc + dst[u][e], v[u][e] * xv[u][e]);
+    if (cluster > 1) cl.sync();
   }
   __syncthreads();
 
@@ -522,7 +539,8 @@ struct SpmvGeo {
   int64_t num_tiles;
   int sub, lanes, seg_width;
   int64_t x_len, acc_len;
-  int lane_group, windows, splits, vec, feed;  // feed: 0 loads, 1 TMA
+  int lane_group, windows, splits, cluster, vec;
+  int feed;  // 0 the load loop, 1 TMA
   // Derived by spmv_geo_check: lane-local rows, blocks, the accumulator's
   // and all the shared bytes.
   int rows, blocks;
@@ -537,11 +555,15 @@ cudaError_t spmv_geo_check(SpmvGeo& g, const void* idx, const void* val,
   if (g.sub < 1 || g.lanes < 1 || g.num_tiles < 0 || g.acc_len < 0 ||
       g.lane_group < 1 || g.lane_group > g.lanes || g.windows < 1 ||
       g.splits < 1 || (g.vec != 1 && g.vec != 4) ||
+      (g.cluster != 1 && g.cluster != 2 && g.cluster != 4 &&
+       g.cluster != 8) ||
+      (g.feed == 1 && g.cluster != 1) ||
       g.num_tiles * g.sub * g.lanes > kMax)
     return cudaErrorInvalidValue;
   const int64_t rows = g.acc_len > 0 ? (g.acc_len + g.lanes - 1) / g.lanes
                                      : 1;
   const int64_t groups = (g.lanes + g.lane_group - 1) / g.lane_group;
+  const int64_t clustered = (groups + g.cluster - 1) / g.cluster * g.cluster;
   const int64_t acc_bytes = int64_t{g.lane_group} *
                             ((rows + g.windows - 1) / g.windows) * 4;
   int64_t smem = acc_bytes;
@@ -560,7 +582,7 @@ cudaError_t spmv_geo_check(SpmvGeo& g, const void* idx, const void* val,
   } else if (g.feed != 0) {
     return cudaErrorInvalidValue;
   }
-  const int64_t blocks = groups * g.windows * g.splits;
+  const int64_t blocks = clustered * g.windows * g.splits;
   if (g.windows > rows || smem > kSpmvMaxSmem || blocks > kMax)
     return cudaErrorInvalidValue;
   if (g.feed == 0 && g.vec == 4) {
@@ -602,14 +624,28 @@ cudaError_t launch_spmv_t(const SpmvGeo& g, const void* idx, const void* val,
                           const void* seg, const void* x, void* acc,
                           const int* ctrl, cudaStream_t st) {
   static int carveout = -1;
-  const cudaError_t err = prepare_spmv(spmv_kernel<V, VEC>, g.smem, carveout);
+  cudaError_t err = prepare_spmv(spmv_kernel<V, VEC>, g.smem, carveout);
   if (err != cudaSuccess) return err;
-  spmv_kernel<V, VEC><<<g.blocks, kSpmvThreads, g.smem, st>>>(
-      static_cast<const int32_t*>(idx), static_cast<const V*>(val),
-      static_cast<const int32_t*>(seg), static_cast<const float*>(x),
-      static_cast<float*>(acc), static_cast<int>(g.num_tiles), g.sub,
-      g.lanes, g.seg_width, g.x_len, g.acc_len, g.lane_group, g.rows,
-      g.windows, g.splits, ctrl);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(g.blocks));
+  cfg.blockDim = dim3(kSpmvThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(g.smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(g.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, spmv_kernel<V, VEC>, static_cast<const int32_t*>(idx),
+      static_cast<const V*>(val), static_cast<const int32_t*>(seg),
+      static_cast<const float*>(x), static_cast<float*>(acc),
+      static_cast<int>(g.num_tiles), g.sub, g.lanes, g.seg_width, g.x_len,
+      g.acc_len, g.lane_group, g.rows, g.windows, g.splits, g.cluster,
+      static_cast<const int*>(ctrl));
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1027,10 +1063,10 @@ extern "C" int serpens_spmv(const void* idx, const void* val, const void* seg,
                             const void* x, void* acc, int64_t num_tiles,
                             int sub, int lanes, int seg_width, int64_t x_len,
                             int64_t acc_len, int value_bf16, int lane_group,
-                            int windows, int splits, int vec, int feed,
-                            void* stream) {
-  SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len,
-            lane_group, windows, splits, vec, feed, 0, 0, 0, 0};
+                            int windows, int splits, int cluster, int vec,
+                            int feed, void* stream) {
+  SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len, lane_group,
+            windows, splits, cluster, vec, feed, 0, 0, 0, 0};
   cudaError_t err = spmv_geo_check(g, idx, val, acc, value_bf16);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_spmv(g, value_bf16, idx, val, seg, x, acc,
@@ -1082,12 +1118,12 @@ extern "C" int serpens_spmv_fused(
     int epilogue, const void* idx, const void* val, const void* seg,
     const void* x, void* acc, int64_t num_tiles, int sub, int lanes,
     int seg_width, int64_t x_len, int64_t acc_len, int value_bf16,
-    int lane_group, int windows, int splits, int vec, int feed, void* e0,
-    void* e1, void* e2, void* e3, void* scal, void* part, int nb, void* ctrl,
-    float stop, int max_iters, void* stream) {
+    int lane_group, int windows, int splits, int cluster, int vec, int feed,
+    void* e0, void* e1, void* e2, void* e3, void* scal, void* part, int nb,
+    void* ctrl, float stop, int max_iters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len,
-            lane_group, windows, splits, vec, feed, 0, 0, 0, 0};
+  SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len, lane_group,
+            windows, splits, cluster, vec, feed, 0, 0, 0, 0};
   cudaError_t err = spmv_geo_check(g, idx, val, acc, value_bf16);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (epilogue < kCG || epilogue > kPower)

@@ -62,14 +62,15 @@ def build():
 def _declare(lib) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
-                                 i64, i32, i32, i32, i32, i32, i32, p]
+                                 i64, i32, i32, i32, i32, i32, i32, i32, p]
     lib.serpens_spmv.restype = i32
     lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
                                  i32, i64, i64, i64, i32, p]
     lib.serpens_spmm.restype = i32
     lib.serpens_spmv_fused.argtypes = [
         i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, i32,
-        i32, i32, i32, p, p, p, p, p, p, i32, p, ctypes.c_float, i32, p]
+        i32, i32, i32, i32, p, p, p, p, p, p, i32, p, ctypes.c_float, i32,
+        p]
     lib.serpens_spmv_fused.restype = i32
 
 
@@ -198,16 +199,20 @@ class SpmvPlan:
     lanes)``) are the geometry; ``lane_group`` lanes per block (the last
     group may be partial); ``windows``, the ``(lo, hi)`` lane-local rows of
     each window, equal cuts of ``rows``; ``splits`` equal ranges of tiles
-    per cell; ``feed``, how the stream reaches the block: ``"tma"`` (a
-    ring of boxes loaded by TMA) or ``"loads"`` (each thread loads ``vec``
-    lanes, 4 or 1, at a time); ``smem_bytes`` the dynamic shared memory a
-    block asks for.
+    per cell; ``cluster`` consecutive groups (1, 2, 4 or 8) form a thread
+    block cluster that walks the same tiles in step, so that their reads
+    of one 128-byte line of a stream row meet in L2; ``feed``, how the
+    stream reaches a
+    block: ``"loads"`` (each thread loads ``vec`` lanes, 4 or 1, at a
+    time) or ``"tma"`` (a ring of boxes loaded by TMA, clusters of 1);
+    ``smem_bytes`` the dynamic shared memory a block asks for.
     """
     lanes: int
     rows: int
     lane_group: int
     windows: tuple
     splits: int
+    cluster: int
     vec: int
     feed: str
     smem_bytes: int
@@ -221,32 +226,47 @@ class SpmvPlan:
 
     @property
     def blocks(self) -> int:
-        return len(self.groups) * len(self.windows) * self.splits
+        """Blocks launched: the groups, padded to whole clusters (the
+        padding blocks own no lane but read their part of the tiles), per
+        window and split."""
+        clustered = -(-len(self.groups) // self.cluster) * self.cluster
+        return clustered * len(self.windows) * self.splits
 
     def tile_ranges(self, num_tiles: int) -> tuple:
         """The ``(first, end)`` tiles of each split."""
         return _ranges(num_tiles, self.splits)
 
 
+def _cluster_of(lanes: int, lane_group: int) -> int:
+    """Groups a cluster takes: the most (a power of two up to 8) whose
+    lanes fit one 128-byte line of idx a row (32 lanes), and no more
+    groups than there are."""
+    groups = -(-lanes // lane_group)
+    c = 1
+    while c < 8 and 2 * c * lane_group <= 32 and 2 * c <= groups:
+        c *= 2
+    return c
+
+
 def spmv_plan_of(lanes: int, num_rows_padded: int, lane_group: int,
                  windows: int, splits: int, vec: int | None = None,
-                 feed: str | None = None) -> SpmvPlan:
-    """The :class:`SpmvPlan` of these counts (equal windows).  ``feed`` is
-    ``"tma"`` where TMA can read the stream (``lanes`` a multiple of 4, a
-    box of at most 256 lanes), else ``"loads"``, unless given; ``vec``
-    is 4 where the groups allow 16-byte loads (``lane_group`` and
-    ``lanes`` multiples of 4), unless given."""
+                 feed: str = "loads", cluster: int | None = None
+                 ) -> SpmvPlan:
+    """The :class:`SpmvPlan` of these counts (equal windows).  ``vec`` is
+    4 where the groups allow 16-byte loads (``lane_group`` and ``lanes``
+    multiples of 4), unless given; ``cluster`` follows the groups (see
+    :func:`spmv_plan`) under the load loop and is 1 under TMA, unless
+    given."""
     rows = max(1, -(-num_rows_padded // lanes))
     if vec is None:
         vec = 4 if lane_group % 4 == 0 and lanes % 4 == 0 else 1
-    if feed is None:
-        feed = ("tma" if lanes % 4 == 0 and _tma_box_lanes(lane_group) <= 256
-                else "loads")
+    if cluster is None:
+        cluster = _cluster_of(lanes, lane_group) if feed == "loads" else 1
     acc = lane_group * -(-rows // windows) * 4
     smem = (-(-acc // 128) * 128 + _tma_ring_bytes(lane_group)
             if feed == "tma" else acc)
     return SpmvPlan(lanes, rows, lane_group, _ranges(rows, windows), splits,
-                    vec, feed, smem)
+                    cluster, vec, feed, smem)
 
 
 def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
@@ -255,26 +275,26 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
     tiles into ``num_rows_padded`` rows, on a card whose blocks may use
     ``smem_bytes`` of shared memory and that has ``sms`` SMs.
 
-    The stream is fed by TMA where it can be (``lanes`` a multiple of 4
-    and a stream to read), which reserves its ring's bytes.  The lane
-    group is the largest whose accumulator (``lane_group × rows`` fp32)
-    fits in the rest, rounded down to a multiple of 8 (8 lanes' idx are
-    one 32-byte sector) or else of 4 (16-byte loads), unless it takes
-    every lane; it is at most ``lanes``.  When not even one lane's rows
-    fit (lane-local rows go up to 65,536, 256 KB), the group is one lane
-    and its rows are cut into the fewest equal windows that fit, each one
-    more read of the lane's stream.  Splits share each (group, window)
-    cell's tiles so that the blocks number about one per SM.  A stream of
-    2^31 slots or more is refused (the kernel counts slots in 32 bits).
+    The lane group is the largest whose accumulator (``lane_group × rows``
+    fp32) fits in ``smem_bytes``, rounded down to a multiple of 8 (8
+    lanes' idx are one 32-byte sector) or else of 4 (16-byte loads),
+    unless it takes every lane; it is at most ``lanes``.  When not even
+    one lane's rows fit (lane-local rows go up to 65,536, 256 KB), the
+    group is one lane and its rows are cut into the fewest equal windows
+    that fit, each one more read of the lane's stream.  Groups of fewer
+    than 32 lanes walk the stream in step in clusters of up to 8 groups,
+    so that a cluster's reads of a row cover whole 128-byte lines.
+    Splits share each (group, window) cell's tiles so that the blocks
+    number about one per SM.  A
+    stream of 2^31 slots or more is refused (the kernel counts slots in
+    32 bits).
     """
     if num_tiles * sub * lanes >= 1 << 31:
         raise ValueError(f"a stream of {num_tiles} x {sub} x {lanes} slots "
                          f"has 2^31 or more")
     rows = max(1, -(-num_rows_padded // lanes))
-    tma = lanes % 4 == 0 and num_tiles > 0
-    # The largest ring (8 KB a stage) and the accumulator's alignment.
-    floats = (smem_bytes - (_tma_ring_bytes(4) + 127 if tma else 0)) // 4
-    fit = min(lanes, 256 if tma else lanes, floats // rows)
+    floats = smem_bytes // 4
+    fit = min(lanes, floats // rows)
     if fit >= 1:
         lg = fit
         if fit < lanes:
@@ -282,10 +302,11 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
         windows = 1
     else:
         lg, windows = 1, -(-rows // floats)
-    cells = -(-lanes // lg) * windows
+    cluster = _cluster_of(lanes, lg)
+    groups = -(-lanes // lg)
+    cells = -(-groups // cluster) * cluster * windows
     splits = max(1, min(num_tiles, sms // cells))
-    return spmv_plan_of(lanes, num_rows_padded, lg, windows, splits,
-                        feed="tma" if tma else "loads")
+    return spmv_plan_of(lanes, num_rows_padded, lg, windows, splits)
 
 
 def _card_spmv_plan(idx, val, num_rows_padded: int) -> SpmvPlan:
@@ -295,14 +316,8 @@ def _card_spmv_plan(idx, val, num_rows_padded: int) -> SpmvPlan:
     sms = torch.cuda.get_device_properties(idx.device).multi_processor_count
     plan = spmv_plan(num_tiles, sub, lanes, num_rows_padded, SMEM_BYTES,
                      sms)
-    bf16 = val.dtype == torch.bfloat16
-    aligned = idx.data_ptr() % 16 == 0
-    if plan.feed == "tma" and not (aligned and val.data_ptr() % 16 == 0
-                                   and lanes % (8 if bf16 else 4) == 0):
-        plan = spmv_plan_of(lanes, num_rows_padded, plan.lane_group,
-                            len(plan.windows), plan.splits, feed="loads")
-    if plan.vec == 4 and not (aligned and
-                              val.data_ptr() % (4 * val.element_size()) == 0):
+    if plan.vec == 4 and (idx.data_ptr() % 16
+                          or val.data_ptr() % (4 * val.element_size())):
         plan = dataclasses.replace(plan, vec=1)
     return plan
 
@@ -324,7 +339,7 @@ def _spmv_args(idx, val, seg_ids, x, plan: SpmvPlan, acc, segment_width):
             x.data_ptr(), acc.data_ptr(), num_tiles, sub, lanes,
             segment_width, x.shape[0], acc.numel(),
             int(val.dtype == torch.bfloat16), plan.lane_group,
-            len(plan.windows), plan.splits, plan.vec,
+            len(plan.windows), plan.splits, plan.cluster, plan.vec,
             int(plan.feed == "tma"))
 
 

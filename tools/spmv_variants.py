@@ -21,9 +21,10 @@ only.
 Entries: ``planned`` (:func:`spmv` as the server calls it); each variant
 on its plan; the committed source on other plans (``PLANS``: both feeds,
 TMA and the load loop, at lane groups of 1 to 8 with the windows they
-need and other split counts); and, with ``--parent DIR`` (an unpacked tree of an
-earlier commit whose ``serpens_spmv`` entry takes a grid of 128-thread
-blocks, one thread per lane), that tree's body, built from its source.
+need, other split counts and cluster sizes); and, with ``--parent DIR``
+(an unpacked tree of an earlier commit whose ``serpens_spmv`` entry takes
+a grid of 128-thread blocks, one thread per lane), that tree's body,
+built from its source.
 The last line is one JSON object of the mean times.  It needs a CUDA card
 and ``nvcc``, and imports nothing of the JAX package.
 """
@@ -54,33 +55,38 @@ OUT = os.path.join(ROOT, "build", "variants")
 ITERS = 50
 
 UNROLL = "constexpr int kSpmvUnroll = 2;"
+STEP = "constexpr int kSpmvStepRows = 2048;"
 TMA_UNROLL = "constexpr int kTmaUnroll = 2;"
 GATHER = "xv[u][e] = live ? __ldg(x + col) : 0.f;"
 TMA_GATHER = "xv[u] = __ldg(x + col);"
-TMA_RED = "if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);"
-LOADS = (4, 1, 4, 1, "loads")   # the load-loop body's best plan at G7
+RED = "atomicAdd(s_acc + dst[u][e], v[u][e] * xv[u][e]);"
+CONST_X = (GATHER, "xv[u][e] = live ? __ldg(x) : 0.f;")
+STORES = (RED, "s_acc[dst[u][e]] = v[u][e] * xv[u][e];")
+# Plans, (lane_group, windows, splits, vec, feed, cluster); None for vec
+# and cluster takes the default.
+TMA = (4, 1, 4, None, "tma", 1)
 # name -> ([(text in the committed source, its replacement)], computes A·x,
 # the plan it runs on: None for the planned one, else a PLANS entry).
 VARIANTS = {
     "built": ([], True, None),
+    "unroll 4": ([(UNROLL, "constexpr int kSpmvUnroll = 4;")], True, None),
+    "step 512 rows": ([(STEP, "constexpr int kSpmvStepRows = 512;")], True,
+                      None),
+    "step 8192 rows": ([(STEP, "constexpr int kSpmvStepRows = 8192;")],
+                       True, None),
     "tma unroll 4": ([(TMA_UNROLL, "constexpr int kTmaUnroll = 4;")], True,
-                     None),
-    "loads unroll 4": ([(UNROLL, "constexpr int kSpmvUnroll = 4;")], True,
-                       LOADS),
+                     TMA),
     # Diagnostics: what the time is made of.
-    "tma, constant x": ([(TMA_GATHER, "xv[u] = __ldg(x);")], False, None),
-    "tma, stores, not reductions": (
-        [(TMA_RED, "if (dst[u] >= 0) s_acc[dst[u]] = v[u] * xv[u];")],
-        False, None),
-    "loads, constant x": ([(GATHER, "xv[u][e] = live ? __ldg(x) : 0.f;")],
-                          False, LOADS),
+    "constant x": ([CONST_X], False, None),
+    "stores, not reductions": ([STORES], False, None),
+    "constant x, stores": ([CONST_X, STORES], False, None),
+    "tma, constant x": ([(TMA_GATHER, "xv[u] = __ldg(x);")], False, TMA),
 }
-# Plans of the committed source: (lane_group, windows, splits, vec, feed);
-# None for vec takes 4 where the group allows it.
-PLANS = [(1, 1, 1, None, "tma"), (2, 1, 2, None, "tma"),
-         (3, 1, 3, None, "tma"), (4, 1, 2, None, "tma"),
-         (8, 2, 4, None, "tma"), LOADS, (2, 1, 2, None, "loads"),
-         (3, 1, 3, None, "loads")]
+PLANS = [TMA, (4, 1, 4, None, "loads", 1), (4, 1, 4, None, "loads", 2),
+         (4, 1, 4, None, "loads", 4), (4, 1, 4, 1, "loads", None),
+         (4, 1, 2, None, "loads", None), (4, 1, 8, None, "loads", None),
+         (2, 1, 2, None, "loads", None), (8, 2, 4, None, "loads", None),
+         (1, 1, 1, None, "loads", None)]
 
 
 def variant_source(edits) -> str:
@@ -218,8 +224,9 @@ def main() -> int:
     checked = {"planned": True, "planned, bf16 stream": True}
     labels = {"planned": str(sp), "planned, bf16 stream": str(sp)}
     def plan_of(entry):
-        lg, windows, splits, vec, feed = entry
-        return ks.spmv_plan_of(lanes, rp, lg, windows, splits, vec, feed)
+        lg, windows, splits, vec, feed, cluster = entry
+        return ks.spmv_plan_of(lanes, rp, lg, windows, splits, vec, feed,
+                               cluster)
 
     for name, (_, ok, entry) in VARIANTS.items():
         p = sp if entry is None else plan_of(entry)
@@ -229,7 +236,8 @@ def main() -> int:
     for entry in PLANS:
         p = plan_of(entry)
         name = (f"{p.feed}: lg {p.lane_group}, {len(p.windows)} window(s), "
-                f"{p.splits} split(s)" + (f", vec {p.vec}"
+                f"{p.splits} split(s)" + (f", vec {p.vec}, cluster "
+                                          f"{p.cluster}"
                                           if p.feed == "loads" else ""))
         fns[name] = (lambda p=p: run_plan(libs["built"], idx, val, seg, x,
                                           geo, p))
