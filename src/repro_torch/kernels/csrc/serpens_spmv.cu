@@ -77,14 +77,9 @@
 // epilogue passes re-read the state (a few MB at G7), which the fused TPU
 // kernel kept in VMEM.
 
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda at link time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <cooperative_groups.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -94,308 +89,60 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 // -- SpMV: the stream pass --------------------------------------------------
-// Threads of a stream-pass block, and the items (VEC lanes of one
-// (tile, sublane) row) each thread loads before it applies them.
+// Threads of a stream-pass block, and the slots each thread loads before it
+// applies them.
 constexpr int kSpmvThreads = 512;
-constexpr int kSpmvUnroll = 2;
-// Stream rows a cluster walks between two of its barriers.
-constexpr int kSpmvStepRows = 2048;
+constexpr int kSpmvUnroll = 4;
 // The largest dynamic shared memory a block may ask for on sm_90 (227 KB).
 constexpr int kSpmvMaxSmem = 232448;
+// Stream rows a block walks between two L2 prefetches, and how many such
+// steps ahead of itself it prefetches (0: none).  Each step is prefetched
+// by the blocks of kSpmvPrefetchers groups' residue class only.
+constexpr int kSpmvStepRows = 512;
+constexpr int kSpmvPrefetchSteps = 8;
+constexpr int kSpmvPrefetchers = 8;
 
 // Stream loads skip L1 (L1::no_allocate), which keeps the x segment.
-template <int VEC>
-__device__ __forceinline__ void load_words(const int32_t* p,
-                                           uint32_t (&w)[VEC]);
-template <>
-__device__ __forceinline__ void load_words<1>(const int32_t* p,
-                                              uint32_t (&w)[1]) {
-  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(w[0]) : "l"(p));
+__device__ __forceinline__ uint32_t load_word(const int32_t* p) {
+  uint32_t w;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(w) : "l"(p));
+  return w;
 }
-template <>
-__device__ __forceinline__ void load_words<4>(const int32_t* p,
-                                              uint32_t (&w)[4]) {
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-      : "l"(p));
+__device__ __forceinline__ float load_val(const float* p) {
+  return __uint_as_float(load_word(reinterpret_cast<const int32_t*>(p)));
 }
-
-// VEC values as fp32 (bf16 is the high half of an fp32).
-template <typename V, int VEC>
-__device__ __forceinline__ void load_vals(const V* p, float (&v)[VEC]);
-template <>
-__device__ __forceinline__ void load_vals<float, 1>(const float* p,
-                                                    float (&v)[1]) {
-  uint32_t w[1];
-  load_words<1>(reinterpret_cast<const int32_t*>(p), w);
-  v[0] = __uint_as_float(w[0]);
-}
-template <>
-__device__ __forceinline__ void load_vals<float, 4>(const float* p,
-                                                    float (&v)[4]) {
-  uint32_t w[4];
-  load_words<4>(reinterpret_cast<const int32_t*>(p), w);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(w[e]);
-}
-template <>
-__device__ __forceinline__ void load_vals<__nv_bfloat16, 1>(
-    const __nv_bfloat16* p, float (&v)[1]) {
+__device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
   unsigned short h;
   asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n" : "=h"(h) : "l"(p));
-  v[0] = __uint_as_float(static_cast<uint32_t>(h) << 16);
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
 }
-template <>
-__device__ __forceinline__ void load_vals<__nv_bfloat16, 4>(
-    const __nv_bfloat16* p, float (&v)[4]) {
-  uint32_t w0, w1;
-  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
-      : "=r"(w0), "=r"(w1)
-      : "l"(p));
-  v[0] = __uint_as_float(w0 << 16);
-  v[1] = __uint_as_float(w0 & 0xFFFF0000u);
-  v[2] = __uint_as_float(w1 << 16);
-  v[3] = __uint_as_float(w1 & 0xFFFF0000u);
+
+// Brings `bytes` (a multiple of 16, 16-byte aligned) into L2 without
+// waiting: the copy engine reads whole lines from DRAM, so the blocks'
+// narrow loads of those rows then hit L2.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
+               "r"(bytes)
+               : "memory");
 }
 
 // One block per (lane group, row window, split): lanes [glo, glo + gw),
 // lane-local rows [rlo, rhi) and tiles [t0, t1).  The block's accumulator,
-// (rhi - rlo) x gw fp32, lives in shared memory; every slot of its lanes
-// whose row lies in the window adds into it, and the block then writes it
-// out once: plain stores when it is the only split, else fp32 reductions.
-// rows = ceil(acc_len / lanes) lane-local rows, cut into `windows` equal
-// windows; the tiles into `splits` equal ranges.  `cluster` consecutive
-// groups form a thread block cluster that walks the same tiles in step
-// (a cluster barrier every kSpmvStepRows stream rows), so that the
-// neighbours' reads of one 128-byte line of a row meet in L2 instead of
-// each fetching it from DRAM.  A cluster's last blocks may own no lane.
-template <typename V, int VEC>
+// (rhi - rlo) x gw fp32 with each lane's rows contiguous, lives in shared
+// memory; every slot of its lanes whose row lies in the window adds into
+// it, and the block then writes it out once: plain stores when it is the
+// only split, else fp32 reductions.  rows = ceil(acc_len / lanes)
+// lane-local rows, cut into `windows` equal windows; the tiles into
+// `splits` equal ranges.
+template <typename V>
 __global__ void __launch_bounds__(kSpmvThreads)
 spmv_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
             const int32_t* __restrict__ seg, const float* __restrict__ x,
             float* __restrict__ acc, int num_tiles, int sub, int lanes,
             int seg_width, int64_t x_len, int64_t acc_len, int lane_group,
-            int rows, int windows, int splits, int cluster,
-            const int* ctrl) {
-  extern __shared__ float4 s_raw[];
-  float* s_acc = reinterpret_cast<float*>(s_raw);
+            int rows, int windows, int splits, const int* ctrl) {
+  extern __shared__ float s_acc[];
   // ctrl (fused solver step only): the loop has stopped, make no pass.
-  if (ctrl != nullptr && ctrl[0] == 0) return;
-  cg::cluster_group cl = cg::this_cluster();
-  const int cgroups =
-      ((lanes + lane_group - 1) / lane_group + cluster - 1) / cluster;
-  const int g = blockIdx.x % (cgroups * cluster);
-  const int w = blockIdx.x / (cgroups * cluster) % windows;
-  const int s = blockIdx.x / (cgroups * cluster) / windows;
-  const int glo = g * lane_group;
-  const int gw = max(0, min(lane_group, lanes - glo));
-  const int rlo = static_cast<int>(int64_t{rows} * w / windows);
-  const int rhi = static_cast<int>(int64_t{rows} * (w + 1) / windows);
-  // Lane-major: the window rows of one lane are contiguous, so the random
-  // rows of a warp's reductions spread over all 32 banks.
-  const int wrows = rhi - rlo;
-  const int n_acc = wrows * gw;
-  for (int i = threadIdx.x; i < n_acc; i += kSpmvThreads) s_acc[i] = 0.f;
-  __syncthreads();
-
-  // Item k is VEC lanes of stream row (tile, sublane) row0 + k / per_row.
-  const int per_row = max(gw / VEC, 1);
-  const int row0 = static_cast<int>(int64_t{num_tiles} * s / splits) * sub;
-  const int row1 =
-      static_cast<int>(int64_t{num_tiles} * (s + 1) / splits) * sub;
-  for (int step = row0; step < row1; step += kSpmvStepRows) {
-    const int step_rows = min(kSpmvStepRows, row1 - step);
-    const int items = gw > 0 ? step_rows * per_row : 0;
-    for (int k0 = threadIdx.x; k0 < items;
-         k0 += kSpmvThreads * kSpmvUnroll) {
-      uint32_t wd[kSpmvUnroll][VEC];
-      float v[kSpmvUnroll][VEC];
-      int lane[kSpmvUnroll], xseg[kSpmvUnroll];
-      // All of a thread's stream and segment loads in flight together.
-#pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u) {
-        const int k = k0 + u * kSpmvThreads;
-        lane[u] = -1;
-        xseg[u] = 0;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) wd[u][e] = 0xFFFFFFFFu;
-        if (k < items) {
-          const int q = k / per_row;
-          const int r = step + q;
-          lane[u] = glo + (k - q * per_row) * VEC;
-          const int64_t off = int64_t{r} * lanes + lane[u];
-          load_words<VEC>(idx + off, wd[u]);
-          load_vals<V, VEC>(val + off, v[u]);
-          xseg[u] = seg[r / sub];
-        }
-      }
-      // Decode (unsigned: a live row 0xFFFF packs negative), then all the
-      // x gathers, then the shared-memory reductions.
-      int dst[kSpmvUnroll][VEC];
-      float xv[kSpmvUnroll][VEC];
-#pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u) {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          const uint32_t word = wd[u][e];
-          const int row = static_cast<int>(word >> 16);
-          const int64_t col =
-              int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
-          const bool live = lane[u] >= 0 && word != 0xFFFFFFFFu &&
-                            row >= rlo && row < rhi && col < x_len;
-          dst[u][e] = live ? (lane[u] - glo + e) * wrows + row - rlo : -1;
-          xv[u][e] = live ? __ldg(x + col) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u)
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          if (dst[u][e] >= 0)
-            atomicAdd(s_acc + dst[u][e], v[u][e] * xv[u][e]);
-    }
-    if (cluster > 1) cl.sync();
-  }
-  __syncthreads();
-
-  // Write the window out: VEC lanes of one row at a time (contiguous in
-  // acc); elements at or past acc_len are dropped.
-  for (int i = threadIdx.x * VEC; i < n_acc; i += kSpmvThreads * VEC) {
-    const int q = i / gw;
-    const int l = i - q * gw;
-    const int64_t d = int64_t{rlo + q} * lanes + glo + l;
-    float a[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) a[e] = s_acc[(l + e) * wrows + q];
-    if (VEC == 4 && d + 4 <= acc_len) {
-      const float4 a4 = make_float4(a[0], a[VEC > 1 ? 1 : 0],
-                                   a[VEC > 2 ? 2 : 0], a[VEC > 3 ? 3 : 0]);
-      if (splits == 1)
-        *reinterpret_cast<float4*>(acc + d) = a4;
-      else
-        atomicAdd(reinterpret_cast<float4*>(acc + d), a4);
-      continue;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      if (d + e >= acc_len) break;
-      if (splits == 1)
-        acc[d + e] = a[e];
-      else
-        atomicAdd(acc + d + e, a[e]);
-    }
-  }
-}
-
-// -- SpMV: the stream pass fed by TMA ----------------------------------------
-// The same cells, but one producer warp keeps a ring of stream boxes full
-// with TMA (a 2-D tensor map over (tiles * sub, lanes) rows of idx and of
-// values; a box is the group's lanes, from a 16-byte boundary and rounded
-// up to 16 bytes, by up to 256 rows) and the consumer warps read the box
-// from shared memory.  The
-// threads then hold no stream load in flight: TMA's requests do not wait
-// in L1, which leaves L1 to the x gathers.
-constexpr int kTmaStages = 3;
-constexpr int kTmaSlots = 1024;                 // idx words per box
-constexpr int kTmaConsumers = kSpmvThreads;
-constexpr int kTmaThreads = kTmaConsumers + 32;  // + the producer warp
-constexpr int kTmaUnroll = 2;
-
-// A box starts at a 16-byte boundary (a box that starts between two makes
-// the copy fail), so it spans the group's lanes from the boundary at or
-// below its first lane: q elements a 16-byte unit and groups of lg lanes
-// start up to q - gcd(lg, q) elements past a boundary.
-__host__ __device__ inline int gcd_int(int a, int b) {
-  while (b) {
-    const int t = a % b;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-__host__ __device__ inline int tma_box_lanes(int lane_group, int q) {
-  return (lane_group + q - gcd_int(lane_group, q) + q - 1) / q * q;
-}
-// Rows of a box (at most kTmaSlots idx words, at most 256 rows) and a ring
-// stage's bytes: the idx box, then as many bytes for the value box (which
-// never needs more: see spmv_geo_check).
-__host__ __device__ inline int tma_box_rows(int lane_group) {
-  const int r = kTmaSlots / tma_box_lanes(lane_group, 4);
-  return r < 256 ? r : 256;
-}
-__host__ __device__ inline int tma_stage_bytes(int lane_group) {
-  return tma_box_rows(lane_group) * tma_box_lanes(lane_group, 4) * 8;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Arrives on `bar` and adds `bytes` to the transaction count it awaits.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the phase of `bar` with this parity to complete.  A wait past
-// any real one (2^34 cycles, seconds) traps, so a lost TMA transaction
-// shows as a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-
-// One box of a rank-2 map (c0 innermost) into shared memory; completion
-// counts its bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared memory: the accumulator (acc_bytes, a multiple of 128), the ring
-// of kTmaStages stages, then the full and empty mbarriers of each stage.
-template <typename V>
-__global__ void __launch_bounds__(kTmaThreads)
-spmv_tma_kernel(const __grid_constant__ CUtensorMap idx_map,
-                const __grid_constant__ CUtensorMap val_map,
-                const int32_t* __restrict__ seg, const float* __restrict__ x,
-                float* __restrict__ acc, int num_tiles, int sub, int lanes,
-                int seg_width, int64_t x_len, int64_t acc_len, int lane_group,
-                int rows, int windows, int splits, int acc_bytes,
-                const int* ctrl) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* s_acc = reinterpret_cast<float*>(smem);
   if (ctrl != nullptr && ctrl[0] == 0) return;
   const int groups = (lanes + lane_group - 1) / lane_group;
   const int g = blockIdx.x % groups;
@@ -405,96 +152,81 @@ spmv_tma_kernel(const __grid_constant__ CUtensorMap idx_map,
   const int gw = min(lane_group, lanes - glo);
   const int rlo = static_cast<int>(int64_t{rows} * w / windows);
   const int rhi = static_cast<int>(int64_t{rows} * (w + 1) / windows);
+  // Lane-major: the window rows of one lane are contiguous, so the random
+  // rows of a warp's reductions spread over all 32 banks.
   const int wrows = rhi - rlo;
   const int n_acc = wrows * gw;
-  constexpr int kValQ = 16 / static_cast<int>(sizeof(V));
-  const int bl = tma_box_lanes(lane_group, 4);
-  const int blv = tma_box_lanes(lane_group, kValQ);
-  const int lo_i = glo / 4 * 4;           // the boxes' first lanes
-  const int lo_v = glo / kValQ * kValQ;
-  const int box_rows = tma_box_rows(lane_group);
-  const int stage_bytes = tma_stage_bytes(lane_group);
-  unsigned char* ring = smem + acc_bytes;
-  const uint32_t bars = smem_u32(ring + kTmaStages * stage_bytes);
+  for (int i = threadIdx.x; i < n_acc; i += kSpmvThreads) s_acc[i] = 0.f;
+  __syncthreads();
+
   const int row0 = static_cast<int>(int64_t{num_tiles} * s / splits) * sub;
   const int row1 =
       static_cast<int>(int64_t{num_tiles} * (s + 1) / splits) * sub;
-  const int chunks = (row1 - row0 + box_rows - 1) / box_rows;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kTmaStages; ++st) {
-      mbar_init(bars + 8 * st, 1);
-      mbar_init(bars + 8 * (kTmaStages + st), kTmaConsumers / 32);
+  // A bulk prefetch takes 16-byte aligned whole rows: lanes a multiple of
+  // 4 (8 for bf16 values) and aligned bases; other streams take none.
+  const bool prefetch =
+      kSpmvPrefetchSteps > 0 &&
+      lanes % (16 / static_cast<int>(sizeof(V))) == 0 &&
+      reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(val) % 16 == 0;
+  for (int step = row0; step < row1; step += kSpmvStepRows) {
+    const int ahead = step + kSpmvPrefetchSteps * kSpmvStepRows;
+    if (prefetch && threadIdx.x == 0 && ahead < row1 &&
+        (ahead / kSpmvStepRows) % kSpmvPrefetchers ==
+            g % kSpmvPrefetchers) {
+      const int n = min(kSpmvStepRows, row1 - ahead);
+      prefetch_l2(idx + int64_t{ahead} * lanes, n * lanes * 4);
+      prefetch_l2(val + int64_t{ahead} * lanes,
+                  n * lanes * static_cast<int>(sizeof(V)));
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  for (int i = threadIdx.x; i < n_acc; i += kTmaThreads) s_acc[i] = 0.f;
-  __syncthreads();
-
-  if (warp == kTmaConsumers / 32) {  // the producer
-    if ((threadIdx.x & 31) == 0) {
-      const uint32_t tx = box_rows * (bl * 4 + blv * sizeof(V));
-      for (int c = 0; c < chunks; ++c) {
-        const int st = c % kTmaStages;
-        if (c >= kTmaStages)
-          mbar_wait(bars + 8 * (kTmaStages + st), (c / kTmaStages - 1) & 1);
-        const uint32_t dst = smem_u32(ring + st * stage_bytes);
-        mbar_expect_tx(bars + 8 * st, tx);
-        tma_load_2d(dst, &idx_map, bars + 8 * st, lo_i, row0 + c * box_rows);
-        tma_load_2d(dst + box_rows * bl * 4, &val_map, bars + 8 * st, lo_v,
-                    row0 + c * box_rows);
-      }
-    }
-    return;
-  }
-
-  const int nslots = box_rows * gw;
-  for (int c = 0; c < chunks; ++c) {
-    const int st = c % kTmaStages;
-    mbar_wait(bars + 8 * st, (c / kTmaStages) & 1);
-    const int32_t* bi =
-        reinterpret_cast<const int32_t*>(ring + st * stage_bytes);
-    const V* bv = reinterpret_cast<const V*>(ring + st * stage_bytes +
-                                             box_rows * bl * 4);
-    const int rbase = row0 + c * box_rows;
-    for (int j0 = threadIdx.x; j0 < nslots;
-         j0 += kTmaConsumers * kTmaUnroll) {
-      int dst[kTmaUnroll];
-      float v[kTmaUnroll], xv[kTmaUnroll];
+    // Item k is lane glo + k % gw of stream row step + k / gw.
+    const int items = min(kSpmvStepRows, row1 - step) * gw;
+    for (int k0 = threadIdx.x; k0 < items;
+         k0 += kSpmvThreads * kSpmvUnroll) {
+      uint32_t wd[kSpmvUnroll];
+      float v[kSpmvUnroll];
+      int lane[kSpmvUnroll], xseg[kSpmvUnroll];
+      // All of a thread's stream and segment loads in flight together.
 #pragma unroll
-      for (int u = 0; u < kTmaUnroll; ++u) {
-        const int j = j0 + u * kTmaConsumers;
-        const int br = j / gw;
-        const int li = j - br * gw;
-        const int r = rbase + br;
-        dst[u] = -1;
-        xv[u] = 0.f;
-        v[u] = 0.f;
-        if (j < nslots && r < row1) {
-          const uint32_t word =
-              static_cast<uint32_t>(bi[br * bl + glo - lo_i + li]);
-          const int row = static_cast<int>(word >> 16);
-          const int64_t col =
-              int64_t{seg[r / sub]} * seg_width + (word & 0xFFFFu);
-          if (word != 0xFFFFFFFFu && row >= rlo && row < rhi &&
-              col < x_len) {
-            dst[u] = li * wrows + row - rlo;
-            v[u] = to_f32(bv[br * blv + glo - lo_v + li]);
-            xv[u] = __ldg(x + col);
-          }
+      for (int u = 0; u < kSpmvUnroll; ++u) {
+        const int k = k0 + u * kSpmvThreads;
+        wd[u] = 0xFFFFFFFFu;
+        lane[u] = 0;
+        xseg[u] = 0;
+        if (k < items) {
+          const int q = k / gw;
+          const int r = step + q;
+          lane[u] = k - q * gw;
+          const int64_t off = int64_t{r} * lanes + glo + lane[u];
+          wd[u] = load_word(idx + off);
+          v[u] = load_val(val + off);
+          xseg[u] = seg[r / sub];
         }
       }
+      // Decode (unsigned: a live row 0xFFFF packs negative), then all the
+      // x gathers, then the shared-memory reductions.
+      int dst[kSpmvUnroll];
+      float xv[kSpmvUnroll];
 #pragma unroll
-      for (int u = 0; u < kTmaUnroll; ++u)
+      for (int u = 0; u < kSpmvUnroll; ++u) {
+        const uint32_t word = wd[u];
+        const int row = static_cast<int>(word >> 16);
+        const int64_t col = int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
+        const bool live = word != 0xFFFFFFFFu && row >= rlo && row < rhi &&
+                          col < x_len;
+        dst[u] = live ? lane[u] * wrows + row - rlo : -1;
+        xv[u] = live ? __ldg(x + col) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kSpmvUnroll; ++u)
         if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);
     }
-    __syncwarp();
-    if ((threadIdx.x & 31) == 0) mbar_arrive(bars + 8 * (kTmaStages + st));
   }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kTmaConsumers) : "memory");
+  __syncthreads();
 
-  // Write the window out, as the load-loop body does (one lane at a time).
-  for (int i = threadIdx.x; i < n_acc; i += kTmaConsumers) {
+  // Write the window out, row by row (a row's lanes are contiguous in
+  // acc); elements at or past acc_len are dropped.
+  for (int i = threadIdx.x; i < n_acc; i += kSpmvThreads) {
     const int q = i / gw;
     const int l = i - q * gw;
     const int64_t d = int64_t{rlo + q} * lanes + glo + l;
@@ -507,211 +239,77 @@ spmv_tma_kernel(const __grid_constant__ CUtensorMap idx_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's
-// entry-point query, so the library links no libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The stream pass's geometry, as the C entries receive it.
 struct SpmvGeo {
   int64_t num_tiles;
   int sub, lanes, seg_width;
   int64_t x_len, acc_len;
-  int lane_group, windows, splits, cluster, vec;
-  int feed;  // 0 the load loop, 1 TMA
-  // Derived by spmv_geo_check: lane-local rows, blocks, the accumulator's
-  // and all the shared bytes.
-  int rows, blocks;
-  int acc_bytes, smem;
+  int lane_group, windows, splits;
+  // Derived by spmv_geo_check: lane-local rows, blocks, shared bytes.
+  int rows, blocks, smem;
 };
 
 // Fills the derived fields; cudaErrorInvalidValue for a geometry the body
 // does not take (the wrapper's plan never gives one).
-cudaError_t spmv_geo_check(SpmvGeo& g, const void* idx, const void* val,
-                           const void* acc, int value_bf16) {
+cudaError_t spmv_geo_check(SpmvGeo& g) {
   const int64_t kMax = (int64_t{1} << 31) - 1;
   if (g.sub < 1 || g.lanes < 1 || g.num_tiles < 0 || g.acc_len < 0 ||
       g.lane_group < 1 || g.lane_group > g.lanes || g.windows < 1 ||
-      g.splits < 1 || (g.vec != 1 && g.vec != 4) ||
-      (g.cluster != 1 && g.cluster != 2 && g.cluster != 4 &&
-       g.cluster != 8) ||
-      (g.feed == 1 && g.cluster != 1) ||
-      g.num_tiles * g.sub * g.lanes > kMax)
+      g.splits < 1 || g.num_tiles * g.sub * g.lanes > kMax)
     return cudaErrorInvalidValue;
   const int64_t rows = g.acc_len > 0 ? (g.acc_len + g.lanes - 1) / g.lanes
                                      : 1;
   const int64_t groups = (g.lanes + g.lane_group - 1) / g.lane_group;
-  const int64_t clustered = (groups + g.cluster - 1) / g.cluster * g.cluster;
-  const int64_t acc_bytes = int64_t{g.lane_group} *
-                            ((rows + g.windows - 1) / g.windows) * 4;
-  int64_t smem = acc_bytes;
-  if (g.feed == 1) {
-    // TMA: 16-byte row strides and bases, boxes of at most 256 lanes whose
-    // values fit the stage; the ring and its mbarriers.
-    const int q = value_bf16 ? 8 : 4;
-    if (g.lanes % q || reinterpret_cast<uintptr_t>(idx) % 16 ||
-        reinterpret_cast<uintptr_t>(val) % 16 ||
-        tma_box_lanes(g.lane_group, 4) > 256 ||
-        tma_box_lanes(g.lane_group, q) * (16 / q) >
-            tma_box_lanes(g.lane_group, 4) * 4)
-      return cudaErrorInvalidValue;
-    smem = (acc_bytes + 127) / 128 * 128 +
-           kTmaStages * tma_stage_bytes(g.lane_group) + 16 * kTmaStages;
-  } else if (g.feed != 0) {
-    return cudaErrorInvalidValue;
-  }
-  const int64_t blocks = clustered * g.windows * g.splits;
+  const int64_t smem = int64_t{g.lane_group} *
+                       ((rows + g.windows - 1) / g.windows) * 4;
+  const int64_t blocks = groups * g.windows * g.splits;
   if (g.windows > rows || smem > kSpmvMaxSmem || blocks > kMax)
     return cudaErrorInvalidValue;
-  if (g.feed == 0 && g.vec == 4) {
-    const uintptr_t val_align = value_bf16 ? 8 : 16;
-    if (g.lane_group % 4 || g.lanes % 4 ||
-        reinterpret_cast<uintptr_t>(idx) % 16 ||
-        reinterpret_cast<uintptr_t>(val) % val_align ||
-        reinterpret_cast<uintptr_t>(acc) % 16)
-      return cudaErrorInvalidValue;
-  }
   g.rows = static_cast<int>(rows);
   g.blocks = static_cast<int>(blocks);
-  g.acc_bytes = static_cast<int>((acc_bytes + 127) / 128 * 128);
   g.smem = static_cast<int>(smem);
   return cudaSuccess;
 }
 
 // When the carve-out a launch needs differs from the last one of this
-// kernel (`carveout`, the caller's): allow the largest shared accumulator
-// and carve out only the shared memory one block needs (and its 1 KB
-// reserve), in percent of the SM's 228 KB.  The rest stays L1, which
-// holds the x segment the block gathers from.
-template <typename K>
-cudaError_t prepare_spmv(K kernel, int smem, int& carveout) {
-  const int pct = static_cast<int>(
-      (int64_t{smem + 1024} * 100 + 233471) / 233472);
-  if (pct == carveout) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpmvMaxSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
-  if (err == cudaSuccess) carveout = pct;
-  return err;
-}
-
-template <typename V, int VEC>
+// kernel: allow the largest shared accumulator and carve out only the
+// shared memory one block needs (and its 1 KB reserve), in percent of the
+// SM's 228 KB.  The rest stays L1, which holds the x segment the block
+// gathers from.
+template <typename V>
 cudaError_t launch_spmv_t(const SpmvGeo& g, const void* idx, const void* val,
                           const void* seg, const void* x, void* acc,
                           const int* ctrl, cudaStream_t st) {
   static int carveout = -1;
-  cudaError_t err = prepare_spmv(spmv_kernel<V, VEC>, g.smem, carveout);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(g.blocks));
-  cfg.blockDim = dim3(kSpmvThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(g.smem);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(g.cluster);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, spmv_kernel<V, VEC>, static_cast<const int32_t*>(idx),
-      static_cast<const V*>(val), static_cast<const int32_t*>(seg),
-      static_cast<const float*>(x), static_cast<float*>(acc),
-      static_cast<int>(g.num_tiles), g.sub, g.lanes, g.seg_width, g.x_len,
-      g.acc_len, g.lane_group, g.rows, g.windows, g.splits, g.cluster,
-      static_cast<const int*>(ctrl));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The TMA body: one 2-D map over idx and one over the values, rows of
-// `lanes` elements, boxes of the group's lanes (rounded up to 16 bytes) by
-// tma_box_rows; lanes past the last and rows past the stream read as 0.
-template <typename V>
-cudaError_t launch_spmv_tma(const SpmvGeo& g, const void* idx,
-                            const void* val, const void* seg, const void* x,
-                            void* acc, const int* ctrl, cudaStream_t st) {
-  static int carveout = -1;
-  cudaError_t err = prepare_spmv(spmv_tma_kernel<V>, g.smem, carveout);
-  if (err != cudaSuccess) return err;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const int vb = static_cast<int>(sizeof(V));
-  const int box_rows = tma_box_rows(g.lane_group);
-  const cuuint32_t boxes[2][2] = {
-      {static_cast<cuuint32_t>(tma_box_lanes(g.lane_group, 4)),
-       static_cast<cuuint32_t>(box_rows)},
-      {static_cast<cuuint32_t>(tma_box_lanes(g.lane_group, 16 / vb)),
-       static_cast<cuuint32_t>(box_rows)}};
-  const CUtensorMapDataType types[2] = {
-      CU_TENSOR_MAP_DATA_TYPE_INT32,
-      vb == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32};
-  void* bases[2] = {const_cast<void*>(idx), const_cast<void*>(val)};
-  const int sizes[2] = {4, vb};
-  CUtensorMap maps[2];
-  for (int i = 0; i < 2; ++i) {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(g.lanes),
-                                static_cast<cuuint64_t>(g.num_tiles * g.sub)};
-    const cuuint64_t stride[1] = {
-        static_cast<cuuint64_t>(g.lanes) * sizes[i]};
-    const cuuint32_t estride[2] = {1, 1};
-    const CUresult r = encode(
-        &maps[i], types[i], 2, bases[i], dims, stride, boxes[i], estride,
-        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const int pct = static_cast<int>(
+      (int64_t{g.smem + 1024} * 100 + 233471) / 233472);
+  if (pct != carveout) {
+    cudaError_t err = cudaFuncSetAttribute(
+        spmv_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSpmvMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          spmv_kernel<V>, cudaFuncAttributePreferredSharedMemoryCarveout,
+          pct);
+    if (err != cudaSuccess) return err;
+    carveout = pct;
   }
-  spmv_tma_kernel<V><<<g.blocks, kTmaThreads, g.smem, st>>>(
-      maps[0], maps[1], static_cast<const int32_t*>(seg),
-      static_cast<const float*>(x), static_cast<float*>(acc),
-      static_cast<int>(g.num_tiles), g.sub, g.lanes, g.seg_width, g.x_len,
-      g.acc_len, g.lane_group, g.rows, g.windows, g.splits, g.acc_bytes,
-      ctrl);
+  spmv_kernel<V><<<g.blocks, kSpmvThreads, g.smem, st>>>(
+      static_cast<const int32_t*>(idx), static_cast<const V*>(val),
+      static_cast<const int32_t*>(seg), static_cast<const float*>(x),
+      static_cast<float*>(acc), static_cast<int>(g.num_tiles), g.sub,
+      g.lanes, g.seg_width, g.x_len, g.acc_len, g.lane_group, g.rows,
+      g.windows, g.splits, ctrl);
   return cudaGetLastError();
 }
 
 cudaError_t launch_spmv(const SpmvGeo& g, int value_bf16, const void* idx,
                         const void* val, const void* seg, const void* x,
                         void* acc, const int* ctrl, cudaStream_t st) {
-  if (g.feed == 1)
-    return value_bf16 ? launch_spmv_tma<__nv_bfloat16>(g, idx, val, seg, x,
-                                                        acc, ctrl, st)
-                      : launch_spmv_tma<float>(g, idx, val, seg, x, acc,
-                                               ctrl, st);
-  if (value_bf16)
-    return g.vec == 4 ? launch_spmv_t<__nv_bfloat16, 4>(g, idx, val, seg, x,
-                                                         acc, ctrl, st)
-                      : launch_spmv_t<__nv_bfloat16, 1>(g, idx, val, seg, x,
-                                                         acc, ctrl, st);
-  return g.vec == 4
-             ? launch_spmv_t<float, 4>(g, idx, val, seg, x, acc, ctrl, st)
-             : launch_spmv_t<float, 1>(g, idx, val, seg, x, acc, ctrl, st);
+  return value_bf16 ? launch_spmv_t<__nv_bfloat16>(g, idx, val, seg, x, acc,
+                                                   ctrl, st)
+                    : launch_spmv_t<float>(g, idx, val, seg, x, acc, ctrl,
+                                           st);
 }
 
 // -- SpMM --------------------------------------------------------------------
@@ -1054,20 +652,18 @@ __global__ void pw_commit(EpiArgs a) {
 // passed as void*; `value_bf16` selects the value type.  Each returns
 // cudaGetLastError() after the launch, so a refused launch is reported.
 // One stream pass y = A·x into acc (acc_len floats) with lane groups of
-// lane_group lanes, `windows` row windows and `splits` tile ranges, loading
-// vec (1 or 4) lanes at a time, or (feed 1) fed by TMA.  acc must be zero
-// first when splits > 1;
-// with one split the pass writes every element.  Refuses
-// (cudaErrorInvalidValue) a geometry spmv_geo_check refuses.
+// lane_group lanes, `windows` row windows and `splits` tile ranges.  acc
+// must be zero first when splits > 1; with one split the pass writes every
+// element.  Refuses (cudaErrorInvalidValue) a geometry spmv_geo_check
+// refuses.
 extern "C" int serpens_spmv(const void* idx, const void* val, const void* seg,
                             const void* x, void* acc, int64_t num_tiles,
                             int sub, int lanes, int seg_width, int64_t x_len,
                             int64_t acc_len, int value_bf16, int lane_group,
-                            int windows, int splits, int cluster, int vec,
-                            int feed, void* stream) {
+                            int windows, int splits, void* stream) {
   SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len, lane_group,
-            windows, splits, cluster, vec, feed, 0, 0, 0, 0};
-  cudaError_t err = spmv_geo_check(g, idx, val, acc, value_bf16);
+            windows, splits, 0, 0, 0};
+  cudaError_t err = spmv_geo_check(g);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_spmv(g, value_bf16, idx, val, seg, x, acc,
                                       nullptr,
@@ -1118,13 +714,13 @@ extern "C" int serpens_spmv_fused(
     int epilogue, const void* idx, const void* val, const void* seg,
     const void* x, void* acc, int64_t num_tiles, int sub, int lanes,
     int seg_width, int64_t x_len, int64_t acc_len, int value_bf16,
-    int lane_group, int windows, int splits, int cluster, int vec, int feed,
-    void* e0, void* e1, void* e2, void* e3, void* scal, void* part, int nb,
-    void* ctrl, float stop, int max_iters, void* stream) {
+    int lane_group, int windows, int splits, void* e0, void* e1, void* e2,
+    void* e3, void* scal, void* part, int nb, void* ctrl, float stop,
+    int max_iters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SpmvGeo g{num_tiles, sub, lanes, seg_width, x_len, acc_len, lane_group,
-            windows, splits, cluster, vec, feed, 0, 0, 0, 0};
-  cudaError_t err = spmv_geo_check(g, idx, val, acc, value_bf16);
+            windows, splits, 0, 0, 0};
+  cudaError_t err = spmv_geo_check(g);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (epilogue < kCG || epilogue > kPower)
     return static_cast<int>(cudaErrorInvalidValue);

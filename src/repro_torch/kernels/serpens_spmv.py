@@ -62,15 +62,14 @@ def build():
 def _declare(lib) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
-                                 i64, i32, i32, i32, i32, i32, i32, i32, p]
+                                 i64, i32, i32, i32, i32, p]
     lib.serpens_spmv.restype = i32
     lib.serpens_spmm.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32,
                                  i32, i64, i64, i64, i32, p]
     lib.serpens_spmm.restype = i32
     lib.serpens_spmv_fused.argtypes = [
         i32, p, p, p, p, p, i64, i32, i32, i32, i64, i64, i32, i32, i32,
-        i32, i32, i32, i32, p, p, p, p, p, p, i32, p, ctypes.c_float, i32,
-        p]
+        i32, p, p, p, p, p, p, i32, p, ctypes.c_float, i32, p]
     lib.serpens_spmv_fused.restype = i32
 
 
@@ -170,25 +169,6 @@ def _ranges(n: int, parts: int) -> tuple:
     return tuple((n * i // parts, n * (i + 1) // parts) for i in range(parts))
 
 
-# The TMA feed's ring (csrc/serpens_spmv.cu: kTmaStages stages of a box of
-# kTmaSlots idx words and as many value bytes) and its mbarriers.
-_TMA_STAGES = 3
-_TMA_SLOTS = 1024
-
-
-def _tma_box_lanes(lane_group: int, q: int = 4) -> int:
-    """Lanes of a TMA box: from the 16-byte boundary (q elements) at or
-    below a group's first lane, over the group, rounded up to q."""
-    span = lane_group + q - math.gcd(lane_group, q)
-    return -(-span // q) * q
-
-
-def _tma_ring_bytes(lane_group: int) -> int:
-    lanes = _tma_box_lanes(lane_group)
-    rows = min(256, _TMA_SLOTS // lanes)
-    return _TMA_STAGES * rows * lanes * 8 + 16 * _TMA_STAGES
-
-
 @dataclasses.dataclass(frozen=True)
 class SpmvPlan:
     """How the SpMV stream pass runs: one block per (lane group, row
@@ -199,22 +179,13 @@ class SpmvPlan:
     lanes)``) are the geometry; ``lane_group`` lanes per block (the last
     group may be partial); ``windows``, the ``(lo, hi)`` lane-local rows of
     each window, equal cuts of ``rows``; ``splits`` equal ranges of tiles
-    per cell; ``cluster`` consecutive groups (1, 2, 4 or 8) form a thread
-    block cluster that walks the same tiles in step, so that their reads
-    of one 128-byte line of a stream row meet in L2; ``feed``, how the
-    stream reaches a
-    block: ``"loads"`` (each thread loads ``vec`` lanes, 4 or 1, at a
-    time) or ``"tma"`` (a ring of boxes loaded by TMA, clusters of 1);
-    ``smem_bytes`` the dynamic shared memory a block asks for.
+    per cell; ``smem_bytes`` the dynamic shared memory a block asks for.
     """
     lanes: int
     rows: int
     lane_group: int
     windows: tuple
     splits: int
-    cluster: int
-    vec: int
-    feed: str
     smem_bytes: int
 
     @property
@@ -226,47 +197,19 @@ class SpmvPlan:
 
     @property
     def blocks(self) -> int:
-        """Blocks launched: the groups, padded to whole clusters (the
-        padding blocks own no lane but read their part of the tiles), per
-        window and split."""
-        clustered = -(-len(self.groups) // self.cluster) * self.cluster
-        return clustered * len(self.windows) * self.splits
+        return len(self.groups) * len(self.windows) * self.splits
 
     def tile_ranges(self, num_tiles: int) -> tuple:
         """The ``(first, end)`` tiles of each split."""
         return _ranges(num_tiles, self.splits)
 
 
-def _cluster_of(lanes: int, lane_group: int) -> int:
-    """Groups a cluster takes: the most (a power of two up to 8) whose
-    lanes fit one 128-byte line of idx a row (32 lanes), and no more
-    groups than there are."""
-    groups = -(-lanes // lane_group)
-    c = 1
-    while c < 8 and 2 * c * lane_group <= 32 and 2 * c <= groups:
-        c *= 2
-    return c
-
-
 def spmv_plan_of(lanes: int, num_rows_padded: int, lane_group: int,
-                 windows: int, splits: int, vec: int | None = None,
-                 feed: str = "loads", cluster: int | None = None
-                 ) -> SpmvPlan:
-    """The :class:`SpmvPlan` of these counts (equal windows).  ``vec`` is
-    4 where the groups allow 16-byte loads (``lane_group`` and ``lanes``
-    multiples of 4), unless given; ``cluster`` follows the groups (see
-    :func:`spmv_plan`) under the load loop and is 1 under TMA, unless
-    given."""
+                 windows: int, splits: int) -> SpmvPlan:
+    """The :class:`SpmvPlan` of these counts (equal windows)."""
     rows = max(1, -(-num_rows_padded // lanes))
-    if vec is None:
-        vec = 4 if lane_group % 4 == 0 and lanes % 4 == 0 else 1
-    if cluster is None:
-        cluster = _cluster_of(lanes, lane_group) if feed == "loads" else 1
-    acc = lane_group * -(-rows // windows) * 4
-    smem = (-(-acc // 128) * 128 + _tma_ring_bytes(lane_group)
-            if feed == "tma" else acc)
     return SpmvPlan(lanes, rows, lane_group, _ranges(rows, windows), splits,
-                    cluster, vec, feed, smem)
+                    lane_group * -(-rows // windows) * 4)
 
 
 def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
@@ -277,17 +220,13 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
 
     The lane group is the largest whose accumulator (``lane_group × rows``
     fp32) fits in ``smem_bytes``, rounded down to a multiple of 8 (8
-    lanes' idx are one 32-byte sector) or else of 4 (16-byte loads),
-    unless it takes every lane; it is at most ``lanes``.  When not even
-    one lane's rows fit (lane-local rows go up to 65,536, 256 KB), the
-    group is one lane and its rows are cut into the fewest equal windows
-    that fit, each one more read of the lane's stream.  Groups of fewer
-    than 32 lanes walk the stream in step in clusters of up to 8 groups,
-    so that a cluster's reads of a row cover whole 128-byte lines.
-    Splits share each (group, window) cell's tiles so that the blocks
-    number about one per SM.  A
-    stream of 2^31 slots or more is refused (the kernel counts slots in
-    32 bits).
+    lanes' idx are one 32-byte sector) or else of 4, unless it takes every
+    lane; it is at most ``lanes``.  When not even one lane's rows fit
+    (lane-local rows go up to 65,536, 256 KB), the group is one lane and
+    its rows are cut into the fewest equal windows that fit, each one more
+    read of the lane's stream.  Splits share each (group, window) cell's
+    tiles so that the blocks number about one per SM.  A stream of 2^31
+    slots or more is refused (the kernel counts slots in 32 bits).
     """
     if num_tiles * sub * lanes >= 1 << 31:
         raise ValueError(f"a stream of {num_tiles} x {sub} x {lanes} slots "
@@ -302,24 +241,16 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
         windows = 1
     else:
         lg, windows = 1, -(-rows // floats)
-    cluster = _cluster_of(lanes, lg)
-    groups = -(-lanes // lg)
-    cells = -(-groups // cluster) * cluster * windows
+    cells = -(-lanes // lg) * windows
     splits = max(1, min(num_tiles, sms // cells))
     return spmv_plan_of(lanes, num_rows_padded, lg, windows, splits)
 
 
-def _card_spmv_plan(idx, val, num_rows_padded: int) -> SpmvPlan:
-    """:func:`spmv_plan` for this card and stream, at 16-byte loads only
-    where the stream's bases are aligned for them."""
+def _card_spmv_plan(idx, num_rows_padded: int) -> SpmvPlan:
+    """:func:`spmv_plan` for this card and stream."""
     num_tiles, sub, lanes = idx.shape
     sms = torch.cuda.get_device_properties(idx.device).multi_processor_count
-    plan = spmv_plan(num_tiles, sub, lanes, num_rows_padded, SMEM_BYTES,
-                     sms)
-    if plan.vec == 4 and (idx.data_ptr() % 16
-                          or val.data_ptr() % (4 * val.element_size())):
-        plan = dataclasses.replace(plan, vec=1)
-    return plan
+    return spmv_plan(num_tiles, sub, lanes, num_rows_padded, SMEM_BYTES, sms)
 
 
 def _check_plan(plan: SpmvPlan, idx, num_rows_padded: int) -> None:
@@ -333,14 +264,13 @@ def _check_plan(plan: SpmvPlan, idx, num_rows_padded: int) -> None:
 
 def _spmv_args(idx, val, seg_ids, x, plan: SpmvPlan, acc, segment_width):
     """The stream pass's arguments to the C entries, from ``idx`` to
-    ``feed``."""
+    ``splits``."""
     num_tiles, sub, lanes = idx.shape
     return (idx.data_ptr(), val.data_ptr(), seg_ids.data_ptr(),
             x.data_ptr(), acc.data_ptr(), num_tiles, sub, lanes,
             segment_width, x.shape[0], acc.numel(),
             int(val.dtype == torch.bfloat16), plan.lane_group,
-            len(plan.windows), plan.splits, plan.cluster, plan.vec,
-            int(plan.feed == "tma"))
+            len(plan.windows), plan.splits)
 
 
 def _spmv_run(idx, val, seg_ids, x, plan: SpmvPlan, *, num_rows_padded: int,
@@ -386,7 +316,7 @@ def spmv(idx, val, seg_ids, x, *, num_rows_padded: int, segment_width: int,
     _check_kernel_args(idx, val, seg_ids, x)
     _check_padded(x, segment_width)
     return _spmv_run(idx, val, seg_ids, x,
-                     _card_spmv_plan(idx, val, num_rows_padded),
+                     _card_spmv_plan(idx, num_rows_padded),
                      num_rows_padded=num_rows_padded,
                      segment_width=segment_width)
 
@@ -696,7 +626,7 @@ def spmv_fused(idx, val, seg_ids, x, extras=(), *, epilogue,
         raise ValueError(f"no Serpens kernel for device {dev}")
     _check_kernel_args(idx, val, seg_ids, x)
     return _spmv_fused_run(spec, loop, idx, val, seg_ids, x, extras,
-                           _card_spmv_plan(idx, val, num_rows_padded),
+                           _card_spmv_plan(idx, num_rows_padded),
                            **geo)
 
 

@@ -78,25 +78,18 @@ def card_stream(name, dev, m=3000, k=20000, nnz=40000, seed=0):
 
 
 # Stream-pass plans forced beside each stream's own: (lane_group, windows,
-# splits, vec, feed, cluster), None taking the default.  Both feeds; one
-# lane, 2, 3 (a partial last group), 4 and 8 lanes; several windows and
-# splits; 4 lanes loaded one at a time; clusters of 1, 2, 4 and 8 groups
-# (a padding block where the groups do not fill the last cluster).
-SPMV_FORCED = [(1, 3, 2, None, "loads", None), (4, 1, 4, None, "loads", None),
-               (4, 2, 3, 1, "loads", 1), (4, 1, 4, 4, "loads", 4),
-               (8, 3, 1, None, "tma", None), (8, 1, 5, None, "loads", None),
-               (3, 2, 2, None, "loads", 2), (3, 2, 2, None, "tma", None),
-               (2, 1, 3, None, "loads", 4)]
+# splits).  One lane, 3 (a partial last group), 4 and 8 lanes, several
+# windows and splits.
+SPMV_FORCED = [(1, 3, 2), (4, 1, 4), (4, 2, 3), (8, 3, 1), (8, 1, 5),
+               (3, 2, 2)]
 SPMV_PLANS = [None] + SPMV_FORCED
-SPMV_IDS = ["planned"] + ["lg{}-w{}-s{}-v{}-{}-c{}".format(*f)
-                          for f in SPMV_FORCED]
+SPMV_IDS = ["planned"] + ["lg{}-w{}-s{}".format(*f) for f in SPMV_FORCED]
 
 
 def forced_plan(idx, rows_padded, forced):
-    lg, windows, splits, vec, feed, cluster = forced
-    lanes = idx.shape[2]
-    return ks.spmv_plan_of(lanes, rows_padded, min(lg, lanes), windows,
-                           splits, vec, feed, cluster)
+    lg, windows, splits = forced
+    return ks.spmv_plan_of(idx.shape[2], rows_padded, min(lg, idx.shape[2]),
+                           windows, splits)
 
 
 def run_spmv(idx, val, seg, x, geo, tpc=1, forced=None):
@@ -105,7 +98,7 @@ def run_spmv(idx, val, seg, x, geo, tpc=1, forced=None):
     rows = geo["num_rows_padded"]
     before = ks.spmv_launches
     if forced is None:
-        plan = ks._card_spmv_plan(idx, val, rows)
+        plan = ks._card_spmv_plan(idx, rows)
         got = ks.spmv(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
     else:
         plan = forced_plan(idx, rows, forced)
@@ -344,14 +337,12 @@ def scalar_scale(name, i, acc, extras, want):
 # The fused step's stream pass on forced plans too: several windows and
 # splits (acc zeroed first), and one split whose plain stores must write
 # every element of the uninitialised acc, with a partial last group.
-FUSED_FORCED = [(1, 2, 3, None, "loads", None), (4, 2, 2, None, "loads", 1),
-                (8, 1, 4, None, "tma", None), (3, 1, 1, None, "loads", 2),
-                (3, 1, 1, None, "tma", None)]
+FUSED_FORCED = [(1, 2, 3), (4, 2, 2), (8, 1, 4), (3, 1, 1)]
 
 
 @pytest.mark.parametrize("forced", [None] + FUSED_FORCED,
-                         ids=["planned"] + ["lg{}-w{}-s{}-{}-c{}".format(
-                             *f[:3], *f[4:]) for f in FUSED_FORCED])
+                         ids=["planned"] + ["lg{}-w{}-s{}".format(*f)
+                                            for f in FUSED_FORCED])
 @pytest.mark.parametrize("cfg_name", sorted(CONFIGS))
 @pytest.mark.parametrize("name", sorted(EPILOGUES))
 def test_fused_kernel_matches_plain(card, name, cfg_name, forced):
@@ -374,7 +365,7 @@ def test_fused_kernel_matches_plain(card, name, cfg_name, forced):
     before = ks.spmv_fused_launches
     spec = ks._EPILOGUES[ep]
     if forced is None:
-        plan = ks._card_spmv_plan(idx, val, geo["num_rows_padded"])
+        plan = ks._card_spmv_plan(idx, geo["num_rows_padded"])
         acc, got = op.matvec_fused(kx, ep, extras=k_extras)
     else:
         plan = forced_plan(idx, geo["num_rows_padded"], forced)

@@ -42,22 +42,6 @@ GEOMETRIES = {
 }
 
 
-def smem_of(plan):
-    """A block's shared bytes: its accumulator (window rows × group lanes
-    of fp32); fed by TMA, that rounded up to 128 bytes and a ring of 3
-    stages (a box of up to 256 rows of the group's lanes from the 4-lane
-    boundary below its first, rounded up to 4, at most 1024 idx words, and
-    as many value bytes) with two 8-byte mbarriers a stage."""
-    widest = max(hi - lo for lo, hi in plan.windows)
-    acc = plan.lane_group * widest * 4
-    if plan.feed == "loads":
-        return acc
-    lg = plan.lane_group
-    box_lanes = -(-(lg + 4 - np.gcd(lg, 4)) // 4) * 4
-    box_rows = min(256, 1024 // box_lanes)
-    return -(-acc // 128) * 128 + 3 * (box_rows * box_lanes * 8 + 16)
-
-
 def cover(plan, num_tiles):
     """How often each (lane, lane-local row) is owned by a (group, window)
     cell and each tile by a split."""
@@ -79,28 +63,25 @@ def test_cells_and_splits_partition_the_work(geo, sms):
     assert plan.lanes == lanes and plan.rows == -(-rows_padded // lanes)
     cells, tiles = cover(plan, num_tiles)
     assert (cells == 1).all() and (tiles == 1).all()
-    assert plan.smem_bytes <= SMEM
-    assert plan.smem_bytes == smem_of(plan)
-    groups = len(plan.groups)
-    clustered = -(-groups // plan.cluster) * plan.cluster
-    assert plan.blocks == clustered * len(plan.windows) * plan.splits
+    widest = max(hi - lo for lo, hi in plan.windows)
+    assert plan.smem_bytes == plan.lane_group * widest * 4 <= SMEM
+    assert plan.blocks == len(plan.groups) * len(plan.windows) * plan.splits
     # About one block per SM: as many splits as the cells leave room for.
-    assert plan.splits == max(1, min(num_tiles,
-                                     sms // (clustered * len(plan.windows))))
+    cells_n = len(plan.groups) * len(plan.windows)
+    assert plan.splits == max(1, min(num_tiles, sms // cells_n))
 
 
-@pytest.mark.parametrize("geo,lane_group,windows,splits,cluster", [
-    ("G7", 4, 1, 4, 8),            # 203,760 B; 8 groups walk 128-byte lines
-    ("G5", 16, 1, 16, 2),          # 188,544 B
-    ("tpc2", 16, 1, 40, 1),        # every lane fits; a split per tile
-    ("odd-lanes", 7, 1, 50, 1),    # 7 lanes: no 16-byte loads
-    ("rows-65536", 1, 2, 8, 8),    # 256 KB per lane: two windows
+@pytest.mark.parametrize("geo,lane_group,windows,splits", [
+    ("G7", 4, 1, 4),            # 203,760 B of shared accumulator
+    ("G5", 16, 1, 16),          # 188,544 B
+    ("tpc2", 16, 1, 40),        # every lane fits; a split per tile
+    ("odd-lanes", 7, 1, 50),
+    ("rows-65536", 1, 2, 8),    # 256 KB per lane: two windows
 ])
-def test_plan_at_the_served_geometries(geo, lane_group, windows, splits,
-                                       cluster):
+def test_plan_at_the_served_geometries(geo, lane_group, windows, splits):
     plan = ks.spmv_plan(*GEOMETRIES[geo], SMEM, SMS)
-    assert (plan.lane_group, len(plan.windows), plan.splits, plan.cluster,
-            plan.feed) == (lane_group, windows, splits, cluster, "loads")
+    assert (plan.lane_group, len(plan.windows), plan.splits) == (
+        lane_group, windows, splits)
 
 
 @pytest.mark.parametrize("lanes", [1, 4, 7, 16, 128, 200])
@@ -109,12 +90,10 @@ def test_plan_at_the_served_geometries(geo, lane_group, windows, splits,
 def test_lane_group_and_windows_rule(lanes, rows):
     """The largest group whose rows fit, rounded down to a multiple of 8
     (one 32-byte sector of idx) or else of 4, unless it takes every lane;
-    one lane in the fewest equal windows when not even one lane fits.
-    Groups of under 32 lanes walk in step in clusters of up to 8 groups (a
-    power of two) covering at most 32 lanes."""
+    one lane in the fewest equal windows when not even one lane fits."""
     plan = ks.spmv_plan(64, 8, lanes, rows * lanes, SMEM, SMS)
     fit = SMEM // 4 // rows
-    assert plan.smem_bytes == smem_of(plan) <= SMEM
+    assert plan.smem_bytes <= SMEM
     if fit >= 1:
         assert len(plan.windows) == 1
         want = lanes if fit >= lanes else (fit // 8 * 8 or fit // 4 * 4
@@ -125,20 +104,12 @@ def test_lane_group_and_windows_rule(lanes, rows):
         sizes = [hi - lo for lo, hi in plan.windows]
         assert max(sizes) * 4 <= SMEM < -(-rows // (len(sizes) - 1)) * 4
         assert max(sizes) - min(sizes) <= 1
-    assert plan.vec == (4 if plan.lane_group % 4 == 0 and lanes % 4 == 0
-                        else 1)
-    groups = len(plan.groups)
-    c = plan.cluster
-    assert c in (1, 2, 4, 8) and c * plan.lane_group <= max(
-        32, plan.lane_group) and c <= groups
-    if c < 8:       # one more doubling would pass 32 lanes or the groups
-        assert 2 * c * plan.lane_group > 32 or 2 * c > groups
 
 
 def test_an_empty_stream_is_one_split():
     """With no tiles the pass only writes the zero accumulator."""
     plan = ks.spmv_plan(0, 8, 128, 1024, SMEM, SMS)
-    assert plan.splits == 1
+    assert (plan.splits, plan.blocks) == (1, 1)
 
 
 def test_plan_refuses_2_31_slots():
@@ -157,12 +128,10 @@ CONFIGS = {
     "odd-lanes": F.SerpensConfig(**dict(SMALL, lanes=7)),
 }
 # Plans forced on each stream beside its own: (lane_group, windows,
-# splits, cluster).  Several windows, several splits, one lane, groups of
-# 3 (a partial last group at 8 and 16 lanes) and 4, and clusters of 2, 4
-# and 8 (with padding blocks where the groups do not fill the last); the
-# cut of the product does not depend on the cluster.
-FORCED = [(1, 3, 2, 8), (4, 2, 3, 2), (3, 1, 5, 1), (8, 4, 1, 1),
-          (16, 2, 7, 1), (2, 1, 3, 4), (3, 2, 2, 2)]
+# splits).  Several windows, several splits, one lane, and groups of 3 (a
+# partial last group at 8 and 16 lanes) and 4.
+FORCED = [(1, 3, 2), (4, 2, 3), (3, 1, 5), (8, 4, 1), (16, 2, 7),
+          (2, 1, 3)]
 
 
 def stream(name, m=150, k=300, nnz=1500, seed=1):
@@ -182,7 +151,7 @@ def spmv_by_cells(idx, val, seg, x, plan, *, num_rows_padded,
     """The product as the plan cuts it: each (group, window, split) cell
     sums the slots of its lanes, rows and tiles into its own (window rows,
     group lanes) accumulator, as one block does in shared memory; then the
-    cells are added.  (A cluster only sets when its blocks walk.)"""
+    cells are added."""
     lanes = idx.shape[2]
     live = idx != -1
     w = idx.to(torch.int64) & 0xFFFFFFFF
@@ -224,8 +193,8 @@ def pallas_want(name, jplan, x):
 
 
 @pytest.mark.parametrize("forced", [None] + FORCED,
-                         ids=["planned"] + [f"lg{g}-w{w}-s{s}-c{c}"
-                                            for g, w, s, c in FORCED])
+                         ids=["planned"] + [f"lg{g}-w{w}-s{s}"
+                                            for g, w, s in FORCED])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_decomposition_matches_plain_and_pallas(name, forced):
     jplan, (idx, val, seg), x = stream(name)
@@ -237,9 +206,9 @@ def test_decomposition_matches_plain_and_pallas(name, forced):
         plan = ks.spmv_plan(num_tiles, sub, lanes, geo["num_rows_padded"],
                             SMEM, SMS)
     else:
-        lg, windows, splits, cluster = forced
+        lg, windows, splits = forced
         plan = ks.spmv_plan_of(lanes, geo["num_rows_padded"], min(lg, lanes),
-                               windows, splits, cluster=cluster)
+                               windows, splits)
     cells, tiles = cover(plan, num_tiles)
     assert (cells == 1).all() and (tiles == 1).all()
     got = spmv_by_cells(idx, val, seg, torch.from_numpy(x), plan, **geo)

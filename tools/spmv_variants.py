@@ -54,39 +54,40 @@ SOURCE = build.CSRC / "serpens_spmv.cu"
 OUT = os.path.join(ROOT, "build", "variants")
 ITERS = 50
 
-UNROLL = "constexpr int kSpmvUnroll = 2;"
-STEP = "constexpr int kSpmvStepRows = 2048;"
-TMA_UNROLL = "constexpr int kTmaUnroll = 2;"
-GATHER = "xv[u][e] = live ? __ldg(x + col) : 0.f;"
-TMA_GATHER = "xv[u] = __ldg(x + col);"
-RED = "atomicAdd(s_acc + dst[u][e], v[u][e] * xv[u][e]);"
-CONST_X = (GATHER, "xv[u][e] = live ? __ldg(x) : 0.f;")
-STORES = (RED, "s_acc[dst[u][e]] = v[u][e] * xv[u][e];")
-# Plans, (lane_group, windows, splits, vec, feed, cluster); None for vec
-# and cluster takes the default.
-TMA = (4, 1, 4, None, "tma", 1)
-# name -> ([(text in the committed source, its replacement)], computes A·x,
-# the plan it runs on: None for the planned one, else a PLANS entry).
+UNROLL = "constexpr int kSpmvUnroll = 4;"
+AHEAD = "constexpr int kSpmvPrefetchSteps = 8;"
+PREFETCHERS = "constexpr int kSpmvPrefetchers = 8;"
+GATHER = "xv[u] = live ? __ldg(x + col) : 0.f;"
+RED = "if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);"
+CONST_X = (GATHER, "xv[u] = live ? __ldg(x) : 0.f;")
+STORES = (RED, "if (dst[u] >= 0) s_acc[dst[u]] = v[u] * xv[u];")
+NO_PREFETCH = (AHEAD, "constexpr int kSpmvPrefetchSteps = 0;")
+# name -> ([(text in the committed source, its replacement)], computes A·x)
 VARIANTS = {
-    "built": ([], True, None),
-    "unroll 4": ([(UNROLL, "constexpr int kSpmvUnroll = 4;")], True, None),
-    "step 512 rows": ([(STEP, "constexpr int kSpmvStepRows = 512;")], True,
-                      None),
-    "step 8192 rows": ([(STEP, "constexpr int kSpmvStepRows = 8192;")],
-                       True, None),
-    "tma unroll 4": ([(TMA_UNROLL, "constexpr int kTmaUnroll = 4;")], True,
-                     TMA),
+    "built": ([], True),
+    "unroll 2": ([(UNROLL, "constexpr int kSpmvUnroll = 2;")], True),
+    "unroll 8": ([(UNROLL, "constexpr int kSpmvUnroll = 8;")], True),
+    "no prefetch": ([NO_PREFETCH], True),
+    "prefetch 4 steps ahead": (
+        [(AHEAD, "constexpr int kSpmvPrefetchSteps = 4;")], True),
+    "prefetch 16 steps ahead": (
+        [(AHEAD, "constexpr int kSpmvPrefetchSteps = 16;")], True),
+    "every group prefetches": (
+        [(PREFETCHERS, "constexpr int kSpmvPrefetchers = 1;")], True),
+    "each step by one group": (
+        [(PREFETCHERS, "constexpr int kSpmvPrefetchers = 32;")], True),
     # Diagnostics: what the time is made of.
-    "constant x": ([CONST_X], False, None),
-    "stores, not reductions": ([STORES], False, None),
-    "constant x, stores": ([CONST_X, STORES], False, None),
-    "tma, constant x": ([(TMA_GATHER, "xv[u] = __ldg(x);")], False, TMA),
+    "constant x": ([CONST_X], False),
+    "stores, not reductions": ([STORES], False),
+    "constant x, stores": ([CONST_X, STORES], False),
+    "constant x, stores, no prefetch": ([CONST_X, STORES, NO_PREFETCH],
+                                        False),
 }
-PLANS = [TMA, (4, 1, 4, None, "loads", 1), (4, 1, 4, None, "loads", 2),
-         (4, 1, 4, None, "loads", 4), (4, 1, 4, 1, "loads", None),
-         (4, 1, 2, None, "loads", None), (4, 1, 8, None, "loads", None),
-         (2, 1, 2, None, "loads", None), (8, 2, 4, None, "loads", None),
-         (1, 1, 1, None, "loads", None)]
+# Plans of the committed source, (lane_group, windows, splits).
+PLANS = [(1, 1, 1), (2, 1, 2), (4, 1, 2), (4, 1, 8), (8, 2, 4)]
+# The stand-in at this scale, whose stream (27 MB) stays in L2 between
+# calls: the planned pass without and with the prefetch, and CSR.
+SMALL_SCALE = 0.1
 
 
 def variant_source(edits) -> str:
@@ -121,8 +122,7 @@ def nvcc_build(stem: str, source: str, pattern: str):
 def build_variant(name: str):
     lib, report = nvcc_build("spmv_" + re.sub(r"\W+", "_", name),
                              variant_source(VARIANTS[name][0]),
-                             r"spmv_(tma_)?kernelI(f|13__nv_bfloat16)"
-                             r"(Li\d)?E")
+                             r"spmv_kernelI(f|13__nv_bfloat16)E")
     ks._declare(lib)
     return lib, report
 
@@ -204,7 +204,7 @@ def main() -> int:
     bidx, bval, bseg, bgeo, bplan = streams["bfloat16"]
     kp = plan.num_segments_local * plan.config.segment_width
     rp = geo["num_rows_padded"]
-    sp = ks._card_spmv_plan(idx, val, rp)
+    sp = ks._card_spmv_plan(idx, rp)
     cs.say(f"[setup] G7 {shape[0]} x {shape[1]}, R_pad {rp}, "
            f"{plan.stream_bytes / 1e6:.1f} MB stream, plan {sp}, in "
            f"{time.perf_counter() - t:.1f} s")
@@ -223,22 +223,13 @@ def main() -> int:
                                                    **bgeo)}
     checked = {"planned": True, "planned, bf16 stream": True}
     labels = {"planned": str(sp), "planned, bf16 stream": str(sp)}
-    def plan_of(entry):
-        lg, windows, splits, vec, feed, cluster = entry
-        return ks.spmv_plan_of(lanes, rp, lg, windows, splits, vec, feed,
-                               cluster)
-
-    for name, (_, ok, entry) in VARIANTS.items():
-        p = sp if entry is None else plan_of(entry)
-        fns[name] = (lambda lib=libs[name], p=p: run_plan(
-            lib, idx, val, seg, x, geo, p))
-        checked[name], labels[name] = ok, f"{p.feed}, lg {p.lane_group}"
-    for entry in PLANS:
-        p = plan_of(entry)
-        name = (f"{p.feed}: lg {p.lane_group}, {len(p.windows)} window(s), "
-                f"{p.splits} split(s)" + (f", vec {p.vec}, cluster "
-                                          f"{p.cluster}"
-                                          if p.feed == "loads" else ""))
+    for name, (_, ok) in VARIANTS.items():
+        fns[name] = (lambda lib=libs[name]: run_plan(lib, idx, val, seg, x,
+                                                     geo, sp))
+        checked[name], labels[name] = ok, "the plan"
+    for lg, windows, splits in PLANS:
+        p = ks.spmv_plan_of(lanes, rp, lg, windows, splits)
+        name = f"lg {lg}, {windows} window(s), {splits} split(s)"
         fns[name] = (lambda p=p: run_plan(libs["built"], idx, val, seg, x,
                                           geo, p))
         checked[name], labels[name] = True, f"{p.blocks} blocks"
@@ -280,8 +271,46 @@ def main() -> int:
                f"{mean:.4f} ms ({ms[name][0]:.4f} / {ms[name][1]:.4f}), "
                f"bound {bd:.4f} ms ({bd / mean:.3f}); {lib_ms / mean:.2f}x "
                f"the speed of CSR  [{card}]")
+    record["G7 x0.1"] = small_scale(libs, card)
     cs.say(json.dumps(record))
     return 0
+
+
+def small_scale(libs, card) -> dict:
+    """The planned pass with and without the prefetch, and CSR, on the
+    stand-in at SMALL_SCALE, whose stream stays in L2 between calls: what
+    the pass costs when DRAM sets nothing."""
+    dev = torch.device("cuda")
+    rows, cols, vals, shape, _ = cs.paper_matrix("G7", scale=SMALL_SCALE,
+                                                 seed=cs.SEED)
+    plan = cs.cpart.make_plan(rows, cols, vals, shape,
+                              cs.sformat.SerpensConfig(), cs.cpart.PlanSpec())
+    idx, val, seg, geo = cs.stream_on_card(plan, dev)
+    sp = ks._card_spmv_plan(idx, geo["num_rows_padded"])
+    x = cs.ops.pad_x(torch.from_numpy(np.random.default_rng(cs.SEED)
+                                      .standard_normal(shape[1])
+                                      .astype(np.float32)).to(dev),
+                     plan.num_segments_local, plan.config.segment_width)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(vals),
+            shape).to(dev).coalesce().to_sparse_csr()
+    xk = x[:shape[1]].contiguous()
+    fns = {name: (lambda lib=libs[name]: run_plan(lib, idx, val, seg, x, geo,
+                                                  sp))
+           for name in ("built", "no prefetch")}
+    fns["torch.mv CSR"] = lambda: torch.mv(csr, xk)
+    ms = {name: [] for name in fns}
+    for turn in (list(fns), list(fns)[::-1]):
+        for name in turn:
+            ms[name].append(cs.time_ms(fns[name], ITERS))
+    out = {name: float(np.mean(r)) for name, r in ms.items()}
+    cs.say(f"[spmv] G7 x{SMALL_SCALE} ({plan.stream_bytes / 1e6:.1f} MB "
+           f"stream, plan {sp}): " + ", ".join(
+               f"{name} {t:.4f} ms" for name, t in out.items())
+           + f"  [{card}]")
+    return out
 
 
 if __name__ == "__main__":
