@@ -24,18 +24,21 @@
 // (R, LANES) accumulator, so a group of lanes owns a part of acc that no
 // other lane touches: as the paper's PEs keep their rows in on-chip memory
 // and the TPU kernel keeps acc in VMEM, one block keeps a lane group's
-// accumulator (a window of its lane-local rows) in shared memory.  Blocks
-// are (lane group, row window, tile split) cells, about one per SM, and the
-// wrapper's plan (kernels/serpens_spmv.py::spmv_plan) picks the largest
-// group whose rows fit the 227 KB a block may use (4 lanes at G7, 12,735
-// rows each).  A block walks its tiles loading 4 lanes' idx and values of a
-// (tile, sublane) row at once (16-byte loads that skip L1, several rows in
-// flight per thread), gathers x through L1 (tiles are sorted by segment,
-// so a block gathers from one 32 KB x segment at a time), and reduces into
-// shared memory.  At the end it writes its window out once: plain stores
-// when it is its cell's only split, else fp32 vector reductions into a
-// zeroed acc.  Reductions into shared memory reorder the fp32 sums, so
-// results match the plain version within a tolerance, not bitwise.
+// accumulator (a window of its lane-local rows) in shared memory and
+// reduces into it, not into global memory.  Blocks are (lane group, row
+// window, tile split) cells, about one per SM; the wrapper's plan
+// (kernels/serpens_spmv.py::spmv_plan) picks the largest group whose rows
+// fit the 227 KB a block may use (4 lanes at G7, 12,735 rows each).  A
+// thread loads one lane's idx and value (loads that skip L1, 4 slots in
+// flight), gathers x through L1 (tiles are sorted by segment, so a block
+// gathers from one 32 KB x segment at a time) and reduces into shared
+// memory; at the end the block writes its window out once.  What bounds
+// it here is the stream's layout, not the bytes: a group's lanes are a
+// 16-byte strip of each 512-byte stream row, so every request carries 16
+// useful bytes (tools/spmv_variants.py: at G7 reading and decoding the
+// stream alone takes about 0.29 ms against 0.084 ms of bytes).  Reductions
+// into shared memory reorder the fp32 sums, so results match the plain
+// version within a tolerance, not bitwise.
 //
 // SpMM design (Hopper).  A 128-thread block decodes a tile's slots once,
 // coalesced, and packs the live ones (X row, acc row, value) into shared
@@ -91,17 +94,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 // -- SpMV: the stream pass --------------------------------------------------
 // Threads of a stream-pass block, and the slots each thread loads before it
 // applies them.
-constexpr int kSpmvThreads = 512;
+constexpr int kSpmvThreads = 1024;
 constexpr int kSpmvUnroll = 4;
 // The largest dynamic shared memory a block may ask for on sm_90 (227 KB).
 constexpr int kSpmvMaxSmem = 232448;
-// Stream rows a block walks between two L2 prefetches, and how many such
-// steps ahead of itself it prefetches (0: none).  Each step is prefetched
-// by the blocks of kSpmvPrefetchers groups' residue class only.
-constexpr int kSpmvStepRows = 512;
-constexpr int kSpmvPrefetchSteps = 8;
-constexpr int kSpmvPrefetchers = 8;
-
 // Stream loads skip L1 (L1::no_allocate), which keeps the x segment.
 __device__ __forceinline__ uint32_t load_word(const int32_t* p) {
   uint32_t w;
@@ -115,15 +111,6 @@ __device__ __forceinline__ float load_val(const __nv_bfloat16* p) {
   unsigned short h;
   asm("ld.global.nc.L1::no_allocate.u16 %0, [%1];\n" : "=h"(h) : "l"(p));
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
-}
-
-// Brings `bytes` (a multiple of 16, 16-byte aligned) into L2 without
-// waiting: the copy engine reads whole lines from DRAM, so the blocks'
-// narrow loads of those rows then hit L2.
-__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p),
-               "r"(bytes)
-               : "memory");
 }
 
 // One block per (lane group, row window, split): lanes [glo, glo + gw),
@@ -162,65 +149,49 @@ spmv_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
   const int row0 = static_cast<int>(int64_t{num_tiles} * s / splits) * sub;
   const int row1 =
       static_cast<int>(int64_t{num_tiles} * (s + 1) / splits) * sub;
-  // A bulk prefetch takes 16-byte aligned whole rows: lanes a multiple of
-  // 4 (8 for bf16 values) and aligned bases; other streams take none.
-  const bool prefetch =
-      kSpmvPrefetchSteps > 0 &&
-      lanes % (16 / static_cast<int>(sizeof(V))) == 0 &&
-      reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(val) % 16 == 0;
-  for (int step = row0; step < row1; step += kSpmvStepRows) {
-    const int ahead = step + kSpmvPrefetchSteps * kSpmvStepRows;
-    if (prefetch && threadIdx.x == 0 && ahead < row1 &&
-        (ahead / kSpmvStepRows) % kSpmvPrefetchers ==
-            g % kSpmvPrefetchers) {
-      const int n = min(kSpmvStepRows, row1 - ahead);
-      prefetch_l2(idx + int64_t{ahead} * lanes, n * lanes * 4);
-      prefetch_l2(val + int64_t{ahead} * lanes,
-                  n * lanes * static_cast<int>(sizeof(V)));
-    }
-    // Item k is lane glo + k % gw of stream row step + k / gw.
-    const int items = min(kSpmvStepRows, row1 - step) * gw;
-    for (int k0 = threadIdx.x; k0 < items;
-         k0 += kSpmvThreads * kSpmvUnroll) {
-      uint32_t wd[kSpmvUnroll];
-      float v[kSpmvUnroll];
-      int lane[kSpmvUnroll], xseg[kSpmvUnroll];
-      // All of a thread's stream and segment loads in flight together.
+  // Thread i keeps lane glo + i % gw and walks rows i / gw, + rstep, ...
+  // (the threads past the last whole row of lanes wait); a tile is a
+  // shift of its row when sub is a power of two.
+  const int rstep = kSpmvThreads / gw;
+  const int64_t lane_off = glo + threadIdx.x % gw;
+  const int sub_shift = (sub & (sub - 1)) ? -1 : __ffs(sub) - 1;
+  const int first = threadIdx.x < rstep * gw ? row0 + threadIdx.x / gw
+                                             : row1;
+  for (int r0 = first; r0 < row1; r0 += rstep * kSpmvUnroll) {
+    uint32_t wd[kSpmvUnroll];
+    float v[kSpmvUnroll];
+    int xseg[kSpmvUnroll];
+    // All of a thread's stream and segment loads in flight together.
 #pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u) {
-        const int k = k0 + u * kSpmvThreads;
-        wd[u] = 0xFFFFFFFFu;
-        lane[u] = 0;
-        xseg[u] = 0;
-        if (k < items) {
-          const int q = k / gw;
-          const int r = step + q;
-          lane[u] = k - q * gw;
-          const int64_t off = int64_t{r} * lanes + glo + lane[u];
-          wd[u] = load_word(idx + off);
-          v[u] = load_val(val + off);
-          xseg[u] = seg[r / sub];
-        }
+    for (int u = 0; u < kSpmvUnroll; ++u) {
+      const int r = r0 + u * rstep;
+      wd[u] = 0xFFFFFFFFu;
+      xseg[u] = 0;
+      if (r < row1) {
+        const int64_t off = int64_t{r} * lanes + lane_off;
+        wd[u] = load_word(idx + off);
+        v[u] = load_val(val + off);
+        xseg[u] = seg[sub_shift >= 0 ? r >> sub_shift : r / sub];
       }
-      // Decode (unsigned: a live row 0xFFFF packs negative), then all the
-      // x gathers, then the shared-memory reductions.
-      int dst[kSpmvUnroll];
-      float xv[kSpmvUnroll];
-#pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u) {
-        const uint32_t word = wd[u];
-        const int row = static_cast<int>(word >> 16);
-        const int64_t col = int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
-        const bool live = word != 0xFFFFFFFFu && row >= rlo && row < rhi &&
-                          col < x_len;
-        dst[u] = live ? lane[u] * wrows + row - rlo : -1;
-        xv[u] = live ? __ldg(x + col) : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kSpmvUnroll; ++u)
-        if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);
     }
+    // Decode (unsigned: a live row 0xFFFF packs negative), then all the
+    // x gathers, then the shared-memory reductions.
+    int dst[kSpmvUnroll];
+    float xv[kSpmvUnroll];
+    const int lane_acc = static_cast<int>(lane_off - glo) * wrows - rlo;
+#pragma unroll
+    for (int u = 0; u < kSpmvUnroll; ++u) {
+      const uint32_t word = wd[u];
+      const int row = static_cast<int>(word >> 16);
+      const int64_t col = int64_t{xseg[u]} * seg_width + (word & 0xFFFFu);
+      const bool live = word != 0xFFFFFFFFu && row >= rlo && row < rhi &&
+                        col < x_len;
+      dst[u] = live ? lane_acc + row : -1;
+      xv[u] = live ? __ldg(x + col) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kSpmvUnroll; ++u)
+      if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);
   }
   __syncthreads();
 
@@ -254,7 +225,8 @@ struct SpmvGeo {
 cudaError_t spmv_geo_check(SpmvGeo& g) {
   const int64_t kMax = (int64_t{1} << 31) - 1;
   if (g.sub < 1 || g.lanes < 1 || g.num_tiles < 0 || g.acc_len < 0 ||
-      g.lane_group < 1 || g.lane_group > g.lanes || g.windows < 1 ||
+      g.lane_group < 1 || g.lane_group > g.lanes ||
+      g.lane_group > kSpmvThreads || g.windows < 1 ||
       g.splits < 1 || g.num_tiles * g.sub * g.lanes > kMax)
     return cudaErrorInvalidValue;
   const int64_t rows = g.acc_len > 0 ? (g.acc_len + g.lanes - 1) / g.lanes
@@ -273,16 +245,27 @@ cudaError_t spmv_geo_check(SpmvGeo& g) {
 
 // When the carve-out a launch needs differs from the last one of this
 // kernel: allow the largest shared accumulator and carve out only the
-// shared memory one block needs (and its 1 KB reserve), in percent of the
-// SM's 228 KB.  The rest stays L1, which holds the x segment the block
-// gathers from.
+// shared memory of the blocks an SM will hold (each with its 1 KB
+// reserve), in percent of the SM's 228 KB.  The rest stays L1, which holds
+// the x segment a block gathers from.
 template <typename V>
 cudaError_t launch_spmv_t(const SpmvGeo& g, const void* idx, const void* val,
                           const void* seg, const void* x, void* acc,
                           const int* ctrl, cudaStream_t st) {
   static int carveout = -1;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int per_block = g.smem + 1024;
+  const int per_sm = max(1, min(min(2048 / kSpmvThreads, 233472 / per_block),
+                                (g.blocks + sms - 1) / sms));
   const int pct = static_cast<int>(
-      (int64_t{g.smem + 1024} * 100 + 233471) / 233472);
+      (int64_t{per_sm} * per_block * 100 + 233471) / 233472);
   if (pct != carveout) {
     cudaError_t err = cudaFuncSetAttribute(
         spmv_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,

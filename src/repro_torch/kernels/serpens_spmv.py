@@ -46,12 +46,16 @@ spmv_launches = 0
 spmm_launches = 0
 spmm_launches_by_width = {4: 0, 2: 0, 1: 0}
 spmv_fused_launches = 0
-# The SpmvPlan of the latest stream pass launched (spmv or a fused step).
+# The SpmvPlan of the latest stream pass launched (spmv or a fused step),
+# so a run can show which plan its pass ran on.
 spmv_last_plan = None
 
 # Dynamic shared memory one block may use on sm_90 (227 KB), the target the
-# kernels are built for (kSpmvMaxSmem in csrc/serpens_spmv.cu).
+# kernels are built for (kSpmvMaxSmem in csrc/serpens_spmv.cu), and the
+# threads of a stream-pass block (kSpmvThreads), each of which keeps one
+# lane of its group.
 SMEM_BYTES = 232_448
+_SPMV_THREADS = 1024
 
 
 def build():
@@ -221,7 +225,7 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
     The lane group is the largest whose accumulator (``lane_group × rows``
     fp32) fits in ``smem_bytes``, rounded down to a multiple of 8 (8
     lanes' idx are one 32-byte sector) or else of 4, unless it takes every
-    lane; it is at most ``lanes``.  When not even one lane's rows fit
+    lane; it is at most ``lanes`` and 1024 (one thread a lane).  When not even one lane's rows fit
     (lane-local rows go up to 65,536, 256 KB), the group is one lane and
     its rows are cut into the fewest equal windows that fit, each one more
     read of the lane's stream.  Splits share each (group, window) cell's
@@ -233,7 +237,7 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
                          f"has 2^31 or more")
     rows = max(1, -(-num_rows_padded // lanes))
     floats = smem_bytes // 4
-    fit = min(lanes, floats // rows)
+    fit = min(lanes, _SPMV_THREADS, floats // rows)
     if fit >= 1:
         lg = fit
         if fit < lanes:

@@ -78,3 +78,22 @@ def test_flash_variants_tool_imports_no_jax_and_needs_a_card():
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def test_spmv_variants_tool_imports_no_jax_and_needs_a_card():
+    """``tools/spmv_variants.py`` (the SpMV stream pass's plans and source
+    variants timed on the card) imports nothing of JAX, and its edits
+    still apply to the source."""
+    run(textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tools")
+        import spmv_variants as sv
+        for edits, _ in sv.VARIANTS.values():
+            sv.variant_source(edits)
+    """) + LEAKS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "tools/spmv_variants.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr

@@ -84,15 +84,16 @@ def test_plan_at_the_served_geometries(geo, lane_group, windows, splits):
         lane_group, windows, splits)
 
 
-@pytest.mark.parametrize("lanes", [1, 4, 7, 16, 128, 200])
+@pytest.mark.parametrize("lanes", [1, 4, 7, 16, 128, 200, 2048])
 @pytest.mark.parametrize("rows", [1, 100, 2_946, 12_735, 14_530, 29_056,
                                   58_112, 58_113, 65_536])
 def test_lane_group_and_windows_rule(lanes, rows):
-    """The largest group whose rows fit, rounded down to a multiple of 8
-    (one 32-byte sector of idx) or else of 4, unless it takes every lane;
-    one lane in the fewest equal windows when not even one lane fits."""
+    """The largest group whose rows fit, at most 1024 lanes (a thread a
+    lane), rounded down to a multiple of 8 (one 32-byte sector of idx) or
+    else of 4, unless it takes every lane; one lane in the fewest equal
+    windows when not even one lane fits."""
     plan = ks.spmv_plan(64, 8, lanes, rows * lanes, SMEM, SMS)
-    fit = SMEM // 4 // rows
+    fit = min(SMEM // 4 // rows, 1024)         # one thread a lane
     assert plan.smem_bytes <= SMEM
     if fit >= 1:
         assert len(plan.windows) == 1

@@ -1,32 +1,33 @@
 #!/usr/bin/env python3
 """The SpMV stream pass's plans and source variants, timed on one GPU at
-the G7 stand-in.
+the G7 (default) or G5 stand-in.
 
 Run from the repository root::
 
-    python3 tools/spmv_variants.py [--parent DIR]
+    python3 tools/spmv_variants.py [--matrix G7|G5] [--parent DIR]
 
 Each variant is the committed ``csrc/serpens_spmv.cu`` with the edits in
 ``VARIANTS``; all are built at once with the repository's nvcc flags into
-``build/variants/`` and print their ptxas report.  The G7 ``soc_pokec``
-stand-in is encoded at full size with the default ``SerpensConfig()``
-(fp32 stream, and a bf16 stream for the ``bf16`` entries).  Every entry is
-timed with CUDA events beside ``torch.mv`` on the same matrix in CSR (a
-yardstick the port never calls), each twice in turns (one order, then the
-reverse; the mean is printed).  Every entry that computes the product is
-first held against ``spmv_plain`` within ``1e-5·(|A|·|x|) + 1e-6``
-elementwise; the diagnostic variants compute something else and are timed
-only.
+``build/variants/`` and print their ptxas report.  The stand-in (G7
+``soc_pokec`` or G5 ``ML_Laplace``) is encoded at full size with the
+default ``SerpensConfig()`` (fp32 stream, and a bf16 stream for the
+``bf16`` entries).  Every entry is timed with CUDA events beside
+``torch.mv`` on the same matrix in CSR (a yardstick the port never
+calls), each twice in turns (one order, then the reverse; the mean is
+printed).  Every entry that computes the product is first held against
+``spmv_plain`` within ``1e-5·(|A|·|x|) + 1e-6`` elementwise; the
+diagnostic variants compute something else and are timed only.
 
-Entries: ``planned`` (:func:`spmv` as the server calls it); each variant
-on its plan; the committed source on other plans (``PLANS``: both feeds,
-TMA and the load loop, at lane groups of 1 to 8 with the windows they
-need, other split counts and cluster sizes); and, with ``--parent DIR``
-(an unpacked tree of an earlier commit whose ``serpens_spmv`` entry takes
-a grid of 128-thread blocks, one thread per lane), that tree's body,
-built from its source.
-The last line is one JSON object of the mean times.  It needs a CUDA card
-and ``nvcc``, and imports nothing of the JAX package.
+Entries: ``planned`` (:func:`spmv` as the server calls it, fp32 and
+bf16 streams); each variant on the plan; the committed source on other
+plans (``PLANS``: other lane groups, with the windows they need, and
+other split counts); and, with ``--parent DIR`` (an unpacked tree of an
+earlier commit whose ``serpens_spmv`` entry takes a grid of 128-thread
+blocks, one thread per lane), that tree's body, built from its source.
+Last, at G7, the planned pass and CSR on the stand-in at scale 0.1, whose
+stream stays in L2 between calls.  The last line is one JSON object of
+the mean times.  It needs a CUDA card and ``nvcc``, and imports nothing
+of the JAX package.
 """
 from __future__ import annotations
 
@@ -55,38 +56,28 @@ OUT = os.path.join(ROOT, "build", "variants")
 ITERS = 50
 
 UNROLL = "constexpr int kSpmvUnroll = 4;"
-AHEAD = "constexpr int kSpmvPrefetchSteps = 8;"
-PREFETCHERS = "constexpr int kSpmvPrefetchers = 8;"
+THREADS = "constexpr int kSpmvThreads = 1024;"
 GATHER = "xv[u] = live ? __ldg(x + col) : 0.f;"
 RED = "if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);"
 CONST_X = (GATHER, "xv[u] = live ? __ldg(x) : 0.f;")
 STORES = (RED, "if (dst[u] >= 0) s_acc[dst[u]] = v[u] * xv[u];")
-NO_PREFETCH = (AHEAD, "constexpr int kSpmvPrefetchSteps = 0;")
 # name -> ([(text in the committed source, its replacement)], computes A·x)
 VARIANTS = {
     "built": ([], True),
     "unroll 2": ([(UNROLL, "constexpr int kSpmvUnroll = 2;")], True),
     "unroll 8": ([(UNROLL, "constexpr int kSpmvUnroll = 8;")], True),
-    "no prefetch": ([NO_PREFETCH], True),
-    "prefetch 4 steps ahead": (
-        [(AHEAD, "constexpr int kSpmvPrefetchSteps = 4;")], True),
-    "prefetch 16 steps ahead": (
-        [(AHEAD, "constexpr int kSpmvPrefetchSteps = 16;")], True),
-    "every group prefetches": (
-        [(PREFETCHERS, "constexpr int kSpmvPrefetchers = 1;")], True),
-    "each step by one group": (
-        [(PREFETCHERS, "constexpr int kSpmvPrefetchers = 32;")], True),
+    "512 threads": ([(THREADS, "constexpr int kSpmvThreads = 512;")], True),
     # Diagnostics: what the time is made of.
     "constant x": ([CONST_X], False),
     "stores, not reductions": ([STORES], False),
     "constant x, stores": ([CONST_X, STORES], False),
-    "constant x, stores, no prefetch": ([CONST_X, STORES, NO_PREFETCH],
-                                        False),
 }
 # Plans of the committed source, (lane_group, windows, splits).
-PLANS = [(1, 1, 1), (2, 1, 2), (4, 1, 2), (4, 1, 8), (8, 2, 4)]
-# The stand-in at this scale, whose stream (27 MB) stays in L2 between
-# calls: the planned pass without and with the prefetch, and CSR.
+PLANS = {"G7": [(2, 1, 2), (2, 1, 4), (4, 1, 8), (8, 2, 4)],
+         "G5": [(8, 1, 8), (8, 1, 16), (8, 1, 32), (4, 1, 16), (16, 1, 8),
+                (16, 1, 32)]}
+# The stand-in at this scale, whose stream (29 MB) stays in L2 between
+# calls: the planned pass and CSR.
 SMALL_SCALE = 0.1
 
 
@@ -171,6 +162,8 @@ def run_parent(lib, idx, val, seg, x, geo):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--matrix", choices=sorted(PLANS), default="G7",
+                    help="the stand-in to time at full size (default G7)")
     ap.add_argument("--parent", help="an unpacked tree of an earlier commit "
                     "whose SpMV body to time beside this one")
     args = ap.parse_args()
@@ -192,7 +185,8 @@ def main() -> int:
     libs = {name: lib for name, (lib, _) in built.items()}
 
     t = time.perf_counter()
-    rows, cols, vals, shape, _ = cs.paper_matrix("G7", scale=1.0,
+    gid = args.matrix
+    rows, cols, vals, shape, _ = cs.paper_matrix(gid, scale=1.0,
                                                  seed=cs.SEED)
     streams = {}
     for dtype in ("float32", "bfloat16"):
@@ -205,7 +199,7 @@ def main() -> int:
     kp = plan.num_segments_local * plan.config.segment_width
     rp = geo["num_rows_padded"]
     sp = ks._card_spmv_plan(idx, rp)
-    cs.say(f"[setup] G7 {shape[0]} x {shape[1]}, R_pad {rp}, "
+    cs.say(f"[setup] {gid} {shape[0]} x {shape[1]}, R_pad {rp}, "
            f"{plan.stream_bytes / 1e6:.1f} MB stream, plan {sp}, in "
            f"{time.perf_counter() - t:.1f} s")
     with warnings.catch_warnings():
@@ -227,7 +221,7 @@ def main() -> int:
         fns[name] = (lambda lib=libs[name]: run_plan(lib, idx, val, seg, x,
                                                      geo, sp))
         checked[name], labels[name] = ok, "the plan"
-    for lg, windows, splits in PLANS:
+    for lg, windows, splits in PLANS[gid]:
         p = ks.spmv_plan_of(lanes, rp, lg, windows, splits)
         name = f"lg {lg}, {windows} window(s), {splits} split(s)"
         fns[name] = (lambda p=p: run_plan(libs["built"], idx, val, seg, x,
@@ -271,15 +265,16 @@ def main() -> int:
                f"{mean:.4f} ms ({ms[name][0]:.4f} / {ms[name][1]:.4f}), "
                f"bound {bd:.4f} ms ({bd / mean:.3f}); {lib_ms / mean:.2f}x "
                f"the speed of CSR  [{card}]")
-    record["G7 x0.1"] = small_scale(libs, card)
+    if gid == "G7":
+        record["G7 x0.1"] = small_scale(libs, card)
     cs.say(json.dumps(record))
     return 0
 
 
 def small_scale(libs, card) -> dict:
-    """The planned pass with and without the prefetch, and CSR, on the
-    stand-in at SMALL_SCALE, whose stream stays in L2 between calls: what
-    the pass costs when DRAM sets nothing."""
+    """The planned pass and CSR on the stand-in at SMALL_SCALE, whose
+    stream stays in L2 between calls: what the pass costs when DRAM sets
+    nothing."""
     dev = torch.device("cuda")
     rows, cols, vals, shape, _ = cs.paper_matrix("G7", scale=SMALL_SCALE,
                                                  seed=cs.SEED)
@@ -297,9 +292,8 @@ def small_scale(libs, card) -> dict:
             torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(vals),
             shape).to(dev).coalesce().to_sparse_csr()
     xk = x[:shape[1]].contiguous()
-    fns = {name: (lambda lib=libs[name]: run_plan(lib, idx, val, seg, x, geo,
-                                                  sp))
-           for name in ("built", "no prefetch")}
+    fns = {"built": lambda: run_plan(libs["built"], idx, val, seg, x, geo,
+                                     sp)}
     fns["torch.mv CSR"] = lambda: torch.mv(csr, xk)
     ms = {name: [] for name in fns}
     for turn in (list(fns), list(fns)[::-1]):
