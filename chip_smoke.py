@@ -16,13 +16,18 @@ package.  Phases:
    spill) at scale 0.1.  Elementwise tolerance:
    ``|y_kernel - y_plain| <= 1e-5 * (|A| @ |x|) + 1e-6`` — the kernels sum
    with fp32 atomics in another order than the plain ``index_add_``.  The
-   SpMM kernel's ``-Xptxas=-v`` lines are printed (a spill fails the run),
-   and each of its vector widths runs on both streams and on the
-   ``OPTIMIZED_CONFIG`` plan: v4 at N = 16 (four row-window passes at G7)
-   or 64 (two at scale 0.1), v2 at N = 2, v1 at N = 3 and, at G7, at
-   N = 16 on an X one element into its storage.  The width that ran is
-   read from ``spmm_launches_by_width``; each check has a control, the
-   same stream with its first live tile emptied, that must fail it.
+   SpMV stream pass's and the SpMM kernel's ``-Xptxas=-v`` lines are
+   printed (a spill fails the run).  The stream pass runs on both G7
+   streams and the ``OPTIMIZED_CONFIG`` plan as ``spmv_plan`` plans it,
+   and on the fp32 G7 stream on a plan forced to two row windows of 8
+   lanes; the plan that ran is read back (``spmv_last_plan``).  Each SpMM
+   vector width runs on both streams and on the ``OPTIMIZED_CONFIG``
+   plan: v4 at N = 16 (four row-window passes at G7) or 64 (two at scale
+   0.1), v2 at N = 2, v1 at N = 3 and, at G7, at N = 16 on an X one
+   element into its storage.  The width that ran is read from
+   ``spmm_launches_by_width``.  Each check, SpMV's and SpMM's, has a
+   control, the same stream with its first live tile emptied, that must
+   fail it.
 2. The server answers requests: ``MatrixRegistry(device="cuda")`` holds
    the G7 stand-in, and ``SpMVService`` serves 48 requests from 3 owners
    with mixed alpha/beta, first synchronously and then pipelined, each run
@@ -34,7 +39,9 @@ package.  Phases:
    spent in each span.
 3. Timings with CUDA events at the G7 shapes: kernel, plain version, and
    one ``torch.sparse`` CSR product as a yardstick (the port never calls
-   it), beside the bound the card's memory rate sets.  SpMM is timed at
+   it), beside the bound the card's memory rate sets.  spmv (fp32 and
+   bf16 streams) and ``torch.mv`` on CSR are read in turns (one order,
+   then the reverse), each line with the plan.  SpMM is timed at
    each served width N = 2, 4, 8, 16, in turns with ``torch.mm`` on CSR
    (kernel, CSR, CSR, kernel), each line with its bound, its row-window
    passes, the bound with the stream counted once per pass, and the card.
@@ -53,13 +60,12 @@ package.  Phases:
    the tolerances printed.  One fused step per epilogue against
    ``spmv_fused_plain`` on the same card tensors (acc as in phase 1;
    state vectors within 1e-5 of their magnitude; reduced scalars within
-   ``1e-5·Σ|terms| + 1e-6``), and CUDA-event timings of the fused step,
-   of one iteration of each solver's own fused and unfused loop bodies
-   (16 iterations a run), of the plain version and of ``torch.mv`` on a
-   CSR tensor plus the epilogue in torch ops (a yardstick only).  If the
-   run has
-   passed 8 minutes before the G5 part, G5 runs at scale 0.25 and says
-   so; the G7 PageRank never shrinks.
+   ``1e-5·Σ|terms| + 1e-6``), and CUDA-event timings of the fused step
+   and of ``torch.mv`` on a CSR tensor plus the epilogue in torch ops (a
+   yardstick only), in turns, of one iteration of each solver's own fused
+   and unfused loop bodies (16 iterations a run) and of the plain
+   version.  If the run has passed 8 minutes before the G5 part, G5 runs
+   at scale 0.25 and says so; the G7 PageRank never shrinks.
 5. LM serving (the third slice's path) through the flash-attention
    kernel, whose bf16 served heads run its Hopper body (``wgmma``: TMA
    K/V ring, wgmma, a producer warpgroup); ``flash_body`` picks the body
@@ -93,9 +99,11 @@ Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-both timed shapes (``bodies``), and whose spmm entry lists each vector
+both timed shapes (``bodies``), whose spmm entry lists each vector
 width's main-path launches (``bodies``) and, at each served width, its
-time, CSR's, the bound and the passes (``by_n``).
+time, CSR's, the bound and the passes (``by_n``), and whose spmv and
+spmv_fused entries give the stream pass's plan at G7 (``plan``: lanes a
+block, row windows, tile splits).
 """
 from __future__ import annotations
 
@@ -231,14 +239,87 @@ def stream_on_card(plan, dev):
     return idx, val, seg, geo
 
 
-def compare_spmv(idx, val, seg, x, geo, tpc: int) -> float:
-    """One spmv launch against the plain version on the same inputs."""
-    got = ks.spmv(idx, val, seg, x, tiles_per_chunk=tpc, **geo)
+def compare_spmv(what, idx, val, seg, x, geo, tpc: int,
+                 plan=None) -> tuple[float, str]:
+    """One stream pass against the plain version on the same inputs (as
+    :func:`ks.spmv` plans it, or on a forced ``plan``), and the same
+    stream with its first live tile emptied, which must fail the same
+    check.  The plan that ran is read back.  Returns the error and the
+    line to print."""
+    rows = geo["num_rows_padded"]
+
+    def run(i_):
+        if plan is None:
+            return ks.spmv(i_, val, seg, x, tiles_per_chunk=tpc, **geo)
+        return ks._spmv_run(i_, val, seg, x, plan, **geo)
+
+    want_plan = plan or ks._card_spmv_plan(idx, rows)
+    got = run(idx)
     torch.cuda.synchronize()
+    if ks.spmv_last_plan != want_plan:
+        raise AssertionError(f"{what}: ran {ks.spmv_last_plan}, not "
+                             f"{want_plan}")
     want = ks.spmv_plain(idx, val, seg, x, **geo)
     scale = ks.spmv_plain(idx, val.abs(), seg, x.abs(), **geo)
+    err = check_close(f"{what} spmv kernel vs plain", got, want, scale)
+    first = int(torch.nonzero((idx != -1).flatten(1).any(1))[0])
+    cut = idx.clone()
+    cut[first] = -1
+    ctl = run(cut)
     torch.cuda.synchronize()
-    return check_close("spmv kernel vs plain", got, want, scale)
+    try:
+        check_close(f"{what} control", ctl, want, scale)
+    except AssertionError as fail:
+        msg = str(fail)
+    else:
+        raise AssertionError(f"{what}: the control without tile {first} "
+                             f"passes the check")
+    del cut, ctl, want, scale
+    p = want_plan
+    return err, (f"{what}: plan {p.lane_group} lanes a block, "
+                 f"{len(p.windows)} window(s), {p.splits} split(s), "
+                 f"{p.blocks} blocks, {p.smem_bytes} B shared; spmv err "
+                 f"{err:.3e}; control without tile {first} fails as it "
+                 f"must ({msg.split(': ', 1)[1].split(';')[0]})")
+
+
+def spmv_build_report() -> str:
+    """The stream pass's ``-Xptxas=-v`` lines (registers, spills), fp32 and
+    bf16 values; raises on a spill."""
+    log = BUILD_LOGS.get("serpens_spmv", "")
+    if not log:
+        return "no nvcc log (the library was already built)"
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"spmv_kernelI(f|13__nv_bfloat16)E", line)
+        if m is None or "Compiling entry function" not in line:
+            continue
+        name = "fp32" if m[1] == "f" else "bf16"
+        props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
+                         else x.strip() for x in lines[i + 2:i + 4])
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
+            raise AssertionError(f"spmv {name} spills: {props}")
+        out.append(f"{name}: {props}")
+    if len(out) != 2:
+        raise AssertionError(f"no ptxas report for every spmv build: {out}")
+    return "; ".join(out)
+
+
+def plan_record(plan) -> dict:
+    return {"lane_group": plan.lane_group, "windows": len(plan.windows),
+            "splits": plan.splits}
+
+
+def in_turns(fns: dict, iters: int) -> dict:
+    """CUDA-event ms of each function, read in turns: in the dict's order,
+    then in reverse.  Means, and the readings under ``reads``."""
+    reads = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            reads[name].append(time_ms(fns[name], iters))
+    return {name: float(np.mean(r)) for name, r in reads.items()} | {
+        "reads": reads}
 
 
 def host_reference(rows, cols, vals, m, x, alpha, beta, y):
@@ -414,15 +495,10 @@ def spmm_build_report() -> str:
 def time_spmm(idx, val, seg, x, geo, tpc, csr, k) -> dict:
     """spmm and torch.mm on CSR, read in turns (kernel, CSR, CSR,
     kernel); means and the readings."""
-    fns = {"kernel": functools.partial(ks.spmm, idx, val, seg, x,
-                                       tiles_per_chunk=tpc, **geo),
-           "library": functools.partial(torch.mm, csr,
-                                        x[:k].contiguous())}
-    reads = {name: [] for name in fns}
-    for name in ("kernel", "library", "library", "kernel"):
-        reads[name].append(time_ms(fns[name], 20))
-    return {name: float(np.mean(r)) for name, r in reads.items()} | {
-        "reads": reads}
+    return in_turns({"kernel": functools.partial(ks.spmm, idx, val, seg, x,
+                                                 tiles_per_chunk=tpc, **geo),
+                     "library": functools.partial(torch.mm, csr,
+                                                  x[:k].contiguous())}, 20)
 
 
 # -- phase 4: the solvers -----------------------------------------------------
@@ -578,14 +654,17 @@ def time_fused(name, op, dev, csr) -> dict:
         ep(buf.view(-1, lanes), *extras)
 
     bodies = solver_bodies(name, op, dev)
-    # The library step reads the state the fused timing left.
-    return {"ms": time_ms(fused, 20),
+    # The fused step and the library step in turns (fused, library,
+    # library, fused), each reading the state the other left.
+    turns = in_turns({"fused": fused, "library": library}, 20)
+    return {"ms": turns["fused"], "library_ms": turns["library"],
+            "reads": turns["reads"],
+            "plan": ks._card_spmv_plan(idx, geo["num_rows_padded"]),
             "fused_iter_ms": time_ms(bodies["fused"], 3) / BODY_ITERS,
             "unfused_iter_ms": time_ms(bodies["unfused"], 3) / BODY_ITERS,
             "plain_ms": time_ms(functools.partial(
                 ks.spmv_fused_plain, idx, val, seg, x, extras, epilogue=ep,
-                **geo), 3),
-            "library_ms": time_ms(library, 20)}
+                **geo), 3)}
 
 
 def fused_bound(name, op) -> tuple[float, str]:
@@ -769,8 +848,14 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
         bounds[k] = fused_bound(k, ops_by[k])
         tm, (bd, by) = times[k], bounds[k]
         where = "G7" if k == "pagerank" else f"G5 x{g5_scale}"
-        say(f"[phase4] {k} step ({where}): fused {tm['ms']:.4f} ms, "
-            f"per iteration of the solver's fused body "
+        reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                          for n, r in tm["reads"].items())
+        pl = tm["plan"]
+        say(f"[phase4] {k} step ({where}): fused {tm['ms']:.4f} ms (stream "
+            f"pass: {pl.lane_group} lanes a block, {len(pl.windows)} "
+            f"window(s), {pl.splits} split(s)), readings in turns with "
+            f"CSR + epilogue: {reads}; per iteration of the solver's fused "
+            f"body "
             f"{tm['fused_iter_ms']:.4f} ms and unfused body "
             f"{tm['unfused_iter_ms']:.4f} ms "
             f"({tm['unfused_iter_ms'] / tm['fused_iter_ms']:.2f}x), plain "
@@ -931,14 +1016,9 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters) -> dict:
                          q.view(b, s, h, dh).transpose(1, 2),
                          k.transpose(1, 2), v.transpose(1, 2),
                          is_causal=causal, enable_gqa=g > 1)}
-    reads = {n: [] for n in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for n in order:
-            reads[n].append(time_ms(runs[n], iters[0]))
-    out = {n: sum(r) / len(r) for n, r in reads.items()}
+    out = in_turns(runs, iters[0])
     out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
                              causal=causal), iters[1])
-    out["reads"] = reads
     return out
 
 
@@ -1319,9 +1399,15 @@ def main() -> int:
     x1 = ops.pad_x(torch.from_numpy(
         rng.standard_normal(k).astype(np.float32)).to(dev),
         plan.num_segments_local, plan.config.segment_width)
-    errs["spmv"] = max(errs["spmv"],
-                       compare_spmv(idx, val, seg, x1, geo, tpc))
-    say(f"[phase1] G7 fp32 stream: spmv err {errs['spmv']:.3e}")
+    say(f"[phase1] spmv stream pass, ptxas: {spmv_build_report()}")
+    lanes = plan.config.lanes
+    # A plan forced to two row windows of 8 lanes, 4 splits.
+    multi = ks.spmv_plan_of(lanes, geo["num_rows_padded"], 8, 2, 4)
+    for label, forced in (("G7 fp32 stream", None),
+                          ("G7 fp32 stream, forced windows", multi)):
+        e, line = compare_spmv(label, idx, val, seg, x1, geo, tpc, forced)
+        errs["spmv"] = max(errs["spmv"], e)
+        say(f"[phase1] {line}")
     say(f"[phase1] spmm instantiations, ptxas: {spmm_build_report()}")
 
     def spmm_cases(label, sidx, sval, sseg, sgeo, stpc, skp, sk, ns):
@@ -1348,9 +1434,10 @@ def main() -> int:
     bidx, bval, bseg, bgeo = stream_on_card(bf_plan, dev)
     if bval.dtype != torch.bfloat16:
         raise AssertionError(f"bf16 stream arrived as {bval.dtype}")
-    e = compare_spmv(bidx, bval, bseg, x1, bgeo, tpc)
+    e, line = compare_spmv("G7 bf16 stream", bidx, bval, bseg, x1, bgeo,
+                           tpc)
     errs["spmv"] = max(errs["spmv"], e)
-    say(f"[phase1] G7 bf16 stream: spmv err {e:.3e}")
+    say(f"[phase1] {line}")
     spmm_cases("G7 bf16", bidx, bval, bseg, bgeo, tpc, kp, k,
                ((16, 0), (2, 0), (3, 0)))
 
@@ -1362,9 +1449,10 @@ def main() -> int:
     okp = opt_plan.num_segments_local * ocfg.segment_width
     xo = rng.standard_normal(shape2[1]).astype(np.float32)
     xo_d = ops.pad_rows(torch.from_numpy(xo).to(dev), okp)
-    e1 = compare_spmv(oidx, oval, oseg, xo_d, ogeo,
-                        ocfg.tiles_per_chunk)
+    e1, line = compare_spmv("G7 x0.1 OPTIMIZED_CONFIG stream", oidx, oval,
+                            oseg, xo_d, ogeo, ocfg.tiles_per_chunk)
     errs["spmv"] = max(errs["spmv"], e1)
+    say(f"[phase1] {line}")
     spmm_cases("G7 x0.1 OPTIMIZED_CONFIG", oidx, oval, oseg, ogeo,
                ocfg.tiles_per_chunk, okp, shape2[1],
                ((64, 0), (16, 0), (2, 0), (3, 0)))
@@ -1439,26 +1527,32 @@ def main() -> int:
         csr = torch.sparse_coo_tensor(
             torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(vals),
             shape).to(dev).coalesce().to_sparse_csr()
-    times = {
-        "spmv": {
-            "ms": time_ms(p(ks.spmv, idx, val, seg, x1,
-                            tiles_per_chunk=tpc, **geo), 50),
-            "plain_ms": time_ms(p(ks.spmv_plain, idx, val, seg, x1,
-                                  **geo), 10),
-            "library_ms": time_ms(p(torch.mv, csr,
-                                    x1[:k].contiguous()), 50)},
-    }
-    bf_ms = time_ms(p(ks.spmv, bidx, bval, bseg, x1, tiles_per_chunk=tpc,
-                      **bgeo), 50)
+    # spmv (fp32 and bf16 streams) and torch.mv on CSR in turns.
+    turns = in_turns({
+        "kernel": p(ks.spmv, idx, val, seg, x1, tiles_per_chunk=tpc, **geo),
+        "bf16": p(ks.spmv, bidx, bval, bseg, x1, tiles_per_chunk=tpc,
+                  **bgeo),
+        "library": p(torch.mv, csr, x1[:k].contiguous())}, 50)
+    times = {"spmv": {
+        "ms": turns["kernel"], "library_ms": turns["library"],
+        "plain_ms": time_ms(p(ks.spmv_plain, idx, val, seg, x1, **geo), 10),
+        "plan": ks._card_spmv_plan(idx, geo["num_rows_padded"])}}
+    bf_ms = turns["bf16"]
     bounds = {"spmv": bound_ms(plan, 1)}
     bf_bound = bound_ms(bf_plan, 1)
     b, by = bounds["spmv"]
     tm = times["spmv"]
-    say(f"[phase3] spmv (N=1, fp32, G7): kernel {tm['ms']:.4f} ms, "
-        f"plain {tm['plain_ms']:.4f} ms, torch.sparse CSR "
-        f"{tm['library_ms']:.4f} ms, bound {b:.4f} ms ({by}); "
-        f"{b / tm['ms']:.3f} of the bound "
-        f"({b / tm['ms'] * HBM_BYTES_PER_S / 1e9:.1f} GB/s)  [{card}]")
+    reads = ", ".join(f"{name} " + " / ".join(f"{x:.4f}" for x in r)
+                      for name, r in turns["reads"].items())
+    pl = tm["plan"]
+    say(f"[phase3] spmv (N=1, fp32, G7): kernel {tm['ms']:.4f} ms "
+        f"({pl.lane_group} lanes a block, {len(pl.windows)} window(s), "
+        f"{pl.splits} split(s)), plain {tm['plain_ms']:.4f} ms, "
+        f"torch.sparse CSR {tm['library_ms']:.4f} ms "
+        f"({tm['library_ms'] / tm['ms']:.2f}x the kernel's speed), bound "
+        f"{b:.4f} ms ({by}); {b / tm['ms']:.3f} of the bound "
+        f"({b / tm['ms'] * HBM_BYTES_PER_S / 1e9:.1f} GB/s); readings in "
+        f"turns: {reads}  [{card}]")
     say(f"[phase3] spmv (N=1, bf16, G7): kernel {bf_ms:.4f} ms, bound "
         f"{bf_bound[0]:.4f} ms; {bf_bound[0] / bf_ms:.3f} of the bound  "
         f"[{card}]")
@@ -1537,6 +1631,8 @@ def main() -> int:
         if entry["name"] == "spmm":
             entry["bodies"] = spmm_bodies
             entry["by_n"] = spmm_by_n
+        if entry["name"] in ("spmv", "spmv_fused"):
+            entry["plan"] = plan_record(times[entry["name"]]["plan"])
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
