@@ -20,7 +20,8 @@ package.  Phases:
    printed (a spill fails the run).  The stream pass runs on both G7
    streams and the ``OPTIMIZED_CONFIG`` plan as ``spmv_plan`` plans it,
    and on the fp32 G7 stream on a plan forced to two row windows of 8
-   lanes; the plan that ran is read back (``spmv_last_plan``).  Each SpMM
+   lanes; the plan that ran is read back (``spmv_last_plan``), here and
+   wherever a stream pass or fused step is timed.  Each SpMM
    vector width runs on both streams and on the ``OPTIMIZED_CONFIG``
    plan: v4 at N = 16 (four row-window passes at G7) or 64 (two at scale
    0.1), v2 at N = 2, v1 at N = 3 and, at G7, at N = 16 on an X one
@@ -306,6 +307,23 @@ def spmv_build_report() -> str:
     return "; ".join(out)
 
 
+def ran_plan(fn, seen: set):
+    """``fn``, adding to ``seen`` the stream-pass plan each call ran."""
+    def run():
+        out = fn()
+        seen.add(ks.spmv_last_plan)
+        return out
+    return run
+
+
+def one_plan(what: str, seen: set, want):
+    """``want``, once every call recorded in ``seen`` ran it; raises if any
+    call ran another plan."""
+    if seen != {want}:
+        raise AssertionError(f"{what} ran {seen}, not {want}")
+    return want
+
+
 def plan_record(plan) -> dict:
     return {"lane_group": plan.lane_group, "windows": len(plan.windows),
             "splits": plan.splits}
@@ -577,9 +595,13 @@ def compare_fused(name, op, dev) -> float:
         x.abs(), op.plan.num_segments_local, cfg.segment_width), **geo)
     k_extras = tuple(e.clone() for e in extras)
     kx = op.from_acc_layout(k_extras[2 if name == "cg" else 0])
-    acc, got = ks.spmv_fused(idx, val, seg, kx, k_extras, epilogue=ep,
-                             tiles_per_chunk=cfg.tiles_per_chunk, **geo)
+    seen = set()
+    acc, got = ran_plan(functools.partial(
+        ks.spmv_fused, idx, val, seg, kx, k_extras, epilogue=ep,
+        tiles_per_chunk=cfg.tiles_per_chunk, **geo), seen)()
     torch.cuda.synchronize()
+    one_plan(f"spmv_fused[{name}]", seen,
+             ks._card_spmv_plan(idx, geo["num_rows_padded"]))
     worst = check_close(f"spmv_fused[{name}] acc vs plain", acc, want_acc,
                         scale)
     n_state = len(ks._EPILOGUES[ep].state)
@@ -641,9 +663,10 @@ def time_fused(name, op, dev, csr) -> dict:
     loop = ks.FusedLoop(dev, stop=-float("inf"), max_iters=1 << 30,
                         scalars=(0.0,) * ks._EPILOGUES[ep].scalars)
 
-    def fused():
-        ks.spmv_fused(idx, val, seg, x, extras, epilogue=ep, loop=loop,
-                      tiles_per_chunk=cfg.tiles_per_chunk, **geo)
+    seen = set()
+    fused = ran_plan(functools.partial(
+        ks.spmv_fused, idx, val, seg, x, extras, epilogue=ep, loop=loop,
+        tiles_per_chunk=cfg.tiles_per_chunk, **geo), seen)
 
     lanes = cfg.lanes
     m = op.shape[0]
@@ -659,7 +682,9 @@ def time_fused(name, op, dev, csr) -> dict:
     turns = in_turns({"fused": fused, "library": library}, 20)
     return {"ms": turns["fused"], "library_ms": turns["library"],
             "reads": turns["reads"],
-            "plan": ks._card_spmv_plan(idx, geo["num_rows_padded"]),
+            "plan": one_plan(f"timed spmv_fused[{name}]", seen,
+                             ks._card_spmv_plan(idx,
+                                                geo["num_rows_padded"])),
             "fused_iter_ms": time_ms(bodies["fused"], 3) / BODY_ITERS,
             "unfused_iter_ms": time_ms(bodies["unfused"], 3) / BODY_ITERS,
             "plain_ms": time_ms(functools.partial(
@@ -1528,15 +1553,20 @@ def main() -> int:
             torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(vals),
             shape).to(dev).coalesce().to_sparse_csr()
     # spmv (fp32 and bf16 streams) and torch.mv on CSR in turns.
+    seen, bf_seen = set(), set()
     turns = in_turns({
-        "kernel": p(ks.spmv, idx, val, seg, x1, tiles_per_chunk=tpc, **geo),
-        "bf16": p(ks.spmv, bidx, bval, bseg, x1, tiles_per_chunk=tpc,
-                  **bgeo),
+        "kernel": ran_plan(p(ks.spmv, idx, val, seg, x1,
+                             tiles_per_chunk=tpc, **geo), seen),
+        "bf16": ran_plan(p(ks.spmv, bidx, bval, bseg, x1,
+                           tiles_per_chunk=tpc, **bgeo), bf_seen),
         "library": p(torch.mv, csr, x1[:k].contiguous())}, 50)
     times = {"spmv": {
         "ms": turns["kernel"], "library_ms": turns["library"],
         "plain_ms": time_ms(p(ks.spmv_plain, idx, val, seg, x1, **geo), 10),
-        "plan": ks._card_spmv_plan(idx, geo["num_rows_padded"])}}
+        "plan": one_plan("timed spmv", seen, ks._card_spmv_plan(
+            idx, geo["num_rows_padded"]))}}
+    one_plan("timed bf16 spmv", bf_seen,
+             ks._card_spmv_plan(bidx, bgeo["num_rows_padded"]))
     bf_ms = turns["bf16"]
     bounds = {"spmv": bound_ms(plan, 1)}
     bf_bound = bound_ms(bf_plan, 1)

@@ -243,40 +243,31 @@ cudaError_t spmv_geo_check(SpmvGeo& g) {
   return cudaSuccess;
 }
 
-// When the carve-out a launch needs differs from the last one of this
-// kernel: allow the largest shared accumulator and carve out only the
-// shared memory of the blocks an SM will hold (each with its 1 KB
-// reserve), in percent of the SM's 228 KB.  The rest stays L1, which holds
-// the x segment a block gathers from.
+// Devices whose spmv_kernel<V> may already take the largest shared
+// accumulator.
+constexpr int kMaxDevices = 64;
+
+// Lets spmv_kernel<V> ask for kSpmvMaxSmem on the current device, once per
+// device; the driver picks the carve-out.
+template <typename V>
+cudaError_t spmv_allow_smem() {
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && allowed[dev])) return err;
+  err = cudaFuncSetAttribute(spmv_kernel<V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSpmvMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
 template <typename V>
 cudaError_t launch_spmv_t(const SpmvGeo& g, const void* idx, const void* val,
                           const void* seg, const void* x, void* acc,
                           const int* ctrl, cudaStream_t st) {
-  static int carveout = -1;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  const int per_block = g.smem + 1024;
-  const int per_sm = max(1, min(min(2048 / kSpmvThreads, 233472 / per_block),
-                                (g.blocks + sms - 1) / sms));
-  const int pct = static_cast<int>(
-      (int64_t{per_sm} * per_block * 100 + 233471) / 233472);
-  if (pct != carveout) {
-    cudaError_t err = cudaFuncSetAttribute(
-        spmv_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSpmvMaxSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          spmv_kernel<V>, cudaFuncAttributePreferredSharedMemoryCarveout,
-          pct);
-    if (err != cudaSuccess) return err;
-    carveout = pct;
-  }
+  const cudaError_t err = spmv_allow_smem<V>();
+  if (err != cudaSuccess) return err;
   spmv_kernel<V><<<g.blocks, kSpmvThreads, g.smem, st>>>(
       static_cast<const int32_t*>(idx), static_cast<const V*>(val),
       static_cast<const int32_t*>(seg), static_cast<const float*>(x),

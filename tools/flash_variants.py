@@ -17,13 +17,9 @@ It needs a CUDA card and ``nvcc``, and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-import concurrent.futures
-import ctypes
 import functools
 import json
 import os
-import re
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,11 +27,11 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 import torch  # noqa: E402
+import variant_build as vb  # noqa: E402
 
 fa = cs.fa
 build = fa._build
 SOURCE = build.CSRC / "flash_attention.cu"
-OUT = os.path.join(ROOT, "build", "variants")
 
 STAGES = "  static constexpr int STAGES = 3;                // ring depth"
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
@@ -68,33 +64,14 @@ SHAPES = (("smoke", 4, 2000, 16, 1, 64), ("prefill_32k", 1, 32768, 16, 1, 64),
           ("dh 128 S 16384", 1, 16384, 8, 1, 128))
 
 
-def variant_source(edits) -> str:
-    src = SOURCE.read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise AssertionError(f"variant edit not found once: {old!r}")
-        src = src.replace(old, new)
-    return src
+variant_source = functools.partial(vb.variant_source, SOURCE)
 
 
 def build_variant(name: str):
     """nvcc of one variant; returns (library, ptxas summary per dh)."""
-    stem = re.sub(r"\W+", "_", name)
-    cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
-    with open(cu, "w") as f:
-        f.write(variant_source(VARIANTS[name]))
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    lines = (proc.stdout + proc.stderr).splitlines()
-    report = {}
-    for i, line in enumerate(lines):
-        hit = re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)
-        if hit and "Compiling entry function" in line:
-            report[int(hit[1])] = " ".join(
-                x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-    lib = ctypes.CDLL(so)
+    lib, report = vb.nvcc_build(name, variant_source(VARIANTS[name]),
+                                r"flash_fwd_wgmma_kernelILi(\d+)E",
+                                lambda hit: f"dh {hit[1]}")
     fa._declare(lib)
     return lib, report
 
@@ -106,13 +83,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     print(card, flush=True)
-    os.makedirs(OUT, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    built = vb.build_all({name: (build_variant, name) for name in VARIANTS})
     libs = {name: lib for name, (lib, _) in built.items()}
     for name, (_, report) in built.items():
-        print(f"[variants] {name}: " + "; ".join(
-            f"dh {d}: {r}" for d, r in sorted(report.items())), flush=True)
+        print(f"[variants] {name}: " + "; ".join(sorted(report)), flush=True)
 
     def use(name):
         build._libs["flash_attention"] = libs[name]
@@ -142,13 +116,11 @@ def main() -> int:
             torch.nn.functional.scaled_dot_product_attention,
             q.view(b, s, kvh * g, d).transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), is_causal=True, enable_gqa=g > 1)
-        reads = {name: [] for name in runs}
-        for order in (list(runs), list(runs)[::-1]):
-            for name in order:
-                if name in libs:
-                    use(name)
-                reads[name].append(cs.time_ms(runs[name], 10))
-        times[key] = {n: sum(r) / len(r) for n, r in reads.items()}
+        for name in libs:
+            runs[name] = functools.partial(
+                lambda name, run: (use(name), run()), name, runs[name])
+        times[key] = cs.in_turns(runs, 10)
+        times[key].pop("reads")
         bound = cs.flash_bound(b, s, kvh, g, d, d, True)[0]
         print(f"[variants] {key} (B={b}, S={s}, KV={kvh}, G={g}, dh={d}, "
               f"causal; bound {bound:.4f} ms): " + ", ".join(

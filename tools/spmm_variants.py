@@ -34,12 +34,9 @@ and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-import concurrent.futures
-import ctypes
+import functools
 import json
 import os
-import re
-import subprocess
 import sys
 import time
 import warnings
@@ -50,11 +47,10 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import variant_build as vb  # noqa: E402
 
 ks = cs.ks
-build = ks._build
-SOURCE = build.CSRC / "serpens_spmv.cu"
-OUT = os.path.join(ROOT, "build", "variants")
+SOURCE = ks._build.CSRC / "serpens_spmv.cu"
 NS = (2, 4, 8, 16)
 ITERS = 20
 ROW_PASSES = (1, 2, 3, 4, 6)    # row windows of the row-pass entries
@@ -81,35 +77,16 @@ VARIANTS = {
 }
 
 
-def variant_source(edits) -> str:
-    src = SOURCE.read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise AssertionError(f"variant edit not found once: {old!r}")
-        src = src.replace(old, new)
-    return src
+variant_source = functools.partial(vb.variant_source, SOURCE)
 
 
 def build_variant(name: str):
     """nvcc of one variant; returns (library, ptxas summary per
     instantiation)."""
-    stem = "spmm_" + re.sub(r"\W+", "_", name)
-    cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
-    with open(cu, "w") as f:
-        f.write(variant_source(VARIANTS[name][0]))
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    lines = (proc.stdout + proc.stderr).splitlines()
-    report = []
-    for i, line in enumerate(lines):
-        hit = re.search(r"spmm_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
-        if hit and "Compiling entry function" in line:
-            report.append(f"{'fp32' if hit[1] == 'f' else 'bf16'} v{hit[2]}"
-                          ": " + " ".join(x.split(":", 1)[-1].strip()
-                                          for x in lines[i + 2:i + 4]))
-    lib = ctypes.CDLL(so)
+    lib, report = vb.nvcc_build(
+        "spmm_" + name, variant_source(VARIANTS[name][0]),
+        r"spmm_kernelI(f|13__nv_bfloat16)Li(\d)E",
+        lambda hit: f"{'fp32' if hit[1] == 'f' else 'bf16'} v{hit[2]}")
     ks._declare(lib)
     return lib, report
 
@@ -172,9 +149,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     cs.say(card)
-    os.makedirs(OUT, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(build_variant, VARIANTS)))
+    built = vb.build_all({name: (build_variant, name) for name in VARIANTS})
     libs = {name: lib for name, (lib, _) in built.items()}
     for name, (_, report) in built.items():
         cs.say(f"[ptxas] {name}: " + "; ".join(report))
@@ -228,16 +203,13 @@ def main() -> int:
         del want, scale
         xk = x[:shape[1]].contiguous()
         fns["torch.mm CSR"] = lambda xk=xk: torch.mm(csr, xk)
-        order = list(fns)
-        ms = {name: [] for name in order}
-        for turn in (order, order[::-1]):
-            for name in turn:
-                ms[name].append(cs.time_ms(fns[name], ITERS))
-        lib_ms = float(np.mean(ms["torch.mm CSR"]))
+        turns = cs.in_turns(fns, ITERS)
+        ms = turns["reads"]
+        lib_ms = turns["torch.mm CSR"]
         record[str(n)] = {}
         b = cs.bound_ms(plan, n)[0]
-        for name in order:
-            mean = float(np.mean(ms[name]))
+        for name in fns:
+            mean = turns[name]
             npass = passes.get(name, 1)
             bp = cs.bound_ms(plan, n, npass)[0]
             record[str(n)][name] = {"ms": mean, "passes": npass}

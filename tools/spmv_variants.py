@@ -21,23 +21,20 @@ diagnostic variants compute something else and are timed only.
 Entries: ``planned`` (:func:`spmv` as the server calls it, fp32 and
 bf16 streams); each variant on the plan; the committed source on other
 plans (``PLANS``: other lane groups, with the windows they need, and
-other split counts); and, with ``--parent DIR`` (an unpacked tree of an
-earlier commit whose ``serpens_spmv`` entry takes a grid of 128-thread
-blocks, one thread per lane), that tree's body, built from its source.
-Last, at G7, the planned pass and CSR on the stand-in at scale 0.1, whose
-stream stays in L2 between calls.  The last line is one JSON object of
+other split counts), on both streams; and, with ``--parent DIR`` (an
+unpacked tree of an earlier commit), that tree's own ``spmv`` wrapper on
+its own source, built here.  Last, at G7, the pass as built and at each
+carve-out, and CSR, on the stand-in at scale 0.1, whose stream stays in
+L2 between calls.  The last line is one JSON object of
 the mean times.  It needs a CUDA card and ``nvcc``, and imports nothing
 of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import ctypes
+import functools
 import json
 import os
-import re
-import subprocess
 import sys
 import time
 import warnings
@@ -48,11 +45,10 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import variant_build as vb  # noqa: E402
 
 ks = cs.ks
-build = ks._build
-SOURCE = build.CSRC / "serpens_spmv.cu"
-OUT = os.path.join(ROOT, "build", "variants")
+SOURCE = ks._build.CSRC / "serpens_spmv.cu"
 ITERS = 50
 
 UNROLL = "constexpr int kSpmvUnroll = 4;"
@@ -61,12 +57,30 @@ GATHER = "xv[u] = live ? __ldg(x + col) : 0.f;"
 RED = "if (dst[u] >= 0) atomicAdd(s_acc + dst[u], v[u] * xv[u]);"
 CONST_X = (GATHER, "xv[u] = live ? __ldg(x) : 0.f;")
 STORES = (RED, "if (dst[u] >= 0) s_acc[dst[u]] = v[u] * xv[u];")
+ALLOW = """  err = cudaFuncSetAttribute(spmv_kernel<V>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSpmvMaxSmem);
+"""
+
+
+def carveout(pct: int) -> tuple:
+    """The edit that also asks for a ``pct`` % shared-memory carve-out (the
+    committed source leaves it to the driver)."""
+    return (ALLOW, ALLOW + "  if (err == cudaSuccess)\n    err = "
+            "cudaFuncSetAttribute(spmv_kernel<V>, cudaFuncAttributePreferred"
+            f"SharedMemoryCarveout, {pct});\n")
+
+
 # name -> ([(text in the committed source, its replacement)], computes A·x)
 VARIANTS = {
     "built": ([], True),
     "unroll 2": ([(UNROLL, "constexpr int kSpmvUnroll = 2;")], True),
     "unroll 8": ([(UNROLL, "constexpr int kSpmvUnroll = 8;")], True),
     "512 threads": ([(THREADS, "constexpr int kSpmvThreads = 512;")], True),
+    # 100: all shared (228 KB, 28 KB of L1); 82: 196 KB, the least that
+    # holds G5's 188,544 B block.
+    "carve-out 100%": ([carveout(100)], True),
+    "carve-out 82%": ([carveout(82)], True),
     # Diagnostics: what the time is made of.
     "constant x": ([CONST_X], False),
     "stores, not reductions": ([STORES], False),
@@ -75,61 +89,21 @@ VARIANTS = {
 # Plans of the committed source, (lane_group, windows, splits).
 PLANS = {"G7": [(2, 1, 2), (2, 1, 4), (4, 1, 8), (8, 2, 4)],
          "G5": [(8, 1, 8), (8, 1, 16), (8, 1, 32), (4, 1, 16), (16, 1, 8),
-                (16, 1, 32)]}
+                (16, 1, 32), (12, 1, 11), (14, 1, 13), (19, 1, 18),
+                (19, 1, 36)]}
 # The stand-in at this scale, whose stream (29 MB) stays in L2 between
 # calls: the planned pass and CSR.
 SMALL_SCALE = 0.1
 
 
-def variant_source(edits) -> str:
-    src = SOURCE.read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise AssertionError(f"variant edit not found once: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def nvcc_build(stem: str, source: str, pattern: str):
-    """nvcc of one source; returns (library, ptxas summary of the entry
-    functions whose names match ``pattern``)."""
-    cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
-    with open(cu, "w") as f:
-        f.write(source)
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{stem}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    lines = (proc.stdout + proc.stderr).splitlines()
-    report = []
-    for i, line in enumerate(lines):
-        hit = re.search(pattern, line)
-        if hit and "Compiling entry function" in line:
-            report.append(hit[0] + ": " + " ".join(
-                x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4]))
-    return ctypes.CDLL(so), report
+variant_source = functools.partial(vb.variant_source, SOURCE)
+PATTERN = r"spmv_kernelI(f|13__nv_bfloat16)E"
 
 
 def build_variant(name: str):
-    lib, report = nvcc_build("spmv_" + re.sub(r"\W+", "_", name),
-                             variant_source(VARIANTS[name][0]),
-                             r"spmv_kernelI(f|13__nv_bfloat16)E")
+    lib, report = vb.nvcc_build("spmv_" + name,
+                                variant_source(VARIANTS[name][0]), PATTERN)
     ks._declare(lib)
-    return lib, report
-
-
-def build_parent(tree: str):
-    """The parent tree's serpens_spmv entry (a grid of one-thread-per-lane
-    blocks with global fp32 atomics)."""
-    src = os.path.join(tree, "src", "repro_torch", "kernels", "csrc",
-                       "serpens_spmv.cu")
-    with open(src) as f:
-        lib, report = nvcc_build("spmv_parent", f.read(),
-                                 r"spmv_kernelI(f|13__nv_bfloat16)Ev")
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.serpens_spmv.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i64,
-                                 i64, i32, i32, p]
-    lib.serpens_spmv.restype = i32
     return lib, report
 
 
@@ -142,21 +116,6 @@ def run_plan(lib, idx, val, seg, x, geo, plan):
     ks._raise_on(lib.serpens_spmv(
         *ks._spmv_args(idx, val, seg, x, plan, acc, geo["segment_width"]),
         stream), "serpens_spmv")
-    return acc
-
-
-def run_parent(lib, idx, val, seg, x, geo):
-    """The parent's body at its own grid (16 blocks per SM)."""
-    acc = torch.zeros(geo["num_rows_padded"], dtype=torch.float32,
-                      device=x.device)
-    num_tiles, sub, lanes = idx.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ks._raise_on(lib.serpens_spmv(
-        idx.data_ptr(), val.data_ptr(), seg.data_ptr(), x.data_ptr(),
-        acc.data_ptr(), num_tiles, sub, lanes, geo["segment_width"],
-        x.shape[0], geo["num_rows_padded"],
-        int(val.dtype == torch.bfloat16), max(1, min(num_tiles, sms * 16)),
-        torch.cuda.current_stream().cuda_stream), "parent serpens_spmv")
     return acc
 
 
@@ -173,13 +132,12 @@ def main() -> int:
     dev = torch.device("cuda")
     card = cs.card_line()
     cs.say(card)
-    os.makedirs(OUT, exist_ok=True)
     jobs = {name: (build_variant, name) for name in VARIANTS}
     if args.parent:
-        jobs["parent"] = (build_parent, args.parent)
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        futs = {name: pool.submit(fn, arg) for name, (fn, arg) in jobs.items()}
-        built = {name: f.result() for name, f in futs.items()}
+        jobs["parent"] = (functools.partial(
+            vb.tree_module, module="kernels.serpens_spmv",
+            stem="serpens_spmv", pattern=PATTERN), args.parent)
+    built = vb.build_all(jobs)
     for name, (_, report) in built.items():
         cs.say(f"[ptxas] {name}: " + "; ".join(report))
     libs = {name: lib for name, (lib, _) in built.items()}
@@ -196,7 +154,6 @@ def main() -> int:
         streams[dtype] = cs.stream_on_card(plan, dev) + (plan,)
     idx, val, seg, geo, plan = streams["float32"]
     bidx, bval, bseg, bgeo, bplan = streams["bfloat16"]
-    kp = plan.num_segments_local * plan.config.segment_width
     rp = geo["num_rows_padded"]
     sp = ks._card_spmv_plan(idx, rp)
     cs.say(f"[setup] {gid} {shape[0]} x {shape[1]}, R_pad {rp}, "
@@ -212,57 +169,50 @@ def main() -> int:
                                       .astype(np.float32)).to(dev),
                      plan.num_segments_local, plan.config.segment_width)
     lanes = idx.shape[2]
-    fns = {"planned": lambda: ks.spmv(idx, val, seg, x, **geo),
-           "planned, bf16 stream": lambda: ks.spmv(bidx, bval, bseg, x,
-                                                   **bgeo)}
-    checked = {"planned": True, "planned, bf16 stream": True}
-    labels = {"planned": str(sp), "planned, bf16 stream": str(sp)}
+    on = {"": (idx, val, seg, geo), ", bf16 stream": (bidx, bval, bseg, bgeo)}
+    fns = {f"planned{sfx}": functools.partial(ks.spmv, i_, v_, s_, x, **g_)
+           for sfx, (i_, v_, s_, g_) in on.items()}
+    checked = dict.fromkeys(fns, True)
+    labels = dict.fromkeys(fns, str(sp))
     for name, (_, ok) in VARIANTS.items():
-        fns[name] = (lambda lib=libs[name]: run_plan(lib, idx, val, seg, x,
-                                                     geo, sp))
+        fns[name] = functools.partial(run_plan, libs[name], idx, val, seg, x,
+                                      geo, sp)
         checked[name], labels[name] = ok, "the plan"
     for lg, windows, splits in PLANS[gid]:
         p = ks.spmv_plan_of(lanes, rp, lg, windows, splits)
-        name = f"lg {lg}, {windows} window(s), {splits} split(s)"
-        fns[name] = (lambda p=p: run_plan(libs["built"], idx, val, seg, x,
-                                          geo, p))
-        checked[name], labels[name] = True, f"{p.blocks} blocks"
+        for sfx, (i_, v_, s_, g_) in on.items():
+            name = f"lg {lg}, {windows} window(s), {splits} split(s){sfx}"
+            fns[name] = functools.partial(run_plan, libs["built"], i_, v_, s_,
+                                          x, g_, p)
+            checked[name], labels[name] = True, f"{p.blocks} blocks"
     if args.parent:
-        for label, (i_, v_, s_, g_) in (("", (idx, val, seg, geo)),
-                                        (", bf16 stream",
-                                         (bidx, bval, bseg, bgeo))):
-            fns["parent" + label] = (
-                lambda i_=i_, v_=v_, s_=s_, g_=g_: run_parent(
-                    libs["parent"], i_, v_, s_, x, g_))
-            checked["parent" + label], labels["parent" + label] = \
-                True, "its grid"
+        for sfx, (i_, v_, s_, g_) in on.items():
+            name = "parent" + sfx
+            fns[name] = functools.partial(libs["parent"].spmv, i_, v_, s_, x,
+                                          **g_)
+            checked[name], labels[name] = True, "its own wrapper"
     for name, fn in fns.items():
         if not checked[name]:
             continue
-        i_, v_, s_, g_ = ((bidx, bval, bseg, bgeo) if "bf16" in name
-                          else (idx, val, seg, geo))
+        i_, v_, s_, g_ = on[", bf16 stream" if "bf16" in name else ""]
         want = ks.spmv_plain(i_, v_, s_, x, **g_)
         scale = ks.spmv_plain(i_, v_.abs(), s_, x.abs(), **g_)
         cs.check_close(f"{name} vs plain", fn(), want, scale)
         del want, scale
     xk = x[:shape[1]].contiguous()
-    fns["torch.mv CSR"] = lambda: torch.mv(csr, xk)
-    order = list(fns)
-    ms = {name: [] for name in order}
-    for turn in (order, order[::-1]):
-        for name in turn:
-            ms[name].append(cs.time_ms(fns[name], ITERS))
-    lib_ms = float(np.mean(ms["torch.mv CSR"]))
+    fns["torch.mv CSR"] = functools.partial(torch.mv, csr, xk)
+    turns = cs.in_turns(fns, ITERS)
+    lib_ms = turns["torch.mv CSR"]
     b = cs.bound_ms(plan, 1)[0]
     bb = cs.bound_ms(bplan, 1)[0]
     record = {"card": card}
-    for name in order:
-        mean = float(np.mean(ms[name]))
-        record[name] = mean
+    for name in fns:
+        mean = record[name] = turns[name]
+        reads = turns["reads"][name]
         tag = "" if checked.get(name, True) else " [diagnostic]"
         bd = bb if "bf16" in name else b
         cs.say(f"[spmv] {name}{tag} ({labels.get(name, 'library')}): "
-               f"{mean:.4f} ms ({ms[name][0]:.4f} / {ms[name][1]:.4f}), "
+               f"{mean:.4f} ms ({reads[0]:.4f} / {reads[1]:.4f}), "
                f"bound {bd:.4f} ms ({bd / mean:.3f}); {lib_ms / mean:.2f}x "
                f"the speed of CSR  [{card}]")
     if gid == "G7":
@@ -272,9 +222,9 @@ def main() -> int:
 
 
 def small_scale(libs, card) -> dict:
-    """The planned pass and CSR on the stand-in at SMALL_SCALE, whose
-    stream stays in L2 between calls: what the pass costs when DRAM sets
-    nothing."""
+    """The pass as built and with each carve-out, and CSR, on the stand-in
+    at SMALL_SCALE, whose stream stays in L2 between calls: what the pass
+    costs when DRAM sets nothing."""
     dev = torch.device("cuda")
     rows, cols, vals, shape, _ = cs.paper_matrix("G7", scale=SMALL_SCALE,
                                                  seed=cs.SEED)
@@ -291,15 +241,13 @@ def small_scale(libs, card) -> dict:
         csr = torch.sparse_coo_tensor(
             torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(vals),
             shape).to(dev).coalesce().to_sparse_csr()
-    xk = x[:shape[1]].contiguous()
-    fns = {"built": lambda: run_plan(libs["built"], idx, val, seg, x, geo,
-                                     sp)}
-    fns["torch.mv CSR"] = lambda: torch.mv(csr, xk)
-    ms = {name: [] for name in fns}
-    for turn in (list(fns), list(fns)[::-1]):
-        for name in turn:
-            ms[name].append(cs.time_ms(fns[name], ITERS))
-    out = {name: float(np.mean(r)) for name, r in ms.items()}
+    fns = {name: functools.partial(run_plan, libs[name], idx, val, seg, x,
+                                   geo, sp)
+           for name in ("built", "carve-out 100%", "carve-out 82%")}
+    fns["torch.mv CSR"] = functools.partial(torch.mv, csr,
+                                            x[:shape[1]].contiguous())
+    out = cs.in_turns(fns, ITERS)
+    out.pop("reads")
     cs.say(f"[spmv] G7 x{SMALL_SCALE} ({plan.stream_bytes / 1e6:.1f} MB "
            f"stream, plan {sp}): " + ", ".join(
                f"{name} {t:.4f} ms" for name, t in out.items())
