@@ -225,10 +225,10 @@ def spmv_plan(num_tiles: int, sub: int, lanes: int, num_rows_padded: int,
     The lane group is the largest whose accumulator (``lane_group × rows``
     fp32) fits in ``smem_bytes``, rounded down to a multiple of 8 (8
     lanes' idx are one 32-byte sector) or else of 4, unless it takes every
-    lane; it is at most ``lanes`` and 1024 (one thread a lane).  When not even one lane's rows fit
-    (lane-local rows go up to 65,536, 256 KB), the group is one lane and
-    its rows are cut into the fewest equal windows that fit, each one more
-    read of the lane's stream.  Splits share each (group, window) cell's
+    lane; it is at most ``lanes`` and 1024 (one thread a lane).  When not
+    even one lane's rows fit (lane-local rows go up to 65,536, 256 KB),
+    the group is one lane and its rows are cut into the fewest equal
+    windows that fit, each one more read of the lane's stream.  Splits share each (group, window) cell's
     tiles so that the blocks number about one per SM.  A stream of 2^31
     slots or more is refused (the kernel counts slots in 32 bits).
     """

@@ -97,3 +97,50 @@ def test_spmv_variants_tool_imports_no_jax_and_needs_a_card():
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def test_spmm_variants_tool_imports_no_jax_and_needs_a_card():
+    """``tools/spmm_variants.py`` (the SpMM kernel's design steps and source
+    variants timed on the card) imports nothing of JAX, and its edits
+    still apply to the source."""
+    run(textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tools")
+        import spmm_variants as mv
+        for edits, _ in mv.VARIANTS.values():
+            mv.variant_source(edits)
+    """) + LEAKS)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "tools/spmm_variants.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+def test_variant_build_binds_a_tree_module_to_its_own_build():
+    """``tools/variant_build.tree_module`` loads a tree's wrapper module
+    beside the package, declares that tree's C entries on the library
+    built from its source, and makes the module launch through it."""
+    run(textwrap.dedent("""
+        import sys, types
+        sys.path.insert(0, "tools")
+        import variant_build as vb
+        from repro_torch.kernels import serpens_spmv as ks
+        built = []
+        lib = types.SimpleNamespace(**{
+            name: types.SimpleNamespace() for name in (
+                "serpens_spmv", "serpens_spmm", "serpens_spmv_fused")})
+
+        def fake_build(stem, source, pattern):
+            built.append((stem, "spmv_kernel" in source, pattern))
+            return lib, ["report"]
+
+        vb.nvcc_build = fake_build
+        mod, report = vb.tree_module(".", "kernels.serpens_spmv",
+                                     "serpens_spmv", "p")
+        assert mod is not ks and mod._library() is lib, mod
+        assert report == ["report"] and built == [
+            ("tree_serpens_spmv", True, "p")], built
+        assert lib.serpens_spmv.restype is not None
+    """) + LEAKS)
