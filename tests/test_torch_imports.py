@@ -80,39 +80,21 @@ def test_flash_variants_tool_imports_no_jax_and_needs_a_card():
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 
-def test_spmv_variants_tool_imports_no_jax_and_needs_a_card():
-    """``tools/spmv_variants.py`` (the SpMV stream pass's plans and source
-    variants timed on the card) imports nothing of JAX, and its edits
-    still apply to the source."""
-    run(textwrap.dedent("""
+@pytest.mark.parametrize("tool", ["spmv_variants", "spmm_variants"])
+def test_stream_variant_tool_imports_no_jax_and_needs_a_card(tool):
+    """``tools/spmv_variants.py`` and ``tools/spmm_variants.py`` (the
+    stream kernels' plans and source variants timed on the card) import
+    nothing of JAX, and their edits still apply to the source."""
+    run(textwrap.dedent(f"""
         import sys
         sys.path.insert(0, "tools")
-        import spmv_variants as sv
-        for edits, _ in sv.VARIANTS.values():
-            sv.variant_source(edits)
+        import {tool} as tool
+        for edits, _ in tool.VARIANTS.values():
+            tool.variant_source(edits)
     """) + LEAKS)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run([sys.executable, "tools/spmv_variants.py"],
-                          cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
-
-
-def test_spmm_variants_tool_imports_no_jax_and_needs_a_card():
-    """``tools/spmm_variants.py`` (the SpMM kernel's design steps and source
-    variants timed on the card) imports nothing of JAX, and its edits
-    still apply to the source."""
-    run(textwrap.dedent("""
-        import sys
-        sys.path.insert(0, "tools")
-        import spmm_variants as mv
-        for edits, _ in mv.VARIANTS.values():
-            mv.variant_source(edits)
-    """) + LEAKS)
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
-               PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run([sys.executable, "tools/spmm_variants.py"],
+    proc = subprocess.run([sys.executable, f"tools/{tool}.py"],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
