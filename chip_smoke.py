@@ -95,6 +95,24 @@ package.  Phases:
    and ``scaled_dot_product_attention`` (a yardstick the port never
    calls), in turns, and of the plain version, at the served shape and at
    the ``prefill_32k`` length (B = 1, S = 32768).
+6. Auto-tuned serving (the tenth slice's path): a ``MatrixRegistry``
+   with a seeded ``PlanTuner`` takes ``put(spec="auto")`` of the
+   full-size G7 stand-in and prints its features, bucket, ranked arms,
+   choice and tune/encode seconds.  Every arm of the bucket is built from
+   one prepared sort (``plan_from_prepared``), bound, held against the
+   phase-2 fp64 references on 4 requests under the same tolerance beside
+   a control with its first live tile emptied that must fail, and timed
+   with CUDA events in turns (spmv on one vector, SpMM at N = 16 on a
+   card-resident X, through the operator), each line with the stream
+   pass's plan and the card; each reading goes to ``tuner.observe``, and
+   ``registry.retune`` must leave the entry on the arm with the most
+   requests/s.  The tuner's JSON is printed (not committed).  Then
+   ``SpMVService(retune_every=4)`` serves phase 2's mix pipelined against
+   the auto-tuned entry (counts set to 0 before, read after; spmv and
+   spmm must have launched), held against fp64, and the tuner's
+   decision, re-tune and predicted/observed metrics are printed.  If the
+   run has passed 8 minutes before phase 6, the arms are measured on the
+   G7 stand-in at scale 0.25, which must fall in the same bucket.
 
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
@@ -110,6 +128,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -131,6 +150,9 @@ from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import format as sformat  # noqa: E402
 from repro_torch.core import partition as cpart  # noqa: E402
+from repro_torch.core.autotune import (PlanTuner,  # noqa: E402
+                                       TunerCandidate)
+from repro_torch.core.features import features_of  # noqa: E402
 from repro_torch.core.registry import MatrixRegistry  # noqa: E402
 from repro_torch.core.spmv import SerpensOperator  # noqa: E402
 from repro_torch.data.matrices import (column_normalize,  # noqa: E402
@@ -1372,6 +1394,224 @@ def phase_lm(dev, card):
     return launches, err, row, bounds["smoke"], bodies
 
 
+# -- phase 6: auto-tuned serving ------------------------------------------
+# The arms are measured on the G7 stand-in at this scale instead of full
+# size when the run has passed SLOW_RUN_S seconds before phase 6; the
+# scaled matrix must land in the full-size matrix's feature bucket.
+ARMS_SMALL_SCALE = 0.25
+# Served requests per timed SpMM of an arm (the service's max_bucket).
+ARM_N = 16
+# Observations on the served matrix between two re-tunes in phase 6(c).
+RETUNE_EVERY = 4
+
+
+def tile_dropped(op):
+    """A control: the operator with the first live tile of its first
+    shard's stream emptied (a copy on the card; the rest is shared)."""
+    ctl = copy.copy(op)
+    idx, val, seg = op._shards[0]
+    first = int(torch.nonzero((idx != -1).flatten(1).any(1))[0])
+    cut = idx.clone()
+    cut[first] = -1
+    ctl._shards = [(cut, val, seg)] + op._shards[1:]
+    return ctl, first
+
+
+def check_arm(what, op, reqs, refs) -> float:
+    """The arm's full product (stream, aux spill, row_perm, CompY) on the
+    first 4 requests against their fp64 references; its tile-dropped
+    control must fail the same check."""
+    worst = 0.0
+    for (x, a, b, y, _), (ref, scale) in zip(reqs[:4], refs[:4]):
+        got = op(x, alpha=a, beta=b, y=y)
+        worst = max(worst, check_close(
+            what, got.cpu(), torch.from_numpy(ref).float(),
+            torch.from_numpy(scale).float()))
+    ctl, first = tile_dropped(op)
+    x, a, b, y, _ = reqs[0]
+    ref, scale = refs[0]
+    try:
+        check_close(f"{what} control", ctl(x, alpha=a, beta=b, y=y).cpu(),
+                    torch.from_numpy(ref).float(),
+                    torch.from_numpy(scale).float())
+    except AssertionError:
+        return worst
+    raise AssertionError(f"{what}: the control without tile {first} "
+                         f"passes the check")
+
+
+def arm_bound_ms(plan, m: int, k: int, n: int) -> float:
+    """The arm's stream read once (aux spill included), its seg ids, X
+    read once and Y written once, over the memory rate (every arm is
+    bound by bytes: 2 flops a slot are far below the fp32 rate)."""
+    nbytes = plan.stream_bytes + 4 * plan.seg_ids.size + 4 * n * (m + k)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
+    """Phase 6: ``put(spec="auto")`` of the full-size G7 stand-in, every
+    arm of its bucket checked and timed on the card and fed to the tuner,
+    a re-tune onto the best-measured arm, then the 48-request mix served
+    through the auto-tuned entry with ``retune_every``.  Returns the
+    served run's launches, and its SpMM launches by vector width."""
+    m, k = shape
+    tuner = PlanTuner(backend=ops.resolve_backend("auto", dev), seed=SEED)
+    reg = MatrixRegistry(byte_budget=32 << 30, device=dev, tuner=tuner)
+    # (a) the auto put, traced for its tune/encode/bind seconds.
+    obs.clear()
+    obs.enable()
+    t = time.perf_counter()
+    mid = reg.put(rows, cols, vals, shape, spec="auto")
+    put_s = time.perf_counter() - t
+    obs.disable()
+    spans = span_seconds()
+    first = reg.tune_decision(mid)
+    op0 = reg.get(mid)
+    say(f"[phase6] put(spec='auto') of G7 {m} x {k} in {put_s:.1f} s: tune "
+        f"{spans.get('tune', 0.0):.1f} s (prepare + features + choice), "
+        f"encode {spans.get('encode', 0.0):.1f} s, bind "
+        f"{spans.get('bind', 0.0):.1f} s")
+    say(f"[phase6] bucket {first.bucket}; ranked {list(first.ranked)}; "
+        f"chose {first.candidate.key} (explored {first.explored})")
+
+    # (b) every arm of the bucket, from one prepared sort.
+    t = time.perf_counter()
+    scale = 1.0
+    if time.perf_counter() - t_run > SLOW_RUN_S:
+        scale = ARMS_SMALL_SCALE
+    if scale == 1.0:
+        ar, ac, av, ashape = rows, cols, vals, shape
+        arefs = refs
+        areqs = reqs
+    else:
+        ar, ac, av, ashape, _ = paper_matrix("G7", scale=scale, seed=SEED)
+        areqs = make_requests(np.random.default_rng(SEED + 2), *ashape)
+        av64 = av.astype(np.float64)
+        arefs = [host_reference(ar, ac, av64, ashape[0], x, a, b, y)
+                 for x, a, b, y, _ in areqs[:4]]
+    cfg = reg.default_config
+    prep = sformat.prepare(ar, ac, av, ashape, cfg)
+    feats = features_of(prep)
+    say(f"[phase6] arms measured on G7 at scale {scale} "
+        f"({ashape[0]} x {ashape[1]}, nnz {av.size}); features "
+        f"{json.dumps(feats.to_dict())}")
+    if feats.bucket() != first.bucket:
+        raise AssertionError(f"the arms' matrix is in bucket "
+                             f"{feats.bucket()}, the served one in "
+                             f"{first.bucket}")
+    arms = {}
+    for cand in tuner.candidates(feats):
+        ta = time.perf_counter()
+        if scale == 1.0 and cand.key == first.candidate.key:
+            aop = op0                   # the registry's own binding
+        else:
+            acfg = cand.apply_config(cfg)
+            aprep = (prep if acfg == cfg
+                     else dataclasses.replace(prep, config=acfg))
+            aop = SerpensOperator(cpart.plan_from_prepared(aprep, cand.spec),
+                                  device=dev)
+        err = check_arm(f"arm {cand.key} vs fp64", aop, areqs, arefs)
+        rp = aop.plan.out_rows_padded
+        arms[cand.key] = {"cand": cand, "op": aop, "err": err, "plans": [
+            ks._card_spmv_plan(sidx, rp) for sidx, _, _ in aop._shards]}
+        say(f"[phase6] arm {cand.key}: {aop.plan.num_shards} shard(s), "
+            f"{aop.padded_slots} slots, padding {aop.padding_ratio:.3f}, "
+            f"{aop.plan.n_aux} spilled, {aop.stream_bytes / 1e6:.1f} MB; "
+            f"vs fp64 max err {err:.3e}, control fails as it must; built "
+            f"and checked in {time.perf_counter() - ta:.1f} s")
+    xd = torch.from_numpy(areqs[0][0]).to(dev)
+    xn = torch.from_numpy(np.stack([r[0] for r in areqs[:ARM_N]], 1)).to(dev)
+    fns, seen = {}, {}
+    for key, arm in arms.items():
+        seen[key] = set()
+        fns[f"{key} spmv"] = ran_plan(functools.partial(arm["op"].matvec,
+                                                        xd), seen[key])
+        fns[f"{key} spmm"] = functools.partial(arm["op"].matmat, xn)
+    turns = in_turns(fns, 20)
+    for key, arm in arms.items():
+        op = arm["op"]
+        plan = one_plan(f"arm {key} spmv", seen[key], arm["plans"][-1])
+        arm["spmv_ms"] = turns[f"{key} spmv"]
+        arm["spmm_ms"] = turns[f"{key} spmm"]
+        t_spmm = arm["spmm_ms"] / 1e3
+        tuner.observe(first.bucket, arm["cand"],
+                      slots_per_s=op.padded_slots / t_spmm,
+                      requests_per_s=ARM_N / t_spmm)
+        say(f"[phase6] arm {key}: spmv {arm['spmv_ms']:.4f} ms (bound "
+            f"{arm_bound_ms(op.plan, *ashape, 1):.4f}), spmm N={ARM_N} "
+            f"{arm['spmm_ms']:.4f} ms (bound "
+            f"{arm_bound_ms(op.plan, *ashape, ARM_N):.4f}), "
+            f"{ARM_N / t_spmm:.1f} requests/s; spmv_last_plan "
+            f"{plan.lane_group} lanes a block, {len(plan.windows)} "
+            f"window(s), {plan.splits} split(s) (every shard: "
+            f"{[plan_record(p) for p in arm['plans']]}); readings "
+            + " / ".join(f"{x:.4f}" for x in turns['reads'][f'{key} spmv'])
+            + " and "
+            + " / ".join(f"{x:.4f}" for x in turns['reads'][f'{key} spmm'])
+            + f"  [{card}]")
+    best = max(arms, key=lambda key: ARM_N / arms[key]["spmm_ms"])
+    swapped = reg.retune(mid)
+    now = reg.tune_decision(mid)
+    if now.candidate.key != best:
+        raise AssertionError(f"retune left the entry on "
+                             f"{now.candidate.key}, not the best-measured "
+                             f"arm {best}")
+    default = arms[TunerCandidate(backend=tuner.backend).key]
+    say(f"[phase6] retune: swapped {swapped}, entry on {best}; default "
+        f"(single:1:modulo) over auto: spmm "
+        f"{default['spmm_ms'] / arms[best]['spmm_ms']:.3f}x, spmv "
+        f"{default['spmv_ms'] / arms[best]['spmv_ms']:.3f}x; arms built, "
+        f"checked and timed in {time.perf_counter() - t:.1f} s  [{card}]")
+    say(json.dumps({"tuner_prior_measured": tuner.to_json()}))
+    del arms, fns, op0, xd, xn
+
+    # (c) the 48-request mix through the auto-tuned entry, pipelined.
+    t = time.perf_counter()
+    svc = SpMVService(reg, max_bucket=ARM_N, retune_every=RETUNE_EVERY,
+                      device=dev)
+    obs.clear()
+    obs.enable()
+    zero_launches()
+    torch.cuda.synchronize()
+    res = serve_pipelined(svc, mid, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = read_launches()
+    by_width = dict(ks.spmm_launches_by_width)
+    obs.disable()
+    spans = span_seconds()
+    for name in ("spmv", "spmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"auto-tuned serving path")
+    worst = check_results("auto-tuned service vs fp64 reference", res, refs)
+    snap = svc.snapshot()
+    n_obs = snap["tuner_observations"].get(mid, 0)
+    if n_obs != svc.stats.batches or n_obs == 0:
+        raise AssertionError(f"{n_obs} observations for "
+                             f"{svc.stats.batches} dispatches")
+    metrics = obs.REGISTRY.snapshot()
+    ratio = obs.REGISTRY.get("tuner_predicted_over_observed_ratio")
+    say(f"[phase6] served {len(res)} requests pipelined in {dt:.3f} s "
+        f"({len(res) / dt:.1f} req/s, retune_every={RETUNE_EVERY}): "
+        f"launches {launches}, spmm launches by width {by_width}, max err "
+        f"{worst:.3e}, observations {n_obs}, "
+        f"entry now on {reg.tune_decision(mid).candidate.key}")
+    say("[phase6] served run's host seconds by span: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(spans.items(),
+                                          key=lambda kv: -kv[1])))
+    say(f"[phase6] tuner metrics: decisions "
+        f"{metrics['tuner_decisions_total']['values']}, retunes "
+        f"{metrics['tuner_retunes_total']['values']}, predicted/observed "
+        f"ratio count {ratio.count} p50 "
+        f"{metrics['tuner_predicted_over_observed_ratio']['p50']}, by "
+        f"bucket <= {list(ratio.buckets)} + inf: {ratio.bucket_counts()}")
+    # (d) the tuner's state after the served run, printed only.
+    say(json.dumps({"tuner_prior": tuner.to_json()}))
+    reg.close()
+    return launches, by_width
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1633,7 +1873,14 @@ def main() -> int:
     t5 = time.perf_counter()
     launches["lm"], errs["flash_attention"], times["flash_attention"], \
         bounds["flash_attention"], flash_bodies = phase_lm(dev, card)
-    say(f"[phase5] ok in {time.perf_counter() - t5:.1f} s; whole run "
+    say(f"[phase5] ok in {time.perf_counter() - t5:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 6: auto-tuned serving (the tenth slice's main path) --------
+    t6 = time.perf_counter()
+    launches["autotune"], by_width["autotune"] = phase_autotune(
+        rows, cols, vals, shape, reqs, refs, dev, t_run, card)
+    say(f"[phase6] ok in {time.perf_counter() - t6:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

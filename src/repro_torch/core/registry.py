@@ -13,9 +13,12 @@ byte-budget LRU evicts them.  ``get`` hands back a ready-to-run
 :class:`~repro_torch.core.spmv.SerpensOperator` bound to the registry's
 device (CUDA unless the caller asks for the CPU), cached per entry.
 
-Not ported yet (they raise ``NotImplementedError``): ``put(spec="auto")``
-(the auto-tuner and matrix features) and ``verify`` other than ``"off"``
-(the stream verifier).  There are no mesh bindings.
+``put(spec="auto")`` hands the plan to a shared
+:class:`~repro_torch.core.autotune.PlanTuner` that ranks candidates by the
+matrix's structural features and learns from dispatch observations
+(``record_observation``/``retune``).  Not ported yet: ``verify`` other
+than ``"off"`` (the stream verifier, which raises
+``NotImplementedError``).  There are no mesh bindings.
 
 This mirrors the deployment model of HBM SpMV accelerators (Serpens,
 Parravicini et al.'s Top-K SpMV): the sparse matrix is *resident* on the
@@ -37,6 +40,8 @@ from repro_torch import obs
 from repro_torch.core import format as sformat
 from repro_torch.core import parallel_encode as penc
 from repro_torch.core import partition as cpart
+from repro_torch.core.autotune import PlanTuner
+from repro_torch.core.features import features_of
 from repro_torch.core.spmv import SerpensOperator
 from repro_torch.kernels import ops as kops
 
@@ -44,14 +49,18 @@ log = logging.getLogger("repro_torch.registry")
 
 
 def content_key(rows, cols, vals, shape, config: sformat.SerpensConfig,
-                spec: cpart.PlanSpec = cpart.PlanSpec()) -> str:
+                spec: cpart.PlanSpec | str = cpart.PlanSpec()) -> str:
     """Deterministic id for (COO triples, shape, geometry, partition).
 
     Element *order* is part of the key: duplicates are legal in COO and the
     stream layout depends on input order, so two orderings are two streams.
+    ``spec="auto"`` keys the *request* ("tuner's choice"), not whatever
+    geometry the tuner picks — a repeat auto put is a hit even after an
+    online retune swapped the underlying plan.
     """
     h = hashlib.sha256()
-    spec_id = (spec.partition, spec.num_shards, spec.lane_assign)
+    spec_id = ("auto",) if spec == "auto" else (
+        spec.partition, spec.num_shards, spec.lane_assign)
     h.update(repr((tuple(int(s) for s in shape), config,
                    spec_id)).encode())
     for arr, dt in ((rows, np.int64), (cols, np.int64), (vals, np.float32)):
@@ -150,6 +159,11 @@ class _Entry:
     delta_encodes: int = 0          # incremental updates applied
     delta_seconds: float = 0.0      # wall-time of those incremental encodes
     delta_slots: int = 0            # stream slots respliced by them
+    # spec="auto" entries: the TuneDecision behind the current plan, and
+    # the caller's un-overridden config so a retune re-applies the next
+    # candidate's overrides from the same base.  None for manual entries.
+    tune: object = None
+    base_config: object = None
 
     @property
     def stream_bytes(self) -> int:
@@ -247,7 +261,7 @@ class MatrixRegistry:
                  encode_pool: penc.EncodePool | None = None,
                  min_parallel_nnz: int = 1 << 21,
                  background_threads: int = 2,
-                 verify: str = "off"):
+                 tuner=None, verify: str = "off"):
         if byte_budget <= 0:
             raise ValueError("byte_budget must be positive")
         _check_verify(verify)
@@ -255,6 +269,12 @@ class MatrixRegistry:
         self.default_config = config
         self.device = kops.resolve_device(device)
         self.default_backend = kops.resolve_backend(backend, self.device)
+        # Auto-tuning (put(spec="auto")): shared PlanTuner, created on
+        # first use when not injected.  An injected tuner's arms must run
+        # on this registry's device.
+        if tuner is not None:
+            kops.resolve_backend(tuner.backend, self.device)
+        self.tuner = tuner
         # Parallel encode: matrices with >= min_parallel_nnz non-zeros
         # encode range-sharded over n_workers processes (below that the
         # in-process pipeline wins — see README "Parallel encode").
@@ -344,7 +364,10 @@ class MatrixRegistry:
                           "spec": (f"{e.primary.partition}:"
                                    f"{e.primary.num_shards}:"
                                    f"{e.primary.lane_assign}"),
-                          "backend": e.backend}
+                          "backend": e.backend,
+                          "auto_tuned": e.tune is not None,
+                          "tune": (None if e.tune is None
+                                   else e.tune.to_dict())}
                     for key, e in self._entries.items()}
 
     def version(self, matrix_id: str) -> int:
@@ -386,30 +409,65 @@ class MatrixRegistry:
         if pool is not None:
             pool.close()
 
+    def get_tuner(self) -> PlanTuner:
+        """The shared :class:`~repro_torch.core.autotune.PlanTuner`
+        (created on first use when none was injected at construction),
+        ranking plans for this registry's backend."""
+        with self._lock:
+            if self.tuner is None:
+                self.tuner = PlanTuner(backend=self.default_backend)
+            return self.tuner
+
     def _encode_plan(self, rows, cols, vals, shape, cfg, spec, be):
         """prepare + encode + bind (the pure, slow part; no lock held).
 
         Large matrices fan out over the process pool
         (:func:`repro_torch.core.parallel_encode.prepare_and_plan` —
         bit-identical to the serial encode); returns ``(prep, plan, op,
-        seconds, slots)``.
+        seconds, slots, spec, backend, tune)`` with spec/backend concrete.
+
+        ``spec="auto"`` consults the tuner: features come out of the
+        prepared sort for near-free, the chosen candidate's config
+        overrides are grafted onto the prepared arrays (the bucket sort
+        only depends on segment/lane geometry, which candidates never
+        change), and the entry remembers the decision so dispatch
+        observations feed back into the tuner.
         """
         t0 = time.perf_counter()
         nnz = int(np.asarray(rows).size)
         nw = self.n_workers if nnz >= self.min_parallel_nnz else 1
-        with obs.span("encode", cat="registry", nnz=nnz,
-                      workers=nw) as sp:
-            prep, plan = penc.prepare_and_plan(
-                rows, cols, vals, shape, cfg, spec, n_workers=nw,
-                pool=self._encode_pool() if nw > 1 else None)
-            sp.args["slots"] = int(plan.idx.size)
+        tune = None
+        if spec == "auto":
+            with obs.span("tune", cat="registry", nnz=nnz) as sp:
+                prep = sformat.prepare(rows, cols, vals, shape, cfg)
+                tune = self.get_tuner().choose(features_of(prep))
+                cand = tune.candidate
+                cfg2 = cand.apply_config(cfg)
+                if cfg2 != cfg:
+                    prep = dataclasses.replace(prep, config=cfg2)
+                spec, be = cand.spec, cand.backend
+                sp.args["choice"] = cand.key
+            with obs.span("encode", cat="registry", nnz=nnz,
+                          workers=nw) as sp:
+                plan = cpart.plan_from_prepared(
+                    prep, spec, n_workers=nw,
+                    pool=self._encode_pool() if nw > 1 else None)
+                sp.args["slots"] = int(plan.idx.size)
+        else:
+            with obs.span("encode", cat="registry", nnz=nnz,
+                          workers=nw) as sp:
+                prep, plan = penc.prepare_and_plan(
+                    rows, cols, vals, shape, cfg, spec, n_workers=nw,
+                    pool=self._encode_pool() if nw > 1 else None)
+                sp.args["slots"] = int(plan.idx.size)
         with obs.span("bind", cat="registry"):
             op = SerpensOperator(plan, backend=be, device=self.device)
         dt = time.perf_counter() - t0
-        return prep, plan, op, dt, int(plan.idx.size)
+        return prep, plan, op, dt, int(plan.idx.size), spec, be, tune
 
     def _install(self, key, ck, spec, be, prep, plan, op, dt, slots,
-                 queue_wait: float = 0.0) -> str:
+                 queue_wait: float = 0.0, tune=None,
+                 base_config=None) -> str:
         """Book-keep one finished encode (caller does NOT hold the lock)."""
         with self._lock:
             self.stats.encode_seconds += dt
@@ -429,7 +487,8 @@ class MatrixRegistry:
                                      plans={spec: plan}, ops={spec: op},
                                      prepared=prep, encode_seconds=dt,
                                      encode_slots=slots,
-                                     queue_seconds=queue_wait))
+                                     queue_seconds=queue_wait,
+                                     tune=tune, base_config=base_config))
         return key
 
     def put(self, rows, cols, vals, shape, *, config=None, backend=None,
@@ -443,9 +502,11 @@ class MatrixRegistry:
         encode does not re-run.  ``partition``/``num_shards``/
         ``lane_assign`` choose the channel-shard geometry (part of the
         content key); ``spec`` overrides all three with an explicit
-        :class:`~repro_torch.core.partition.PlanSpec` (the reference's
-        ``spec="auto"``, the auto-tuner's choice, is not ported yet and
-        raises ``NotImplementedError``).  ``value_dtype``
+        :class:`~repro_torch.core.partition.PlanSpec` — or the string
+        ``"auto"``, which hands the choice of (spec, config overrides) to
+        the shared :class:`~repro_torch.core.autotune.PlanTuner` based on
+        the matrix's structural features (``backend`` is then the
+        tuner's, which is this registry's).  ``value_dtype``
         overrides the config's value-stream dtype (``"float32"`` /
         ``"bfloat16"``) without constructing a config by hand; the dtype
         is part of the content key, so the same triples cached at both
@@ -473,12 +534,9 @@ class MatrixRegistry:
             cfg = dataclasses.replace(cfg, value_dtype=value_dtype)
         if spec is None:
             spec = cpart.PlanSpec(partition, num_shards, lane_assign)
-        elif spec == "auto":
-            raise NotImplementedError(
-                "put(spec='auto') needs the auto-tuner and matrix features, "
-                "which wait for a later slice of the port")
-        elif not isinstance(spec, cpart.PlanSpec):
-            raise TypeError(f"spec must be a PlanSpec, got {spec!r}")
+        elif spec != "auto" and not isinstance(spec, cpart.PlanSpec):
+            raise TypeError(f"spec must be a PlanSpec or 'auto', "
+                            f"got {spec!r}")
         ck = content_key(rows, cols, vals, shape, cfg, spec)
         key = matrix_id or ck
         be = (self.default_backend if backend is None
@@ -528,9 +586,11 @@ class MatrixRegistry:
             # The twin was cancelled (evict/clear mid-encode) — a blocking
             # put still promises a cached entry, so encode it ourselves.
         # Encode outside the lock — it is the slow part and pure.
-        prep, plan, op, dt, slots = self._encode_plan(
+        prep, plan, op, dt, slots, spec2, be2, tune = self._encode_plan(
             rows, cols, vals, shape, cfg, spec, be)
-        return self._install(key, ck, spec, be, prep, plan, op, dt, slots)
+        return self._install(key, ck, spec2, be2, prep, plan, op, dt, slots,
+                             tune=tune,
+                             base_config=cfg if tune is not None else None)
 
     def _background_encode(self, key, pending: _PendingEncode, args, cfg,
                            spec, be, trace_ctx: dict | None = None) -> None:
@@ -546,8 +606,9 @@ class MatrixRegistry:
             obs.event("encode-queue-wait", queue_wait, cat="registry")
             try:
                 rows, cols, vals, shape = args
-                prep, plan, op, dt, slots = self._encode_plan(
-                    rows, cols, vals, shape, cfg, spec, be)
+                prep, plan, op, dt, slots, spec2, be2, tune = \
+                    self._encode_plan(rows, cols, vals, shape, cfg, spec,
+                                      be)
             except BaseException as e:      # surfaced by ready()/get()
                 obs.instant("encode-failed", cat="registry", error=str(e))
                 with self._lock:
@@ -567,8 +628,10 @@ class MatrixRegistry:
                 # Install BEFORE clearing the pending record: ready()/get()
                 # always see pending-or-entry, never a gap a concurrent
                 # flush would misread as "unknown matrix".
-                self._install(key, pending.content, spec, be, prep, plan,
-                              op, dt, slots, queue_wait=queue_wait)
+                self._install(key, pending.content, spec2, be2, prep, plan,
+                              op, dt, slots, queue_wait=queue_wait,
+                              tune=tune,
+                              base_config=cfg if tune is not None else None)
                 with self._lock:
                     self.stats.background_puts += 1
                     if self._pending.get(key) is pending:
@@ -808,14 +871,94 @@ class MatrixRegistry:
             return matrix_id
 
     # -- auto-tuning feedback ---------------------------------------------
+    def tune_decision(self, matrix_id: str):
+        """The :class:`~repro_torch.core.autotune.TuneDecision` behind an
+        auto-tuned entry's current plan, or None for manual entries."""
+        with self._lock:
+            entry = self._entries.get(matrix_id)
+            return None if entry is None else entry.tune
+
     def record_observation(self, matrix_id: str, *, slots_per_s: float,
                            requests_per_s: float | None = None) -> bool:
         """Feed one measured dispatch back into the tuner.
 
-        A no-op returning False: only auto-tuned entries feed a tuner, and
-        the auto-tuner is not ported yet, so no entry is auto-tuned.
+        Called by the service after a dispatch against an auto-tuned
+        matrix; no-op (False) for manual entries.
         """
-        return False
+        with self._lock:
+            entry = self._entries.get(matrix_id)
+            tune = None if entry is None else entry.tune
+            tuner = self.tuner
+        if tune is None or tuner is None:
+            return False
+        tuner.observe(tune.bucket, tune.candidate, slots_per_s,
+                      requests_per_s=requests_per_s,
+                      predicted=tune.predicted)
+        return True
+
+    def retune(self, matrix_id: str) -> bool:
+        """Re-consult the tuner for an auto-tuned entry; swap its plan if
+        the ranking changed under it.
+
+        Cheap when the choice is stable (one ranked lookup, no encode).
+        On a swap the entry is re-encoded from its resident prepared sort
+        with the new candidate's config overrides, and its cached bindings
+        are dropped, so their device bytes leave ``device_bytes_in_use``
+        and the next ``get`` binds the new plan.  An operator handed out
+        before (an in-flight batch holds its own) keeps the old plan.
+        Returns True iff the plan was swapped.  Entries whose prepared
+        arrays were shed under byte pressure (or manual entries) are left
+        alone.
+        """
+        with self._lock:
+            entry = self._entries.get(matrix_id)
+            if entry is None or entry.tune is None or entry.prepared is None:
+                return False
+            tuner = self.tuner
+            if tuner is None:
+                return False
+            prep = entry.prepared
+            content = entry.content
+            old = entry.tune
+            base_cfg = entry.base_config or prep.config
+        decision = tuner.choose(features_of(prep), explore=False)
+        if decision.candidate.key == old.candidate.key:
+            with self._lock:
+                entry = self._entries.get(matrix_id)
+                if entry is not None and entry.content == content:
+                    entry.tune = decision  # refresh the predicted score
+            return False
+        cand = decision.candidate
+        cfg2 = cand.apply_config(base_cfg)
+        prep2 = (prep if cfg2 == prep.config
+                 else dataclasses.replace(prep, config=cfg2))
+        t0 = time.perf_counter()
+        with obs.span("retune", cat="registry", matrix=matrix_id,
+                      choice=cand.key, was=old.candidate.key):
+            plan = cpart.plan_from_prepared(prep2, cand.spec)
+        dt = time.perf_counter() - t0
+        slots = int(plan.idx.size)
+        with self._lock:
+            entry = self._entries.get(matrix_id)
+            if entry is None or entry.content != content:
+                return False   # evicted/updated mid-encode: drop the work
+            old_total = entry.total_bytes
+            entry.plans = {cand.spec: plan}
+            entry.ops.clear()              # old bindings' device bytes go
+            entry.prepared = prep2
+            entry.primary = cand.spec
+            entry.backend = cand.backend
+            entry.tune = decision
+            entry.encode_seconds += dt
+            entry.encode_slots += slots
+            self.stats.encodes += 1
+            self.stats.encode_seconds += dt
+            self.stats.encode_slots += slots
+            self._bytes += entry.total_bytes - old_total
+            self._entries.move_to_end(matrix_id)
+            self._evict_over_budget(keep=matrix_id)
+        tuner.record_retune(decision.bucket)
+        return True
 
     def get(self, matrix_id: str, *, block: bool = True,
             timeout: float | None = None) -> SerpensOperator:

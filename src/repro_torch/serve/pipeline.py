@@ -273,12 +273,15 @@ class SpMVPipeline:
                  backend: str | None = None,
                  max_stored_results: int = 4096,
                  metrics: MetricsRegistry | None = None,
+                 retune_every: int = 16,
                  admission: AdmissionConfig | str | None = None,
                  inflight_depth: int = 1, *, device=None):
         if max_bucket < 1 or max_bucket & (max_bucket - 1):
             raise ValueError("max_bucket must be a power of two >= 1")
         if max_stored_results < 1:
             raise ValueError("max_stored_results must be >= 1")
+        if retune_every < 0:
+            raise ValueError("retune_every must be >= 0")
         if inflight_depth < 1:
             raise ValueError("inflight_depth must be >= 1")
         if admission is None:
@@ -301,6 +304,12 @@ class SpMVPipeline:
         # operator's own bind-time choice.
         self.backend = (None if backend is None
                         else kops.resolve_backend(backend, registry.device))
+        # Auto-tuned matrices feed observed slots/s back to the registry's
+        # tuner after every SpMM dispatch; every `retune_every`
+        # observations on a matrix the registry re-consults the tuner and
+        # swaps the plan if the ranking flipped (0 disables the cadence).
+        self.retune_every = int(retune_every)
+        self._tune_obs: dict[str, int] = {}
         # The serving stats live in a MetricsRegistry (private per service
         # by default, so two services never alias counters; pass
         # metrics=obs.REGISTRY to scrape several on one page).  The
@@ -852,6 +861,9 @@ class SpMVPipeline:
             "delta_encodes": rs.delta_encodes,
             "delta_seconds": rs.delta_seconds,
             "delta_slots_per_s": rs.delta_slots_per_s,
+            "tuner": (None if self.registry.tuner is None
+                      else self.registry.tuner.snapshot()),
+            "tuner_observations": dict(self._tune_obs),
         }
 
     # -- coalesce (stage 2) ----------------------------------------------
@@ -1067,12 +1079,22 @@ class SpMVPipeline:
         with self._lock:
             for req in batch:
                 self._m_dispatch_lat.observe(done - req.submit_time)
-        # Auto-tuning feedback seam: measured slots/s for this dispatch
-        # (a no-op until the auto-tuner is ported).
+        # Auto-tuning feedback: measured slots/s for this dispatch
+        # (device-blocked, so compute_s is real wall time; it starts
+        # before the host packs the batch, and in pipelined mode it also
+        # includes in-flight queue residency) flows into the tuner; every
+        # retune_every observations the registry re-consults the ranking
+        # and may swap the plan.
         compute_s = max(done - launched.t_compute, 1e-9)
-        self.registry.record_observation(
-            batch[0].matrix_id, slots_per_s=op.padded_slots / compute_s,
-            requests_per_s=n / compute_s)
+        mid = batch[0].matrix_id
+        if self.registry.record_observation(
+                mid, slots_per_s=op.padded_slots / compute_s,
+                requests_per_s=n / compute_s):
+            with self._lock:
+                count = self._tune_obs.get(mid, 0) + 1
+                self._tune_obs[mid] = count
+            if self.retune_every and count % self.retune_every == 0:
+                self.registry.retune(mid)
         bytes_per_vec = op.stream_bytes / n
         results: dict[int, SpMVResult] = {}
         for j, req in enumerate(batch):

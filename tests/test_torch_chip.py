@@ -19,6 +19,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.core import format as TF
 from repro_torch.core import partition as TP
+from repro_torch.core.features import features_of
 from repro_torch.core.registry import MatrixRegistry
 from repro_torch.core.spmv import SerpensOperator
 from repro_torch.kernels import ops
@@ -277,6 +278,53 @@ def test_service_on_the_card_launches_both_kernels(card, pipelined):
                                atol=1e-4)
     for x, got in zip(xs[1:], res):
         np.testing.assert_allclose(got.y, dense @ x, rtol=1e-4, atol=1e-4)
+    reg.close()
+
+
+def test_auto_put_served_on_the_card(card):
+    """An auto-tuned entry on the card serves a lone request and a batch
+    within the tolerance of fp64, through both stream kernels; after the
+    tuner's ranking flips, a re-tune swaps the plan, drops the old
+    binding's device bytes, and the new plan serves right too."""
+    n = 4000
+    r, c, v = TM.power_law_graph(n, 60000, seed=5)
+    reg = MatrixRegistry(device=card)
+    mid = reg.put(r, c, v, (n, n), spec="auto")
+    d = reg.tune_decision(mid)
+    assert d.candidate.backend == "cuda" and reg.tuner.backend == "cuda"
+    dense = np.zeros((n, n), np.float64)
+    np.add.at(dense, (r, c), v.astype(np.float64))
+    scale = np.zeros((n, n), np.float64)
+    np.add.at(scale, (r, c), np.abs(v.astype(np.float64)))
+    xs = np.random.default_rng(6).normal(size=(9, n)).astype(np.float32)
+
+    def serve_and_check():
+        svc = SpMVService(reg, max_bucket=8, retune_every=0, device=card)
+        before = (ks.spmv_launches, ks.spmm_launches)
+        t0 = svc.submit(mid, xs[0])
+        out = svc.flush()
+        tickets = [svc.submit(mid, x) for x in xs[1:]]
+        out.update(svc.flush())
+        assert ks.spmv_launches > before[0] and ks.spmm_launches > before[1]
+        for t, x in zip([t0] + tickets, xs):
+            got = torch.from_numpy(out[t].y)
+            assert_close(got.to(card), torch.from_numpy(dense @ x).float()
+                         .to(card), torch.from_numpy(scale @ np.abs(x))
+                         .float().to(card))
+        return svc.snapshot()["tuner_observations"][mid]
+
+    assert serve_and_check() == 2
+    held = reg.device_bytes_in_use
+    other = next(cand for cand in reg.tuner.candidates(
+        features_of(TF.prepare(r, c, v, (n, n), reg.default_config)))
+        if cand.key != d.candidate.key)
+    reg.tuner.observe(d.bucket, other, slots_per_s=1e15,
+                      requests_per_s=1e15)
+    assert reg.retune(mid) is True
+    assert reg.tune_decision(mid).candidate.key == other.key
+    assert reg.device_bytes_in_use == 0 < held
+    assert serve_and_check() == 2
+    assert reg.get(mid).plan.spec == other.spec
     reg.close()
 
 

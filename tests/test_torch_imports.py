@@ -45,7 +45,8 @@ def test_every_module_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize("module", [
     "repro_torch.core.format", "repro_torch.core.partition",
     "repro_torch.core.parallel_encode", "repro_torch.data.matrices",
-    "repro_torch.obs", "repro_torch.convert", "repro_torch.configs"])
+    "repro_torch.obs", "repro_torch.convert", "repro_torch.configs",
+    "repro_torch.core.features", "repro_torch.core.autotune"])
 def test_host_layer_imports_no_torch(module):
     """Encode workers import the host layer only: it stays numpy-only."""
     run(f"import {module}\n" + LEAKS
