@@ -113,7 +113,35 @@ package.  Phases:
    decision, re-tune and predicted/observed metrics are printed.  If the
    run has passed 8 minutes before phase 6, the arms are measured on the
    G7 stand-in at scale 0.25, which must fall in the same bucket.
+7. The eleventh slice's modules.  (a) Every full-size put of the run
+   (G7 in the setup and phase 6, G7 column-normalised and G5 in phase 4)
+   goes through the registry's ``verify="fast"`` gate: its ``verify``
+   span's seconds are printed and its findings must be 0, and a copy of
+   the installed plan with one corruption (a nonzero padding value, or
+   two tiles' seg ids swapped) must be refused with
+   ``VerificationError`` naming its rule.  Full mode runs at scale 0.1
+   (about 1.4 us a slot on the host; a minute at G7's 33.5 M slots), on
+   phase 1's ``OPTIMIZED_CONFIG`` plan and a bf16 put of the G7 stand-in,
+   each beside a copy with one live slot's column bit flipped, which only
+   full mode's round-trip proof sees.  (b) ``cost_report(measure=True)``
+   of the full-size G7 operator: stream bytes, padding, lane imbalance,
+   measured ms (median of 20, CUDA events), GB/s and ``roofline_fraction``
+   at 3350 GB/s; the measured time must be at least the modeled one and
+   within 1.5x of phase 6's operator-level spmv of ``single:1:modulo``.
+   (c) Phase 2's 48 requests in one sync flush inside ``profiler_trace``
+   (counts set to 0 before, read after): the trace must hold one SpMM
+   kernel event per launch and device time in ``key_averages()``; the
+   card's busy share of the flush is printed.  (d) ``SparseLinear`` at
+   qwen1.5-0.5b's FFN widths, all 24 layers (72 operators, seeded random
+   weights pruned by ``from_dense(density=0.15)``): one decode step's FFN
+   at batch 1 (spmv) and batch 4 (SpMM, N = 4), counts set to 0 before
+   and read after, each projection held against the fp32 dense product
+   of its pruned weight under ``|Δ| <= 1e-5·(|W|·|x|) + 1e-6`` beside a
+   control with one kept weight zeroed, which must fail; one projection
+   of each shape timed in turns against ``torch.mv``/``torch.mm`` on CSR
+   and on the dense pruned weight (yardsticks the port never calls).
 
+Full-size traces from phase 7 go to ``chiprun_out/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
@@ -148,12 +176,16 @@ import torch  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.analysis.verify import VerificationError  # noqa: E402
 from repro_torch.core import format as sformat  # noqa: E402
 from repro_torch.core import partition as cpart  # noqa: E402
 from repro_torch.core.autotune import (PlanTuner,  # noqa: E402
                                        TunerCandidate)
 from repro_torch.core.features import features_of  # noqa: E402
-from repro_torch.core.registry import MatrixRegistry  # noqa: E402
+from repro_torch.core.registry import (MatrixRegistry,  # noqa: E402
+                                       verify_gate)
+from repro_torch.core.sparse_linear import (SparseLinear,  # noqa: E402
+                                            magnitude_prune)
 from repro_torch.core.spmv import SerpensOperator  # noqa: E402
 from repro_torch.data.matrices import (column_normalize,  # noqa: E402
                                        paper_matrix)
@@ -168,6 +200,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.obs.profile import profiler_trace  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
 
@@ -752,7 +785,8 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
     t = time.perf_counter()
     m = shape[0]
     gv = column_normalize(rows, cols, vals, m)
-    pmid = reg.put(rows, cols, gv, shape)
+    pmid, _ = gated_put(reg, "G7 column-normalised", rows, cols, gv, shape,
+                        "sentinel")
     pop = reg.get(pmid)
     say(f"[phase4] G7 column-normalised: registry put "
         f"{time.perf_counter() - t:.1f} s, fusable "
@@ -766,7 +800,8 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
     r5, c5, v5, shape5, _ = paper_matrix("G5", scale=g5_scale, seed=SEED)
     sr, sc, sv = spd_from_upper(r5, c5, v5, shape5[0])
     n5 = shape5[0]
-    smid = reg.put(sr, sc, sv, shape5)
+    smid, _ = gated_put(reg, f"G5 SPD x{g5_scale}", sr, sc, sv, shape5,
+                        "seg-monotone")
     sop = reg.get(smid)
     say(f"[phase4] G5 stand-in SPD {n5} x {n5}, nnz {sv.size}, scale "
         f"{g5_scale}: generated and put in {time.perf_counter() - t:.1f} s")
@@ -1453,23 +1488,23 @@ def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
     arm of its bucket checked and timed on the card and fed to the tuner,
     a re-tune onto the best-measured arm, then the 48-request mix served
     through the auto-tuned entry with ``retune_every``.  Returns the
-    served run's launches, and its SpMM launches by vector width."""
+    served run's launches, its SpMM launches by vector width, and the
+    default arm's spmv ms (``None`` when the arms were measured on a
+    smaller matrix) with its origin."""
     m, k = shape
     tuner = PlanTuner(backend=ops.resolve_backend("auto", dev), seed=SEED)
-    reg = MatrixRegistry(byte_budget=32 << 30, device=dev, tuner=tuner)
-    # (a) the auto put, traced for its tune/encode/bind seconds.
-    obs.clear()
-    obs.enable()
-    t = time.perf_counter()
-    mid = reg.put(rows, cols, vals, shape, spec="auto")
-    put_s = time.perf_counter() - t
-    obs.disable()
+    reg = MatrixRegistry(byte_budget=32 << 30, device=dev, tuner=tuner,
+                         verify="fast")
+    # (a) the auto put, traced for its tune/encode/verify/bind seconds.
+    mid, put_s = gated_put(reg, "G7 put(spec='auto')", rows, cols, vals,
+                           shape, "seg-monotone", spec="auto")
     spans = span_seconds()
     first = reg.tune_decision(mid)
     op0 = reg.get(mid)
     say(f"[phase6] put(spec='auto') of G7 {m} x {k} in {put_s:.1f} s: tune "
         f"{spans.get('tune', 0.0):.1f} s (prepare + features + choice), "
-        f"encode {spans.get('encode', 0.0):.1f} s, bind "
+        f"encode {spans.get('encode', 0.0):.1f} s, verify "
+        f"{spans.get('verify', 0.0):.3f} s, bind "
         f"{spans.get('bind', 0.0):.1f} s")
     say(f"[phase6] bucket {first.bucket}; ranked {list(first.ranked)}; "
         f"chose {first.candidate.key} (explored {first.explored})")
@@ -1557,6 +1592,8 @@ def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
                              f"{now.candidate.key}, not the best-measured "
                              f"arm {best}")
     default = arms[TunerCandidate(backend=tuner.backend).key]
+    default_spmv = ((default["spmv_ms"], "phase 6's single:1:modulo arm")
+                    if scale == 1.0 else (None, None))
     say(f"[phase6] retune: swapped {swapped}, entry on {best}; default "
         f"(single:1:modulo) over auto: spmm "
         f"{default['spmm_ms'] / arms[best]['spmm_ms']:.3f}x, spmv "
@@ -1609,6 +1646,406 @@ def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
     # (d) the tuner's state after the served run, printed only.
     say(json.dumps({"tuner_prior": tuner.to_json()}))
     reg.close()
+    return launches, by_width, default_spmv
+
+
+# -- phase 7: the verify gate, cost reports, a traced flush, SparseLinear ---
+# The cost report's measured matvec must lie within this factor of phase
+# 6's operator-level spmv reading of the same plan.
+COST_REPORT_SLACK = 1.5
+# SparseLinear at qwen1.5-0.5b's FFN widths, all 24 layers.
+FFN_LAYERS, FFN_D, FFN_FF = 24, 1024, 2816
+FFN_DENSITY = 0.15
+FFN_BATCH = 4
+
+
+def verify_spans() -> list:
+    """(seconds, args) of each traced ``verify`` span."""
+    return [(dur_ns / 1e9, args) for buf in obs.TRACER.buffers()
+            for ph, name, _, _, dur_ns, args, _ in buf.events
+            if ph == "X" and name == "verify"]
+
+
+def corrupt(plan, rule: str):
+    """A copy of ``plan`` with its first shard's stream corrupted in one
+    way the verifier names ``rule``: ``seg-monotone`` swaps the first and
+    last tiles' seg ids, ``sentinel`` puts a nonzero value in the first
+    padding slot, ``round-trip`` flips the column low bit of the first
+    live slot (a slip only the full mode's proof against the source can
+    see).  The stacked arrays carry the same change; untouched arrays are
+    shared with ``plan``."""
+    sm = plan.shards[0]
+    if rule == "seg-monotone":
+        seg = sm.seg_ids.copy()
+        seg[[0, -1]] = seg[[-1, 0]]
+        new = {"seg_ids": seg}
+    elif rule == "sentinel":
+        val = sm.val.copy()
+        pad = int(np.flatnonzero(sm.idx.reshape(-1) == -1)[0])
+        val.reshape(-1)[pad] = 0x3F80 if val.dtype == np.uint16 else 1.0
+        new = {"val": val}
+    elif rule == "round-trip":
+        idx = sm.idx.copy()
+        live = int(np.flatnonzero(idx.reshape(-1) != -1)[0])
+        idx.reshape(-1)[live] ^= 1
+        new = {"idx": idx}
+    else:
+        raise ValueError(f"no corruption for rule {rule!r}")
+    stacked = {}
+    for name, arr in new.items():
+        st = getattr(plan, name).copy()
+        st[0, :arr.shape[0]] = arr
+        stacked[name] = st
+    return dataclasses.replace(plan, shards=[dataclasses.replace(sm, **new)]
+                               + list(plan.shards[1:]), **stacked)
+
+
+def expect_refusal(plan, rows, cols, vals, mode: str, rule: str) -> str:
+    """The registry's gate on a corrupted copy of ``plan`` must raise
+    ``VerificationError`` naming ``rule``; returns what it said."""
+    bad = corrupt(plan, rule)
+    t = time.perf_counter()
+    try:
+        verify_gate(bad, rows, cols, vals, mode)
+    except VerificationError as err:
+        hit = [ln for ln in str(err).splitlines() if f"[{rule}]" in ln]
+        if not hit:
+            raise AssertionError(f"the {rule} control was refused for "
+                                 f"another reason: {err}") from err
+        return (f"control ({rule}) refused in "
+                f"{time.perf_counter() - t:.3f} s: {hit[0].strip()}")
+    raise AssertionError(f"the {rule} control passes the {mode} gate")
+
+
+def traced_gate(what: str, mode: str, run):
+    """``run()`` traced: it must pass the registry's verify gate exactly
+    once, in ``mode``, with 0 findings.  Returns ``run()``'s result and
+    the gate's seconds."""
+    obs.clear()
+    obs.enable()
+    try:
+        out = run()
+    finally:
+        obs.disable()
+    spans = verify_spans()
+    if [(a["mode"], a["findings"]) for _, a in spans] != [(mode, 0)]:
+        raise AssertionError(f"{what}: verify spans {spans}")
+    return out, spans[0][0]
+
+
+def gated_put(reg, what, rows, cols, vals, shape, control: str,
+              mode: str = "fast", **kw) -> tuple[str, float]:
+    """``reg.put`` through its verify gate in ``mode`` (0 findings), and a
+    copy of the installed plan with the ``control`` corruption refused by
+    the same gate.  Returns (id, seconds of the put)."""
+    t = time.perf_counter()
+    mid, secs = traced_gate(what, mode, functools.partial(
+        reg.put, rows, cols, vals, shape, verify=mode, **kw))
+    put_s = time.perf_counter() - t
+    ctl = expect_refusal(reg.get(mid).plan, rows, cols, vals, mode, control)
+    say(f"[verify] {what}: put {put_s:.1f} s, verify {mode} {secs:.3f} s, "
+        f"0 findings; {ctl}")
+    return mid, put_s
+
+
+def gate_plan(what, plan, rows, cols, vals, mode: str, control: str):
+    """The registry's gate on a plan built outside a registry, and its
+    ``control`` copy refused."""
+    _, secs = traced_gate(what, mode, functools.partial(
+        verify_gate, plan, rows, cols, vals, mode))
+    ctl = expect_refusal(plan, rows, cols, vals, mode, control)
+    say(f"[phase7] verify {mode} on {what} ({plan.idx.size} slots, "
+        f"{plan.n_aux} spilled): {secs:.3f} s, 0 findings "
+        f"({secs / plan.idx.size * 1e6:.3f} us a slot); {ctl}")
+
+
+def device_busy_us(events) -> float:
+    """Microseconds the card was busy: the union of the trace's kernel,
+    memcpy and memset intervals."""
+    iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in iv:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
+def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
+    """Phase 2's 48-request mix in one sync flush: once on the host clock,
+    then inside ``profiler_trace``.  The trace must hold the SpMM kernel's
+    events and device time; prints the card's busy share of the flush.
+    Returns the traced flush's launches and its SpMM launches by width."""
+    def submit_all():
+        return [svc.submit(mid, x, alpha=a, beta=b, y=y, owner=o)
+                for x, a, b, y, o in reqs]
+
+    tickets = submit_all()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    svc.flush()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    logdir = os.path.join(ROOT, "chiprun_out", "traces")
+    tickets = submit_all()
+    zero_launches()
+    torch.cuda.synchronize()
+    with profiler_trace(logdir) as prof:
+        t = time.perf_counter()
+        out = svc.flush()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+    launches = read_launches()
+    by_width = dict(ks.spmm_launches_by_width)
+    worst = check_results("traced flush vs fp64 reference",
+                          [out[tk] for tk in tickets], refs)
+    if launches["spmm"] == 0:
+        raise AssertionError(f"the traced flush launched no SpMM: {launches}")
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in device) / 1e3
+    if kernel_ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time for "
+                             "the flush (key_averages)")
+    path = max((os.path.join(logdir, f) for f in os.listdir(logdir)),
+               key=os.path.getmtime)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spmm = [e for e in events
+            if e.get("cat") == "kernel" and "spmm_kernel" in e.get("name", "")]
+    if len(spmm) != launches["spmm"]:
+        raise AssertionError(f"the trace holds {len(spmm)} SpMM kernel "
+                             f"events for {launches['spmm']} launches")
+    busy_ms = device_busy_us(events) / 1e3
+    spmm_ms = sum(float(e["dur"]) for e in spmm) / 1e3
+    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in device),
+                 key=lambda kv: -kv[1])[:4]
+    say(f"[phase7] traced sync flush of {len(reqs)} requests: launches "
+        f"{launches}, spmm by width {by_width}, max err {worst:.3e}; "
+        f"{len(events)} trace events in {os.path.relpath(path, ROOT)}; card "
+        f"busy {busy_ms:.3f} ms (SpMM kernels {spmm_ms:.3f} ms in "
+        f"{len(spmm)} events) of the traced flush's {traced_s * 1e3:.3f} ms "
+        f"= {busy_ms / (traced_s * 1e3):.4f} busy share; of the untraced "
+        f"flush's {plain_s * 1e3:.3f} ms: {busy_ms / (plain_s * 1e3):.4f}; "
+        f"top device time: "
+        + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top) + f"  [{card}]")
+    return launches, by_width
+
+
+def ffn_weights(rng):
+    """One layer's seeded FFN weights at qwen1.5-0.5b's widths."""
+    scale = 0.02
+    return {"w_gate": scale * rng.standard_normal((FFN_FF, FFN_D),
+                                                  dtype=np.float32),
+            "w_up": scale * rng.standard_normal((FFN_FF, FFN_D),
+                                                dtype=np.float32),
+            "w_down": scale * rng.standard_normal((FFN_D, FFN_FF),
+                                                  dtype=np.float32)}
+
+
+def ffn_step(layers, x):
+    """One decode step's FFN through every layer: RMS-normalised input,
+    ``down(silu(gate(h)) * up(h))`` and the residual.  ``x`` is (D,) or
+    (B, D).  Returns the output and every projection's (name, input,
+    output), for the checks."""
+    seen = []
+    for i, layer in enumerate(layers):
+        h = x / x.pow(2).mean(-1, keepdim=True).add(1e-6).sqrt()
+        g = layer["w_gate"](h)
+        u = layer["w_up"](h)
+        a = torch.nn.functional.silu(g) * u
+        d = layer["w_down"](a)
+        seen += [(f"{i}.w_gate", h, g), (f"{i}.w_up", h, u),
+                 (f"{i}.w_down", a, d)]
+        x = x + d
+    return x, seen
+
+
+def check_projection(what, dense, x, y) -> float:
+    """A SparseLinear output against the fp32 dense product of the pruned
+    weight on the same input, ``|Δ| <= 1e-5·(|W|·|x|) + 1e-6``."""
+    if x.dim() == 1:
+        return check_close(what, y, torch.mv(dense, x),
+                           torch.mv(dense.abs(), x.abs()))
+    return check_close(what, y, x @ dense.T, x.abs() @ dense.abs().T)
+
+
+def linear_bound_ms(sl, n: int) -> float:
+    """The operator's stream read once, x read once and y written once
+    over the memory rate (2 flops a live slot are far below fp32's)."""
+    m, k = sl.shape
+    return (sl.op.stream_bytes + 4 * sl.op.plan.seg_ids.size
+            + 4 * n * (m + k)) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_sparse_linear(dev, card) -> tuple[dict, dict]:
+    """Phase 7(d): 72 SparseLinear operators of qwen1.5-0.5b's FFN at
+    density 0.15, one decode step at batch 1 and at batch 4, each
+    projection against the dense pruned product, a control, and the
+    timings.  Returns the step's launches and SpMM launches by width."""
+    t = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    layers, dense, encode_s, nnz = [], [], 0.0, []
+    for _ in range(FFN_LAYERS):
+        ops_l, dense_l = {}, {}
+        for name, w in ffn_weights(rng).items():
+            te = time.perf_counter()
+            sl = SparseLinear.from_dense(w, density=FFN_DENSITY, device=dev)
+            encode_s += time.perf_counter() - te
+            ops_l[name] = sl
+            dense_l[name] = torch.from_numpy(
+                magnitude_prune(w, FFN_DENSITY)).to(dev)
+            nnz.append(sl.op.nnz)
+        layers.append(ops_l)
+        dense.append(dense_l)
+    say(f"[phase7] SparseLinear: {len(nnz)} operators of qwen1.5-0.5b's FFN "
+        f"({FFN_LAYERS} layers; w_gate, w_up {FFN_FF} x {FFN_D}, w_down "
+        f"{FFN_D} x {FFN_FF}) pruned to density {FFN_DENSITY}: nnz "
+        f"{min(nnz)}-{max(nnz)}, from_dense (prune + encode + bind) "
+        f"{encode_s:.1f} s in all, {encode_s / len(nnz):.3f} s each; phase "
+        f"set-up {time.perf_counter() - t:.1f} s")
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 8)
+    x1 = torch.randn(FFN_D, generator=gen).to(dev)
+    x4 = torch.randn((FFN_BATCH, FFN_D), generator=gen).to(dev)
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    y1, seen1 = ffn_step(layers, x1)
+    y4, seen4 = ffn_step(layers, x4)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches = read_launches()
+    by_width = dict(ks.spmm_launches_by_width)
+    n_proj = 3 * FFN_LAYERS
+    if launches["spmv"] != n_proj or launches["spmm"] < n_proj:
+        raise AssertionError(f"SparseLinear step launches {launches}: want "
+                             f"{n_proj} spmv and >= {n_proj} spmm")
+    by_name = {f"{i}.{n}": dense[i][n]
+               for i in range(FFN_LAYERS) for n in dense[i]}
+    worst = 0.0
+    for label, seen in (("batch 1", seen1), (f"batch {FFN_BATCH}", seen4)):
+        for name, x, y in seen:
+            worst = max(worst, check_projection(
+                f"SparseLinear {name} {label} vs dense", by_name[name], x, y))
+    for y in (y1, y4):
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("FFN step output is not finite")
+    # Control: layer 0's w_gate with the kept weight of the largest
+    # |w·h| contribution zeroed must fail the same check.
+    name, h, _ = seen1[0]
+    wd = by_name[name]
+    i, j = divmod(int(torch.argmax((wd * h.abs()).abs())), FFN_D)
+    cut = wd.cpu().numpy().copy()
+    cut[i, j] = 0.0
+    ctl = SparseLinear(cut, device=dev)
+    try:
+        check_projection("control", wd, h, ctl(h))
+    except AssertionError as fail:
+        msg = str(fail).split(": ", 1)[1].split(";")[0]
+    else:
+        raise AssertionError("SparseLinear with a kept weight zeroed "
+                             "passes the check")
+    say(f"[phase7] SparseLinear decode step (batch 1 and {FFN_BATCH}, "
+        f"{FFN_LAYERS} layers): {step_s * 1e3:.1f} ms host clock, launches "
+        f"{launches}, spmm by width {by_width}; every projection vs the "
+        f"fp32 dense pruned product max err {worst:.3e} (tol 1e-5·|W||x| + "
+        f"1e-6); control (layer 0 w_gate, weight ({i}, {j}) zeroed) fails "
+        f"as it must ({msg})  [{card}]")
+
+    # Timings: one projection of each shape, in turns with torch.mv/mm on
+    # CSR and on the dense pruned weight (yardsticks the port never calls).
+    with warnings.catch_warnings():     # torch.sparse's beta notices
+        warnings.simplefilter("ignore", UserWarning)
+        for name in ("w_up", "w_down"):
+            sl, wd = layers[0][name], dense[0][name]
+            csr = wd.to_sparse_csr()
+            d_in = sl.shape[1]
+            h1 = torch.randn(d_in, generator=gen).to(dev)
+            h4 = torch.randn((FFN_BATCH, d_in), generator=gen).to(dev)
+            p = functools.partial
+            for label, x, fns in (
+                    ("batch 1 (spmv)", h1,
+                     {"kernel": p(sl, h1), "csr": p(torch.mv, csr, h1),
+                      "dense": p(torch.mv, wd, h1)}),
+                    (f"batch {FFN_BATCH} (SpMM N={FFN_BATCH})", h4,
+                     {"kernel": p(sl, h4),
+                      "csr": p(torch.mm, csr, h4.T.contiguous()),
+                      "dense": p(torch.mm, h4, wd.T)})):
+                tm = in_turns(fns, 50)
+                n = 1 if x.dim() == 1 else FFN_BATCH
+                bd = linear_bound_ms(sl, n)
+                reads = ", ".join(f"{k} " + " / ".join(f"{v:.4f}" for v in r)
+                                  for k, r in tm["reads"].items())
+                say(f"[phase7] SparseLinear {name} {sl.shape[0]} x "
+                    f"{sl.shape[1]} ({sl.op.nnz} nnz, {sl.op.padded_slots} "
+                    f"slots), {label}: kernel {tm['kernel']:.4f} ms, "
+                    f"torch.sparse CSR {tm['csr']:.4f} ms, dense "
+                    f"{tm['dense']:.4f} ms; bound {bd:.4f} ms (bytes); "
+                    f"readings in turns: {reads}  [{card}]")
+    return launches, by_width
+
+
+def phase_analysis(reg, svc, mid, reqs, refs, opt_src, arm_spmv_ms, dev,
+                   card) -> dict:
+    """Phase 7: the verify gate (the full-size puts' fast checks, full mode
+    at scale 0.1), the G7 cost report, a traced sync flush and
+    SparseLinear at full width.  Returns the launches and the SpMM
+    launches by width of its two main-path parts."""
+    t = time.perf_counter()
+    # (a) the verify gate in full mode (each full-size put printed its
+    # fast gate's "[verify]" line as it ran).
+    r2, c2, v2, shape2, opt_plan = opt_src
+    gate_plan("G7 x0.1 OPTIMIZED_CONFIG plan", opt_plan, r2, c2, v2, "full",
+              "round-trip")
+    breg = MatrixRegistry(device=dev, verify="full")
+    gated_put(breg, "G7 x0.1 bf16 put", r2, c2, v2, shape2, "round-trip",
+              mode="full", value_dtype="bfloat16")
+    say(f"[phase7] (a) verify gate in {time.perf_counter() - t:.1f} s")
+    del breg
+
+    # (b) the cost report of the full-size G7 operator.
+    t = time.perf_counter()
+    op = reg.get(mid)
+    rep = op.cost_report(measure=True, iters=20)
+    ms = rep["measured_matvec_s"] * 1e3
+    ref_ms, ref_what = arm_spmv_ms
+    if ref_ms is None:
+        xd = torch.from_numpy(reqs[0][0]).to(dev)
+        ref_ms = in_turns({"matvec": functools.partial(op.matvec, xd)},
+                          20)["matvec"]
+        ref_what = "read here: phase 6 measured its arms on a smaller matrix"
+    say(f"[phase7] cost report, G7 {rep['partition']}:{rep['num_shards']}:"
+        f"{rep['lane_assign']} {rep['value_dtype']}: stream "
+        f"{rep['stream_bytes']} B ({rep['bytes_per_slot']} B a slot, "
+        f"{rep['bytes_per_nnz']:.4f} B a nonzero), {rep['padded_slots']} "
+        f"slots, padding {rep['padding_ratio']:.4f}, lane imbalance "
+        f"{rep['lane_slot_imbalance']:.4f}; modeled "
+        f"{rep['est_stream_s'] * 1e3:.4f} ms at "
+        f"{rep['assumed_bandwidth_gbps']:.0f} GB/s; measured {ms:.4f} ms "
+        f"(median of 20, CUDA events), {rep['achieved_gbps']:.1f} GB/s, "
+        f"roofline_fraction {rep['roofline_fraction']:.4f}; operator spmv "
+        f"{ref_ms:.4f} ms ({ref_what}): {ms / ref_ms:.3f}x  [{card}]")
+    if not rep["measured_matvec_s"] >= rep["est_stream_s"]:
+        raise AssertionError("the measured matvec beats the modeled stream "
+                             "time")
+    if not (ms <= COST_REPORT_SLACK * ref_ms
+            and ref_ms <= COST_REPORT_SLACK * ms):
+        raise AssertionError(f"cost report's {ms} ms is not within "
+                             f"{COST_REPORT_SLACK}x of {ref_ms} ms")
+    say(f"[phase7] (b) cost report in {time.perf_counter() - t:.1f} s")
+
+    # (c) a traced sync flush; (d) SparseLinear.
+    launches, by_width = {}, {}
+    launches["flush"], by_width["flush"] = traced_flush(svc, mid, reqs,
+                                                        refs, card)
+    t = time.perf_counter()
+    launches["sparse_linear"], by_width["sparse_linear"] = \
+        phase_sparse_linear(dev, card)
+    say(f"[phase7] (d) SparseLinear in {time.perf_counter() - t:.1f} s")
     return launches, by_width
 
 
@@ -1645,11 +2082,12 @@ def main() -> int:
     say(f"[setup] G7 {meta['name']} stand-in {m} x {k}, nnz {vals.size}, "
         f"generated in {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    reg = MatrixRegistry(byte_budget=16 << 30, device="cuda")
-    mid = reg.put(rows, cols, vals, shape)
+    reg = MatrixRegistry(byte_budget=16 << 30, device="cuda", verify="fast")
+    mid, _ = gated_put(reg, "G7", rows, cols, vals, shape, "sentinel")
     op = reg.get(mid)
     plan = op.plan
-    say(f"[setup] registry put (encode + bind) {time.perf_counter() - t:.1f}"
+    say(f"[setup] registry put (encode + verify + bind) "
+        f"{time.perf_counter() - t:.1f}"
         f" s: {plan.idx.size} slots, padding {plan.padding_ratio:.3f}, "
         f"{plan.stream_bytes / 1e6:.1f} MB stream, "
         f"{op.device_bytes / 1e6:.1f} MB on the card")
@@ -1730,6 +2168,7 @@ def main() -> int:
     say(f"[phase1] G7 x0.1 OPTIMIZED_CONFIG ({opt_plan.n_aux} spilled): "
         f"spmv err {e1:.3e}, operator vs fp64 {e3:.3e}")
     del oop, oidx, oval, oseg, xo_d
+    opt_src = (r2, c2, v2, shape2, opt_plan)
     say(f"[phase1] ok in {time.perf_counter() - t:.1f} s")
 
     # -- phase 2: the server answers requests (the main path) -------------
@@ -1861,7 +2300,6 @@ def main() -> int:
     t4 = time.perf_counter()
     launches["solvers"], errs["spmv_fused"], ftimes, fbounds = \
         phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card)
-    reg.close()
     # The fused kernel's record row is the G7 PageRank step, the slice's
     # served path at full size.
     times["spmv_fused"] = ftimes["pagerank"]
@@ -1878,9 +2316,25 @@ def main() -> int:
 
     # -- phase 6: auto-tuned serving (the tenth slice's main path) --------
     t6 = time.perf_counter()
-    launches["autotune"], by_width["autotune"] = phase_autotune(
+    launches["autotune"], by_width["autotune"], arm_spmv = phase_autotune(
         rows, cols, vals, shape, reqs, refs, dev, t_run, card)
-    say(f"[phase6] ok in {time.perf_counter() - t6:.1f} s; whole run "
+    say(f"[phase6] ok in {time.perf_counter() - t6:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 7: verify gate, cost report, traced flush, SparseLinear ----
+    t7 = time.perf_counter()
+    l7, w7 = phase_analysis(reg, svc, mid, reqs, refs, opt_src, arm_spmv,
+                            dev, card)
+    reg.close()
+    launches.update(l7)
+    by_width.update(w7)
+    for part in l7:
+        for name in ("spmv", "spmm"):
+            if part == "sparse_linear" or name == "spmm":
+                if l7[part][name] == 0:
+                    raise AssertionError(f"kernel {name} never launched in "
+                                         f"phase 7's {part}")
+    say(f"[phase7] ok in {time.perf_counter() - t7:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

@@ -70,16 +70,21 @@ def plan_from_arrays(fields: dict) -> cpart.ChannelShardPlan:
                              row_perm=row_perm)
 
 
-def lm_params_from_arrays(cfg, tree: dict, device="cpu") -> dict:
+def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     """The port's LM parameters from the reference's ``LM.init`` tree as
     numpy arrays.
 
     ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``);
     the port holds one dict per period.  A bf16 array arrives as fp32 or
     as its ``uint16`` bit patterns; every leaf is cast to
-    ``cfg.param_dtype`` and placed on ``device``.
+    ``cfg.param_dtype`` and placed on ``device`` (default CUDA, which
+    raises without a card; pass ``device="cpu"`` for the CPU).
     """
     import torch
+
+    from repro_torch.kernels.ops import resolve_device
+
+    device = resolve_device(device)
 
     dtype = {"bfloat16": torch.bfloat16,
              "float32": torch.float32}[cfg.param_dtype]

@@ -1240,8 +1240,19 @@ def check_invariants(sm: SerpensMatrix, *, source=None,
                      row_perm=None) -> None:
     """Assert the format invariants the hardware schedule relies on.
 
-    A wrapper over the encoder-independent stream verifier, which this
-    package does not carry yet: it raises ``NotImplementedError`` until
-    the analysis package is ported.
+    Thin wrapper over the encoder-independent verifier
+    (:func:`repro_torch.analysis.verify.verify_matrix`, full mode), kept
+    for its historic name and assert-style contract: seg_ids ascending,
+    lane ownership, RAW-window freedom, sentinel legality, lane capacity,
+    column ranges, nnz/byte accounting, spill caps and the aux
+    side-stream; pass ``source=(rows, cols, vals)`` to also prove the
+    round-trip multiset and per-lane ownership against the original COO,
+    and ``row_perm`` to validate a balanced-lane permutation.  Raises
+    ``AssertionError`` listing *all* violations (plan-level checks live in
+    :func:`repro_torch.analysis.verify.verify_plan`).
     """
-    raise NotImplementedError("analysis not yet ported")
+    # Deferred import: keeps this module import-light (and cycle-free)
+    # for encode workers.
+    from repro_torch.analysis.verify import verify_matrix
+    verify_matrix(sm, mode="full", source=source,
+                  row_perm=row_perm).raise_if_error(AssertionError)

@@ -16,9 +16,10 @@ device (CUDA unless the caller asks for the CPU), cached per entry.
 ``put(spec="auto")`` hands the plan to a shared
 :class:`~repro_torch.core.autotune.PlanTuner` that ranks candidates by the
 matrix's structural features and learns from dispatch observations
-(``record_observation``/``retune``).  Not ported yet: ``verify`` other
-than ``"off"`` (the stream verifier, which raises
-``NotImplementedError``).  There are no mesh bindings.
+(``record_observation``/``retune``).  ``put(verify=...)`` gates each
+encode through the encoder-independent stream verifier
+(:mod:`repro_torch.analysis.verify`) before the plan binds.  There are no
+mesh bindings.
 
 This mirrors the deployment model of HBM SpMV accelerators (Serpens,
 Parravicini et al.'s Top-K SpMV): the sparse matrix is *resident* on the
@@ -222,10 +223,30 @@ def _check_verify(verify: str) -> None:
     if verify not in ("full", "fast", "off"):
         raise ValueError(
             f"verify must be 'full', 'fast' or 'off', got {verify!r}")
-    if verify != "off":
-        raise NotImplementedError(
-            "stream verification needs the analysis package, which waits "
-            "for a later slice of the port; use verify='off'")
+
+
+def verify_gate(plan, rows, cols, vals, verify: str) -> None:
+    """The registry's verify gate on one encoded plan.
+
+    ``"fast"`` proves the O(slots) structural rules, ``"full"``
+    additionally the RAW window, spill caps and the round-trip /
+    lane-ownership rules against the submitted triples; ``"off"`` does
+    nothing.  Runs inside an ``obs`` span ``verify`` (cat ``registry``)
+    whose ``findings`` arg counts what the verifier found, and raises
+    :class:`~repro_torch.analysis.verify.VerificationError` on any error.
+    """
+    _check_verify(verify)
+    if verify == "off":
+        return
+    from repro_torch.analysis.verify import VerificationError, verify_plan
+    with obs.span("verify", cat="registry", mode=verify) as sp:
+        if verify == "full":
+            diags = verify_plan(plan, rows, cols, vals, mode="full")
+        else:
+            diags = verify_plan(plan, mode="fast")
+        sp.args["findings"] = len(diags.findings)
+    if not diags.ok:
+        raise VerificationError(diags)
 
 
 class MatrixRegistry:
@@ -267,6 +288,12 @@ class MatrixRegistry:
         _check_verify(verify)
         self.byte_budget = int(byte_budget)
         self.default_config = config
+        # Debug gate: run the encoder-independent stream verifier
+        # (repro_torch.analysis.verify) on every encoded plan before it
+        # binds.  "fast" = O(slots) structural rules; "full" adds the
+        # RAW-window scan, spill caps and the round-trip-vs-source proof.
+        # Per-call override: put(verify=...).
+        self.default_verify = verify
         self.device = kops.resolve_device(device)
         self.default_backend = kops.resolve_backend(backend, self.device)
         # Auto-tuning (put(spec="auto")): shared PlanTuner, created on
@@ -418,8 +445,10 @@ class MatrixRegistry:
                 self.tuner = PlanTuner(backend=self.default_backend)
             return self.tuner
 
-    def _encode_plan(self, rows, cols, vals, shape, cfg, spec, be):
-        """prepare + encode + bind (the pure, slow part; no lock held).
+    def _encode_plan(self, rows, cols, vals, shape, cfg, spec, be,
+                     verify: str | None = None):
+        """prepare + encode + verify + bind (the pure, slow part; no lock
+        held).
 
         Large matrices fan out over the process pool
         (:func:`repro_torch.core.parallel_encode.prepare_and_plan` —
@@ -432,6 +461,9 @@ class MatrixRegistry:
         only depends on segment/lane geometry, which candidates never
         change), and the entry remembers the decision so dispatch
         observations feed back into the tuner.
+
+        ``verify`` (``None``: the registry's default) gates the plan
+        through :func:`verify_gate` before it binds.
         """
         t0 = time.perf_counter()
         nnz = int(np.asarray(rows).size)
@@ -460,6 +492,8 @@ class MatrixRegistry:
                     rows, cols, vals, shape, cfg, spec, n_workers=nw,
                     pool=self._encode_pool() if nw > 1 else None)
                 sp.args["slots"] = int(plan.idx.size)
+        verify_gate(plan, rows, cols, vals,
+                    self.default_verify if verify is None else verify)
         with obs.span("bind", cat="registry"):
             op = SerpensOperator(plan, backend=be, device=self.device)
         dt = time.perf_counter() - t0
@@ -523,9 +557,14 @@ class MatrixRegistry:
         may mutate its buffers right away.  Stats record the queue wait
         (submit → encode start) separately from encode wall-time.
 
-        ``verify`` other than ``"off"`` (the reference's stream verifier
-        gate) raises ``NotImplementedError`` until the analysis package is
-        ported.
+        ``verify`` gates the encode through the encoder-independent stream
+        verifier (:mod:`repro_torch.analysis.verify`): ``"fast"`` proves
+        the O(slots) structural rules, ``"full"`` additionally proves the
+        RAW window, spill caps and the round-trip against the submitted
+        triples; a failing plan raises
+        :class:`~repro_torch.analysis.verify.VerificationError` (surfaced
+        via :meth:`ready`/:meth:`get` for background encodes) and never
+        installs.  ``None`` defers to the registry-wide default.
         """
         if verify is not None:
             _check_verify(verify)
@@ -570,7 +609,7 @@ class MatrixRegistry:
                         (int(shape[0]), int(shape[1])))
                 self._get_executor().submit(
                     self._background_encode, key, pending, args, cfg,
-                    spec, be, obs.capture_context())
+                    spec, be, obs.capture_context(), verify)
                 obs.instant("encode-queued", cat="registry", matrix=key)
                 return key
         if same_pending:                   # blocking put over a queued twin
@@ -587,13 +626,14 @@ class MatrixRegistry:
             # put still promises a cached entry, so encode it ourselves.
         # Encode outside the lock — it is the slow part and pure.
         prep, plan, op, dt, slots, spec2, be2, tune = self._encode_plan(
-            rows, cols, vals, shape, cfg, spec, be)
+            rows, cols, vals, shape, cfg, spec, be, verify)
         return self._install(key, ck, spec2, be2, prep, plan, op, dt, slots,
                              tune=tune,
                              base_config=cfg if tune is not None else None)
 
     def _background_encode(self, key, pending: _PendingEncode, args, cfg,
-                           spec, be, trace_ctx: dict | None = None) -> None:
+                           spec, be, trace_ctx: dict | None = None,
+                           verify: str | None = None) -> None:
         """Executor job for put(blocking=False).
 
         ``trace_ctx`` is the submitter's ambient trace context
@@ -608,7 +648,7 @@ class MatrixRegistry:
                 rows, cols, vals, shape = args
                 prep, plan, op, dt, slots, spec2, be2, tune = \
                     self._encode_plan(rows, cols, vals, shape, cfg, spec,
-                                      be)
+                                      be, verify)
             except BaseException as e:      # surfaced by ready()/get()
                 obs.instant("encode-failed", cat="registry", error=str(e))
                 with self._lock:

@@ -111,10 +111,18 @@ class SerpensOperator:
     def padded_slots(self) -> int:
         return int(self.plan.idx.size)
 
-    def cost_report(self, **_):
-        raise NotImplementedError(
-            "cost_report needs the profiling module (obs/profile), which "
-            "waits for a later slice of the port")
+    def cost_report(self, *, measure: bool = False,
+                    backend: str | None = None,
+                    bandwidth_gbps: float | None = None,
+                    iters: int = 3) -> dict:
+        """Per-shard cost-model report (stream bytes, slots, modeled
+        stream time), optionally with a measured matvec time on this
+        operator's device and the achieved fraction of the assumed HBM
+        roofline.  See :func:`repro_torch.obs.profile.plan_cost_report`."""
+        from repro_torch.obs import profile as _profile
+        return _profile.plan_cost_report(
+            self, measure=measure, backend=backend,
+            bandwidth_gbps=bandwidth_gbps, iters=iters)
 
     def with_mesh(self, mesh, axis: str, partition: str | None = None):
         if mesh is None:

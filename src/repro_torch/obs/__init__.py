@@ -5,9 +5,10 @@
   (:mod:`repro_torch.obs.export`).  Disabled by default.
 * :mod:`repro_torch.obs.metrics` — counters, gauges and latency
   histograms in a :class:`MetricsRegistry`.
-
-The reference package's kernel-profiling module (``obs.profile``) is not
-ported yet.
+* :mod:`repro_torch.obs.profile` — per-plan cost reports (modeled stream
+  bytes and time, a measured matvec's roofline share) and a
+  ``torch.profiler`` trace wrapper; it imports torch only inside its
+  functions, and is not imported here.
 """
 from repro_torch.obs.trace import (                         # noqa: F401
     TRACER, Tracer, enable, disable, is_enabled, clear,

@@ -12,6 +12,8 @@ reductions are also taken in another order than torch's: its scalars must
 agree within ``1e-5 * sum(|terms|) + 1e-6`` and its state vectors within
 ``1e-5`` of the larger of the vector's magnitude before and after the step.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -652,3 +654,73 @@ def test_reduced_lm_generate_on_the_card(card):
     got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
     ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
     assert torch.equal(got.cpu(), ref)
+
+
+def test_cost_report_measures_on_the_card(card):
+    """``cost_report(measure=True)`` times the matvec with CUDA events: a
+    positive time, at most the card's memory rate (with a margin for the
+    data-sheet figure)."""
+    r, c, v = random_coo(20000, 30000, 400000, seed=8, hot_rows=5)
+    reg = MatrixRegistry(device=card)
+    op = reg.get(reg.put(r, c, v, (20000, 30000)))
+    rep = op.cost_report(measure=True, iters=20)
+    assert rep["measured_matvec_s"] > 0
+    assert rep["measured_matvec_s"] >= rep["est_stream_s"]
+    assert 0 < rep["roofline_fraction"] <= 1.05
+    assert rep["assumed_bandwidth_gbps"] == 3350.0
+    modeled = op.cost_report()
+    assert modeled["stream_bytes"] == rep["stream_bytes"]
+
+
+@pytest.mark.parametrize("batch", [None, 1, 4, 40])
+def test_sparse_linear_on_the_card_matches_its_cpu_run(card, batch):
+    """Rank 1 launches the spmv kernel, rank 2 the SpMM kernel (a batch of
+    40 too), each within the kernels' tolerance of the CPU run."""
+    from repro_torch.core.sparse_linear import SparseLinear
+    rng = np.random.default_rng(9)
+    w = rng.normal(size=(2816, 1024)).astype(np.float32)
+    b = rng.normal(size=2816).astype(np.float32)
+    on_card = SparseLinear.from_dense(w, density=0.15, bias=b, device=card)
+    on_cpu = SparseLinear.from_dense(w, density=0.15, bias=b, device="cpu")
+    x = rng.normal(size=(1024,) if batch is None
+                   else (batch, 1024)).astype(np.float32)
+    spmv0, spmm0 = ks.spmv_launches, ks.spmm_launches
+    got = on_card(x)
+    torch.cuda.synchronize()
+    if batch is None:
+        assert ks.spmv_launches == spmv0 + 1 and ks.spmm_launches == spmm0
+    else:
+        assert ks.spmm_launches > spmm0 and ks.spmv_launches == spmv0
+    assert got.is_cuda
+    want = on_cpu(x)
+    wp = np.abs(on_cpu.op.to_dense()).astype(np.float64)
+    scale = np.abs(x) @ wp.T if batch else wp @ np.abs(x)
+    assert_close(got, want.to(card),
+                 torch.from_numpy(scale).float().to(card))
+
+
+def test_bf16_put_verifies_full_on_the_card(card):
+    """A bf16 put gated by ``verify="full"`` installs and serves on the
+    card; a corrupted plan is refused."""
+    from repro_torch.analysis.verify import VerificationError
+    from repro_torch.core import registry as R
+    r, c, v = random_coo(3000, 20000, 40000, seed=10, hot_rows=5)
+    reg = MatrixRegistry(device=card, verify="full",
+                         config=CONFIGS["raw2-bf16"])
+    mid = reg.put(r, c, v, (3000, 20000), value_dtype="bfloat16")
+    op = reg.get(mid)
+    assert op.value_dtype == "bfloat16" and op.device.type == "cuda"
+    x = np.random.default_rng(11).normal(size=20000).astype(np.float32)
+    xc = x.astype(np.float64)[c]
+    want = np.bincount(r, weights=v * xc, minlength=3000)
+    # bf16 values: within the reference's bound 2^-8 (|A| |x|).
+    bound = 2.0 ** -8 * np.bincount(r, weights=np.abs(v * xc),
+                                    minlength=3000) + 1e-6
+    assert np.all(np.abs(op.matvec(x).cpu().numpy() - want) <= bound)
+    bad = op.plan
+    seg = np.array(bad.shards[0].seg_ids)
+    seg[0], seg[-1] = seg[-1], seg[0]
+    shard = dataclasses.replace(bad.shards[0], seg_ids=seg)
+    bad = dataclasses.replace(bad, shards=[shard], seg_ids=seg[None])
+    with pytest.raises(VerificationError, match="seg-monotone"):
+        R.verify_gate(bad, r, c, v, "fast")

@@ -146,7 +146,14 @@ def test_fork_refused_once_torch_is_loaded():
 
 
 def test_check_invariants_waits_for_analysis():
+    """The analysis package is ported: ``check_invariants`` proves a bf16
+    stream against its source, and lists what a corrupted copy breaks
+    (tests/test_torch_analysis.py holds the verifier to the reference)."""
     cfg = port_config(CONFIGS["bf16"])
-    sm = TF.encode(*random_coo(50, 80, 100), (50, 80), cfg)
-    with pytest.raises(NotImplementedError, match="analysis not yet ported"):
-        TF.check_invariants(sm)
+    coo = random_coo(50, 80, 100)
+    sm = TF.encode(*coo, (50, 80), cfg)
+    TF.check_invariants(sm, source=coo)
+    val = sm.val.copy()
+    val[sm.idx == TF.SENTINEL] = 0x3F80          # bf16 1.0 in padding
+    with pytest.raises(AssertionError, match="sentinel"):
+        TF.check_invariants(dataclasses.replace(sm, val=val))

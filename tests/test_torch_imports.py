@@ -46,7 +46,8 @@ def test_every_module_and_chip_smoke_import_no_jax():
     "repro_torch.core.format", "repro_torch.core.partition",
     "repro_torch.core.parallel_encode", "repro_torch.data.matrices",
     "repro_torch.obs", "repro_torch.convert", "repro_torch.configs",
-    "repro_torch.core.features", "repro_torch.core.autotune"])
+    "repro_torch.core.features", "repro_torch.core.autotune",
+    "repro_torch.analysis", "repro_torch.obs.profile"])
 def test_host_layer_imports_no_torch(module):
     """Encode workers import the host layer only: it stays numpy-only."""
     run(f"import {module}\n" + LEAKS

@@ -61,7 +61,8 @@ def models(arch, dtype="float32"):
     tcfg = dataclasses.replace(tconfigs.reduced_config(arch), **over)
     jlm = jbuild(jcfg)
     jparams = jlm.init(jax.random.key(0))
-    tparams = convert.lm_params_from_arrays(tcfg, to_numpy(jparams))
+    tparams = convert.lm_params_from_arrays(tcfg, to_numpy(jparams),
+                                            device="cpu")
     return jlm, jparams, build(tcfg), tparams, tcfg
 
 
@@ -168,11 +169,26 @@ def test_carried_weights_are_bit_equal():
                                       .view(np.uint16), ref)
     # fp32 arrays are rounded to the config's bf16 on the way in.
     fp = convert.lm_params_from_arrays(cfg, jax.tree.map(
-        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jparams))
+        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jparams),
+        device="cpu")
     assert torch.equal(fp["embed"], tparams["embed"])
     with pytest.raises(ValueError, match="float32 or uint16"):
         convert.lm_params_from_arrays(cfg, {"embed": np.zeros(3, np.int8),
-                                            "blocks": {}})
+                                            "blocks": {}}, device="cpu")
+
+
+def test_carried_weights_default_to_the_card():
+    """Without ``device`` the weights go to CUDA: without a card that
+    raises, and nothing lands on the CPU unless the caller asks for it."""
+    cfg = tconfigs.reduced_config("qwen1.5-0.5b")
+    tree = {"embed": np.ones((4, 2), np.float32), "blocks": {}}
+    if torch.cuda.is_available():
+        assert convert.lm_params_from_arrays(cfg, tree)["embed"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.lm_params_from_arrays(cfg, tree)
+    got = convert.lm_params_from_arrays(cfg, tree, device="cpu")
+    assert got["embed"].device.type == "cpu"
 
 
 def test_sampled_generate_uses_the_generator():

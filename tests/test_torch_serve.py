@@ -169,15 +169,17 @@ def test_byte_budget_evicts_like_reference():
 
 
 def test_later_slices_raise_not_implemented():
-    """The stream verifier waits for a later slice; ``spec="auto"`` is
-    ported (tests/test_torch_autotune.py), and a manual entry feeds no
+    """The stream verifier gate and ``spec="auto"`` are ported
+    (tests/test_torch_analysis.py, tests/test_torch_autotune.py): a gated
+    put installs, an unknown mode is refused, and a manual entry feeds no
     tuner."""
     _, treg = registries()
     r, c, v = random_coo(M, K, 300, seed=11)
-    with pytest.raises(NotImplementedError, match="analysis"):
-        treg.put(r, c, v, (M, K), verify="fast")
-    with pytest.raises(NotImplementedError, match="analysis"):
-        TR.MatrixRegistry(device="cpu", verify="full")
+    fast = treg.put(r, c, v, (M, K), verify="fast")
+    full = TR.MatrixRegistry(device="cpu", verify="full",
+                             config=treg.default_config)
+    assert full.get(full.put(r, c, v, (M, K))).plan.idx.tobytes() == \
+        treg.get(fast).plan.idx.tobytes()
     with pytest.raises(ValueError, match="verify must be"):
         treg.put(r, c, v, (M, K), verify="maybe")
     mid = treg.put(r, c, v, (M, K))

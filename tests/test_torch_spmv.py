@@ -161,5 +161,5 @@ def test_later_slices_raise_not_implemented():
                               axis="x")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         tspmv.ShardedSerpensSpMV()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        top.cost_report()
+    # The cost report is ported (tests/test_torch_profile.py).
+    assert top.cost_report()["stream_bytes"] == top.stream_bytes
