@@ -141,7 +141,7 @@ package.  Phases:
    of each shape timed in turns against ``torch.mv``/``torch.mm`` on CSR
    and on the dense pruned weight (yardsticks the port never calls).
 
-Full-size traces from phase 7 go to ``chiprun_out/traces/`` (git-ignored).
+Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
@@ -1789,7 +1789,7 @@ def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
     svc.flush()
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t
-    logdir = os.path.join(ROOT, "chiprun_out", "traces")
+    logdir = os.path.join(ROOT, "build", "traces")
     tickets = submit_all()
     zero_launches()
     torch.cuda.synchronize()
