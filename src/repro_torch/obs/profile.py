@@ -97,8 +97,10 @@ def plan_cost_report(op, *, measure: bool = False,
 
 def _time_matvec(op, backend, iters: int) -> float:
     """Median seconds of ``op.matvec`` on a seeded x already on the
-    operator's device, after one warm-up call.  On a card each call is
-    bracketed by CUDA events; on a CPU operator, by the host clock."""
+    operator's device, after one warm-up call.  On a card each timed call
+    is bracketed by CUDA events and enqueued behind an untimed one, so the
+    events measure the device's work rather than the host's enqueue; on a
+    CPU operator each call is timed by the host clock."""
     import numpy as np
     import torch
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -110,6 +112,7 @@ def _time_matvec(op, backend, iters: int) -> float:
         for _ in range(iters):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            op.matvec(x, backend=backend)       # keeps the queue fed
             start.record()
             op.matvec(x, backend=backend)
             end.record()
