@@ -1828,6 +1828,8 @@ def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
                              f"launches")
     busy_ms = device_busy_us(events) / 1e3
     spmm_ms = sum(float(e["dur"]) for e in spmm) / 1e3
+    partial = ("" if spmm_avg >= launches["spmm"] else
+               " (a lower bound: records were dropped)")
     top = sorted(((e.key, e.self_device_time_total / 1e3) for e in device),
                  key=lambda kv: -kv[1])[:4]
     say(f"[phase7] traced sync flush of {len(reqs)} requests: launches "
@@ -1835,8 +1837,9 @@ def traced_flush(svc, mid, reqs, refs, card) -> tuple[dict, dict]:
         f"{len(events)} trace events in {os.path.relpath(path, ROOT)}; card "
         f"busy {busy_ms:.3f} ms (SpMM kernels {spmm_ms:.3f} ms in "
         f"{len(spmm)} events) of the traced flush's {traced_s * 1e3:.3f} ms "
-        f"= {busy_ms / (traced_s * 1e3):.4f} busy share; of the untraced "
-        f"flush's {plain_s * 1e3:.3f} ms: {busy_ms / (plain_s * 1e3):.4f}; "
+        f"= {busy_ms / (traced_s * 1e3):.4f} busy share{partial}; of the "
+        f"untraced flush's {plain_s * 1e3:.3f} ms: "
+        f"{busy_ms / (plain_s * 1e3):.4f}; "
         f"SpMM kernel records: {spmm_avg} in key_averages for "
         f"{launches['spmm']} launches; "
         f"top device time: "
