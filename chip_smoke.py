@@ -142,12 +142,41 @@ package.  Phases:
    of each shape timed in turns against ``torch.mv``/``torch.mm`` on CSR
    and on the dense pruned weight (yardsticks the port never calls).
 
+8. llama4-scout MoE serving (the thirteenth slice's path), after every
+   earlier phase's streams, registries and models are released (the free
+   card memory is printed).  (a) The flash kernel at the served prefill's
+   shape, (B, S, KV, G, dh) = (4, 2000, 8, 5, 128) in bf16, causal: the
+   wgmma body and the mma body (offset copy) against the plain version
+   under phase 5(a)'s tolerances, then timed in turns with
+   ``scaled_dot_product_attention`` on the same tensors, beside its bound
+   (the unmasked pairs' flops at 989 TFLOP/s, 0.166 ms).  (b)
+   ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16 greedy decode
+   steps on llama4-scout-17b-a16e at its published width (d 5120, 40 q
+   heads over 8 KV of 128, 16 experts of d_ff 8192, top-1, vocab
+   202,048) and 12 of its 48 layers (48 take 203.5 GB), bf16, random
+   weights from a seeded generator made on the card; the flash counters
+   are set to 0 before ``generate`` and must read one wgmma launch per
+   layer after it.  Prefill ms, decode ms a step, peak memory, a
+   ``torch.profiler`` breakdown, layer 0's tokens per expert, the host
+   syncs of one MoE layer (``torch.cuda`` sync debug mode) and its share
+   of the step are printed.  (c) The same prefill with
+   ``flash_attention_plain`` swapped in: last-position logits within
+   ``LM_BF16_LOGIT_TOL``, and equal greedy first tokens wherever the
+   plain logits' top two lie more than twice the measured |Δ| apart (the
+   only place the bound can move the argmax).  (d) Layer 0's MoE on 64
+   of its prefill inputs, card bf16 against the same function on the CPU
+   in fp32 with the same weights: equal routing and
+   ``||Δ|| <= MOE_LAYER_REL·||cpu||``, beside a control with two experts
+   that received tokens swapped, which must fail.  If the run has passed
+   ``MOE_SLOW_S`` seconds before phase 8, it serves 2 prompts, not 4.
+
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-both timed shapes (``bodies``), whose spmm entry lists each vector
+the three timed shapes (``bodies``: phase 5's served prefill and
+prefill_32k, and llama4's served prefill), whose spmm entry lists each vector
 width's main-path launches (``bodies``) and, at each served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
 spmv_fused entries give the stream pass's plan at G7 (``plan``: lanes a
@@ -166,6 +195,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -200,6 +230,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.obs.profile import profiler_trace  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -1105,8 +1136,8 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters) -> dict:
     return out
 
 
-def profile_serve(eng, batch, out, card, host_ms: dict,
-                  steps: int = 4) -> None:
+def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
+                  tag: str = "phase5") -> None:
     """``torch.profiler`` over one prefill and over ``steps`` decode steps:
     the card's busy ms (kernel time summed), its share of the unprofiled
     host time in ``host_ms`` (the profiler slows the host), and the
@@ -1135,7 +1166,7 @@ def profile_serve(eng, batch, out, card, host_ms: dict,
         total = sum(busy.values())
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
         per = 1 if prefill else steps
-        say(f"[phase5] profile {name} (per {'call' if prefill else 'step'}"
+        say(f"[{tag}] profile {name} (per {'call' if prefill else 'step'}"
             f"): card busy {total / per:.3f} ms, {total / per / host_ms[name]:.2f}"
             f" of the unprofiled {host_ms[name]:.3f} ms (profiled host "
             f"{prof_ms / per:.3f} ms); top kernels: "
@@ -1190,6 +1221,39 @@ def wgmma_build_report() -> str:
     return "; ".join(out)
 
 
+def check_flash_case(case, dev, tag):
+    """One ``FLASH_CASES`` entry: the kernel against its plain version on
+    card tensors (in bf16 the wgmma body on the tensors and the mma body
+    on an offset copy).  Returns the largest error and (q, k, v, plain)."""
+    name, b, s, kvh, g, dh, dv, causal, dt = case
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
+    runs = [(q, k, v)]
+    if dt == torch.bfloat16:
+        if fa.flash_body(q, k, v) != "wgmma":
+            raise AssertionError(f"bf16 case {name} is not on the wgmma "
+                                 f"body")
+        runs.append(tuple(map(offset_copy, (q, k, v))))
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    err = 0.0
+    for qq, kk, vv in runs:
+        got, body = launch_body(qq, kk, vv, causal)
+        e = check_allclose(f"flash {name} {dt} {body} vs plain", got, want,
+                           FLASH_TOL[dt])
+        err = max(err, e)
+        rel = ""
+        if dt == torch.bfloat16:
+            r = rel_err(got, want)
+            rel = f", ||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})"
+            if not r <= FLASH_BF16_REL:
+                raise AssertionError(f"flash {name} bf16 {body} vs plain: "
+                                     f"||Δ||/||plain|| {r}")
+        say(f"[{tag}] flash {body} body vs plain, {name} (B={b}, S={s}, "
+            f"KV={kvh}, G={g}, dh={dh}, dv={dv}, causal={causal}, {dt}): "
+            f"max err {e:.3e} (tol {FLASH_TOL[dt]}){rel}")
+        del got
+    return err, (q, k, v, want)
+
+
 def phase_lm(dev, card):
     """Phase 5; returns (launches, max error, timings, bound, per-body
     record) of the flash kernel at the served shape."""
@@ -1198,32 +1262,10 @@ def phase_lm(dev, card):
     # the wgmma body on the tensors and the mma body on an offset copy.
     t = time.perf_counter()
     err = 0.0
-    for name, b, s, kvh, g, dh, dv, causal, dt in FLASH_CASES:
-        q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
-        runs = [(q, k, v)]
-        if dt == torch.bfloat16:
-            if fa.flash_body(q, k, v) != "wgmma":
-                raise AssertionError(f"bf16 case {name} is not on the "
-                                     f"wgmma body")
-            runs.append(tuple(map(offset_copy, (q, k, v))))
-        want = fa.flash_attention_plain(q, k, v, causal=causal)
-        for qq, kk, vv in runs:
-            got, body = launch_body(qq, kk, vv, causal)
-            e = check_allclose(f"flash {name} {dt} {body} vs plain", got,
-                               want, FLASH_TOL[dt])
-            err = max(err, e)
-            rel = ""
-            if dt == torch.bfloat16:
-                r = rel_err(got, want)
-                rel = f", ||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})"
-                if not r <= FLASH_BF16_REL:
-                    raise AssertionError(f"flash {name} bf16 {body} vs "
-                                         f"plain: ||Δ||/||plain|| {r}")
-            say(f"[phase5] flash {body} body vs plain, {name} (B={b}, "
-                f"S={s}, KV={kvh}, G={g}, dh={dh}, dv={dv}, "
-                f"causal={causal}, {dt}): max err {e:.3e} (tol "
-                f"{FLASH_TOL[dt]}){rel}")
-            del got
+    for case in FLASH_CASES:
+        name, dt = case[0], case[-1]
+        e, (q, k, v, want) = check_flash_case(case, dev, "phase5")
+        err = max(err, e)
         if dt == torch.bfloat16 and name == "qwen heads":
             ctl = dropped_tile_control(q, k, v, want)
             r, e = rel_err(ctl, want), float((ctl.float() - want.float())
@@ -1235,7 +1277,7 @@ def phase_lm(dev, card):
                 raise AssertionError(f"the bf16 norm check passes a kernel "
                                      f"that drops a kv tile ({r})")
             del ctl
-        del q, k, v, want, runs
+        del q, k, v, want
     say(f"[phase5] kernel checks in {time.perf_counter() - t:.1f} s")
 
     # (b) serve: qwen1.5-0.5b at full width and depth, random bf16 weights.
@@ -2061,6 +2103,291 @@ def phase_analysis(reg, svc, mid, reqs, refs, opt_src, arm_spmv_ms, dev,
     return launches, by_width
 
 
+# -- phase 8: llama4-scout MoE serving --------------------------------------
+MOE_ARCH = "llama4-scout-17b-a16e"
+# 12 of the 48 layers: each layer holds 4.15 GB in bf16 (its 16 experts
+# 4.03 GB) and the embedding and untied head 4.14 GB, so 48 layers
+# (203.5 GB) do not fit one 80 GB card; 12 take 53.97 GB.  The width is
+# the published one.
+MOE_LAYERS = 12
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 4, 2000, 16
+# Past this many seconds of run before phase 8, it serves MOE_SLOW_BATCH
+# prompts instead of MOE_BATCH (same width and length) and says so.
+MOE_SLOW_S = 800.0
+MOE_SLOW_BATCH = 2
+# The flash kernel at the served prefill's shape (FLASH_CASES' layout).
+LLAMA4_FLASH = ("llama4 heads", MOE_BATCH, MOE_PROMPT, 8, 5, 128, 128,
+                True, torch.bfloat16)
+# Phase 8(d): layer 0's MoE on the card in bf16 against the same function
+# on the CPU in fp32, on MOE_CHECK_TOKENS of the prompt's hidden states
+# and the same bf16 weights: ||Δ|| <= MOE_LAYER_REL·||cpu||, about 5x the
+# first H100 reading (3.921e-3: the bf16 run rounds g, u, act(g)·u and
+# the output, 2^-9 each).  A swap of two experts that received tokens
+# gives their tokens another expert's output and must fail (it read 0.585).
+MOE_CHECK_TOKENS = 64
+MOE_LAYER_REL = 2e-2
+
+
+def host_syncs(fn) -> list:
+    """The host syncs of one call of ``fn``, as ``torch.cuda``'s sync
+    debug mode reports them (one warning per synchronising call) while
+    ``fn`` runs: where each came from, the innermost Python frame and,
+    when that lies outside the repository, the innermost frame inside it.
+    (Switching the mode on warns once per process by itself.)"""
+    seen, running = [], []
+
+    def where(f):
+        return f"{os.path.relpath(f.filename, ROOT)}:{f.lineno} {f.name}"
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not running or "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if f.filename != warnings.__file__]
+        ours = [f for f in stack if f.filename.startswith(ROOT)]
+        got = where(stack[-1])
+        if ours and ours[-1] is not stack[-1]:
+            got += f" (from {where(ours[-1])})"
+        seen.append(got)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        running.append(True)
+        try:
+            fn()
+        finally:
+            running.clear()
+            torch.cuda.set_sync_debug_mode("default")
+    return seen
+
+
+def phase_moe(dev, card, t_run):
+    """Phase 8; returns (launches, max error, per-body flash record at the
+    llama4 shape)."""
+    # (a) the flash kernel at the served prefill's shape.
+    t = time.perf_counter()
+    err, inputs = check_flash_case(LLAMA4_FLASH, dev, "phase8")
+    del inputs
+    _, b, s, kvh, g, dh, dv, causal, _ = LLAMA4_FLASH
+    tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3))
+    bd, by = flash_bound(b, s, kvh, g, dh, dv, causal)
+    bytes_ms = 2 * b * s * kvh * (g * dh + dh + dv + g * dv) \
+        / HBM_BYTES_PER_S * 1e3
+    reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                      for n, r in tm["reads"].items())
+    wg, mma, lib = tm["wgmma"], tm["mma"], tm["library"]
+    say(f"[phase8] flash llama4 heads (B={b}, S={s}, KV={kvh}, G={g}, "
+        f"dh={dh}, bf16, causal): wgmma body {wg:.4f} ms ({bd / wg:.3f} of "
+        f"the bound), mma body {mma:.4f} ms, scaled_dot_product_attention "
+        f"{lib:.4f} ms (the wgmma body at {lib / wg:.2f}x its speed), "
+        f"plain {tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}; the "
+        f"bytes alone {bytes_ms:.4f} ms); readings in turns: {reads}  "
+        f"[{card}]")
+    bodies = {body: {"llama4": {"ms": tm[body], "bound_ms": bd,
+                                "library_ms": lib}}
+              for body in ("wgmma", "mma")}
+    say(f"[phase8] (a) in {time.perf_counter() - t:.1f} s")
+
+    # (b) serve llama4-scout at full width, MOE_LAYERS deep.
+    batch_n = MOE_BATCH
+    if time.perf_counter() - t_run > MOE_SLOW_S:
+        batch_n = MOE_SLOW_BATCH
+        say(f"[phase8] run past {MOE_SLOW_S:.0f} s: serving {batch_n} "
+            f"prompts, not {MOE_BATCH}")
+    t = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    resident = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    say(f"[phase8] {MOE_ARCH}: {cfg.num_layers} of its {full.num_layers} "
+        f"layers (the one cut: 48 do not fit one card), d={cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV of "
+        f"{cfg.head_dim}, {cfg.moe.num_experts} experts of d_ff "
+        f"{cfg.d_ff}, top-{cfg.moe.top_k}, vocab {cfg.vocab_padded}; "
+        f"{resident / 1e9:.2f} GB of weights made on the card in "
+        f"{time.perf_counter() - t:.1f} s; router "
+        f"{params['blocks'][0]['sub0']['ffn']['router'].dtype}")
+    max_len = MOE_PROMPT + MOE_DECODE + 1
+    eng = ServeEngine(lm, params, max_len=max_len)
+    rng = np.random.default_rng(SEED + 8)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch_n, MOE_PROMPT))).to(dev)
+    batch = {"inputs": prompts}
+    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, MOE_DECODE + 1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["flash_attention"] != cfg.num_layers or \
+            by_body["wgmma"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve ({by_body}), not the wgmma body once "
+                             f"per layer ({cfg.num_layers})")
+    if tuple(out.shape) != (batch_n, MOE_DECODE + 1) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+    for name in bodies:
+        bodies[name]["launches"] = by_body[name]
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(MOE_DECODE):
+        _, cache = eng.decode_step(cache, tok, MOE_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / MOE_DECODE
+    del logits, cache
+    head = cfg.d_model * cfg.vocab_padded
+    say(f"[phase8] serve {batch_n} x {MOE_PROMPT} tokens + {MOE_DECODE} "
+        f"greedy decode steps: generate {gen_s:.3f} s, launches {launches},"
+        f" flash by body {by_body}; prefill {prefill_ms:.2f} ms "
+        f"({batch_n * MOE_PROMPT / prefill_ms:.1f} tokens/ms), decode "
+        f"{decode_ms:.3f} ms per step ({batch_n * 1e3 / decode_ms:.1f} "
+        f"tokens/s); peak memory {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated)  [{card}]")
+    say(f"[phase8] each prefill and decode step copies lm_head to fp32 "
+        f"(_lm_logits_chunk): {4 * head / 1e9:.2f} GB made, "
+        f"{(2 + 4 + 4) * head / 1e9:.2f} GB moved against "
+        f"{2 * head / 1e9:.2f} GB for a bf16 product, "
+        f"{8 * head / HBM_BYTES_PER_S * 1e3:.3f} ms of extra traffic at "
+        f"3.35 TB/s")
+    say(f"[phase8] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms}, tag="phase8")
+
+    # One MoE layer alone: host syncs, and its ms at prefill and decode
+    # size (x MOE_LAYERS, its share of the served step).  Each call waits
+    # for its group sizes, so its CUDA-event time is its host time.
+    ffn0 = params["blocks"][0]["sub0"]["ffn"]
+    seen = []
+
+    def first_moe_input(fn):
+        def rec(p, x, *args, **kwargs):
+            if not seen:
+                seen.append(x.detach().clone())
+            return fn(p, x, *args, **kwargs)
+        return rec
+
+    # (c) the same prefill with the plain attention in the kernel's place;
+    # the kernel run also keeps layer 0's MoE input.
+    with patched(moe, "moe_apply", first_moe_input(moe.moe_apply)):
+        k_logits, _ = eng.prefill(batch)
+    with patched(fa, "flash_attention", fa.flash_attention_plain):
+        p_logits, _ = eng.prefill(batch)
+    h0 = seen[0]
+    real = slice(0, cfg.vocab_size)
+    d_logits = float((k_logits[:, real] - p_logits[:, real]).abs().max())
+    top2 = p_logits[:, real].topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    k_tok = k_logits[:, real].argmax(-1).tolist()
+    p_tok = p_logits[:, real].argmax(-1).tolist()
+    # |Δ| <= d elementwise can move the argmax only where the plain
+    # logits' top two lie within 2d: every other prompt must agree.
+    held = [i for i, gp in enumerate(gaps) if gp > 2 * d_logits]
+    say(f"[phase8] bf16 prefill vs the same with plain attention: "
+        f"last-position logits max |Δ| {d_logits:.4e} (tol "
+        f"{LM_BF16_LOGIT_TOL}); first tokens kernel {k_tok}, plain "
+        f"{p_tok}; plain top-1/top-2 gaps "
+        + ", ".join(f"{gp:.4f}" for gp in gaps)
+        + f"; held to equal: prompts {held}")
+    if not d_logits <= LM_BF16_LOGIT_TOL:
+        raise AssertionError(f"bf16 llama4 prefill with the kernel differs "
+                             f"from plain: logits {d_logits}")
+    if any(k_tok[i] != p_tok[i] for i in held):
+        raise AssertionError(f"greedy first tokens differ where the logits "
+                             f"bound holds them equal: {k_tok} vs {p_tok}")
+    del k_logits, p_logits
+
+    d = cfg.d_model
+    counts = torch.bincount(moe._route(ffn0, h0.reshape(-1, d), cfg)[0]
+                            .reshape(-1), minlength=cfg.moe.num_experts)
+    x_dec = h0[:, -1:].contiguous()
+    syncs = {"prefill": host_syncs(lambda: moe.moe_apply(
+        ffn0, h0, cfg, exact=True)), "decode": host_syncs(
+        lambda: moe.moe_apply(ffn0, x_dec, cfg, exact=True, decode=True))}
+    moe_ms = {"prefill": time_ms(lambda: moe.moe_apply(
+        ffn0, h0, cfg, exact=True), 5), "decode": time_ms(
+        lambda: moe.moe_apply(ffn0, x_dec, cfg, exact=True,
+                              decode=True), 20)}
+    step = {"prefill": prefill_ms, "decode": decode_ms}
+    say(f"[phase8] layer 0 at prefill: tokens per expert "
+        f"{counts.tolist()}; host syncs of one MoE layer: prefill "
+        f"{len(syncs['prefill'])} {syncs['prefill']}, decode "
+        f"{len(syncs['decode'])} {syncs['decode']}; one MoE layer "
+        + ", ".join(f"{k} {moe_ms[k]:.3f} ms (x{cfg.num_layers}: "
+                    f"{moe_ms[k] * cfg.num_layers / step[k]:.2f} of the "
+                    f"served {k})" for k in moe_ms)
+        + f"  [{card}]")
+    if not syncs["prefill"]:
+        raise AssertionError("the sync debug mode saw no sync in the MoE "
+                             "dispatch, which reads its group sizes")
+
+    # (d) layer 0's MoE on the card (bf16) against the CPU (fp32), on
+    # MOE_CHECK_TOKENS of its prefill inputs spread over the prompts.
+    t = time.perf_counter()
+    flat = h0.reshape(-1, d)
+    xs = flat[torch.linspace(0, flat.shape[0] - 1, MOE_CHECK_TOKENS,
+                             device=dev).long()][None]
+    got, _ = moe.moe_apply(ffn0, xs, cfg, exact=True)
+    cpu = {k: v.cpu().float() for k, v in ffn0.items()}
+    x_cpu = xs.cpu().float()
+    want, _ = moe.moe_apply(cpu, x_cpu, cfg, exact=True)
+    gi = moe._route(ffn0, xs[0], cfg)[0].cpu()
+    wi = moe._route(cpu, x_cpu[0], cfg)[0]
+    lg = x_cpu[0].double() @ cpu["router"].double()
+    top = lg.topk(2, dim=-1).values
+    gap = float((top[:, 0] - top[:, 1]).min())
+    if not torch.equal(gi, wi):
+        raise AssertionError(f"card and CPU route layer 0's tokens apart "
+                             f"(smallest top-1/top-2 logit gap {gap:.3e})")
+    r = rel_err(got.cpu(), want)
+    used = torch.unique(wi).tolist()
+    a, c = used[0], used[-1]
+    swapped = dict(cpu)
+    for name in ("w_gate", "w_up", "w_down"):
+        w = cpu[name].clone()
+        w[[a, c]] = w[[c, a]]
+        swapped[name] = w
+    ctl, _ = moe.moe_apply(swapped, x_cpu, cfg, exact=True)
+    r_ctl = rel_err(got.cpu(), ctl)
+    say(f"[phase8] layer 0's MoE on {MOE_CHECK_TOKENS} prefill tokens, "
+        f"card bf16 vs CPU fp32: routing equal (smallest top-1/top-2 "
+        f"logit gap {gap:.3e}), ||Δ||/||cpu|| {r:.3e} (tol "
+        f"{MOE_LAYER_REL}); control (experts {a} and {c} swapped): {r_ctl:.3e}"
+        f"; in {time.perf_counter() - t:.1f} s")
+    if not r <= MOE_LAYER_REL:
+        raise AssertionError(f"the card's MoE layer differs from the CPU's: "
+                             f"{r}")
+    if not r_ctl > MOE_LAYER_REL:
+        raise AssertionError(f"a MoE layer with experts {a} and {c} "
+                             f"swapped passes the check ({r_ctl})")
+    del params, eng, ffn0, cpu, swapped, h0, seen
+    return launches, err, bodies
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2346,7 +2673,26 @@ def main() -> int:
                 if l7[part][name] == 0:
                     raise AssertionError(f"kernel {name} never launched in "
                                          f"phase 7's {part}")
-    say(f"[phase7] ok in {time.perf_counter() - t7:.1f} s; whole run "
+    say(f"[phase7] ok in {time.perf_counter() - t7:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 8: llama4-scout MoE serving (the thirteenth slice) ---------
+    # Every earlier phase's streams, registries and services go first.
+    del reg, svc, op, plan, idx, val, seg, x1, x16, xn, bidx, bval, bseg, \
+        csr, l7, w7
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase8] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t8 = time.perf_counter()
+    launches["moe"], err8, moe_bodies = phase_moe(dev, card, t_run)
+    errs["flash_attention"] = max(errs["flash_attention"], err8)
+    for body, rec in moe_bodies.items():
+        flash_bodies[body]["launches"] += rec.pop("launches")
+        flash_bodies[body].update(rec)
+    say(f"[phase8] ok in {time.perf_counter() - t8:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -2361,8 +2707,9 @@ def main() -> int:
              plain_ms=times[name]["plain_ms"], bound_ms=bounds[name][0],
              bound_by=bounds[name][1], library_ms=times[name]["library_ms"])
         for name in sorted(KERNELS)]}
-    # The flash kernel's bodies: launches on the main path, and ms, bound
-    # and library ms at the served shape and at prefill_32k.
+    # The flash kernel's bodies: launches on the main paths, and ms, bound
+    # and library ms at the served shape, at prefill_32k and at llama4's
+    # served prefill.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]

@@ -29,6 +29,10 @@ import numpy as np
 from repro_torch.core import format as sformat
 from repro_torch.core import partition as cpart
 
+# LM leaves whose dtype the reference fixes whatever ``param_dtype``: the
+# MoE router is fp32 (``moe_init``).
+FP32_LEAVES = frozenset({"router"})
+
 
 def _shard(d: dict, cfg: sformat.SerpensConfig) -> sformat.SerpensMatrix:
     idx = np.ascontiguousarray(d["idx"], np.int32)
@@ -77,8 +81,9 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``);
     the port holds one dict per period.  A bf16 array arrives as fp32 or
     as its ``uint16`` bit patterns; every leaf is cast to
-    ``cfg.param_dtype`` and placed on ``device`` (default CUDA, which
-    raises without a card; pass ``device="cpu"`` for the CPU).
+    ``cfg.param_dtype`` (those named in :data:`FP32_LEAVES` to fp32, as
+    the reference keeps them) and placed on ``device`` (default CUDA,
+    which raises without a card; pass ``device="cpu"`` for the CPU).
     """
     import torch
 
@@ -89,7 +94,7 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     dtype = {"bfloat16": torch.bfloat16,
              "float32": torch.float32}[cfg.param_dtype]
 
-    def leaf(a):
+    def leaf(a, name):
         a = np.require(a, requirements=["C", "W"])
         if a.dtype == np.uint16:
             t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -98,13 +103,14 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
         else:
             raise ValueError(f"weights arrive as float32 or uint16 bf16 "
                              f"bits, not {a.dtype}")
-        return t.to(device=device, dtype=dtype)
+        return t.to(device=device, dtype=torch.float32
+                    if name in FP32_LEAVES else dtype)
 
-    def walk(node, period=None):
+    def walk(node, period=None, name=None):
         if isinstance(node, dict):
-            return {k: walk(v, period) for k, v in node.items()}
-        return leaf(node if period is None else node[period])
+            return {k: walk(v, period, k) for k, v in node.items()}
+        return leaf(node if period is None else node[period], name)
 
-    out = {k: walk(v) for k, v in tree.items() if k != "blocks"}
+    out = {k: walk(v, name=k) for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [walk(tree["blocks"], p) for p in range(cfg.num_periods)]
     return out

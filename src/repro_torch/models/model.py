@@ -1,15 +1,18 @@
-"""The dense decoder LM: prefill and decode for serving.
+"""The decoder LM: prefill and decode for serving.
 
 The port of the reference package's ``models/model.py`` for layouts of
-``("attn", "dense")`` sub-layers (qwen1.5, codeqwen1.5, chatglm3).  The
-parameters keep the reference's tree, with the period stack as a Python
-list: ``params["blocks"][period]["sub0"]`` holds one layer, and the
+``("attn", "dense")`` and ``("attn", "moe")`` sub-layers (qwen1.5,
+codeqwen1.5, chatglm3; llama4 scout and maverick).  The parameters keep
+the reference's tree, with the period stack as a Python list:
+``params["blocks"][period]["sub0"]`` holds one layer, and the
 reference's ``scan`` over periods is a loop over that list.  The decode
 cache keeps the reference's stacked layout,
 ``cache["sub0"]["k"]`` of shape ``(periods, B, max_len, KV, dh)``, and
-decode writes each token's K/V into it in place.
+decode writes each token's K/V into it in place.  A MoE sub-layer serves
+through ``moe_apply(exact=True)``, the dropless dispatch, in prefill and
+decode; its aux losses are summed per period, as in the reference.
 
-MoE, SSM, MLA, the encoder, the vision prefix and the int8 KV cache raise
+SSM, MLA, the encoder, the vision prefix and the int8 KV cache raise
 ``NotImplementedError`` at construction, and so does ``loss`` (the
 training slice).
 """
@@ -19,13 +22,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.layers import (
     _dtype, dense_init, embed_init, ffn_apply, ffn_init, rms_norm)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for what, absent, where in (
-            ("MoE FFNs", cfg.moe is None, "the MoE slice"),
             ("SSM mixers", cfg.ssm is None, "the SSM slice"),
             ("MLA", cfg.mla is None, "the MLA slice"),
             ("the encoder", not cfg.encoder_layers,
@@ -36,7 +39,7 @@ def _check_ported(cfg: ModelConfig) -> None:
         if not absent:
             raise attn._not_ported(f"{cfg.arch_id}: {what}", where)
     for mixer, ffn in cfg.layout:
-        if (mixer, ffn) != ("attn", "dense"):
+        if mixer != "attn" or ffn not in ("dense", "moe"):
             raise attn._not_ported(f"{cfg.arch_id}: sub-layer "
                                    f"({mixer!r}, {ffn!r})", "later slices")
 
@@ -51,14 +54,15 @@ class LM:
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
-    def _init_sublayer(self, generator):
+    def _init_sublayer(self, generator, ffn):
         cfg, dt = self.cfg, self.pdtype
         dev = generator.device
         return {
             "norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
             "mixer": attn.attn_init(generator, cfg, dt),
             "norm_ffn": torch.ones(cfg.d_model, dtype=dt, device=dev),
-            "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, dt),
+            "ffn": (moe.moe_init(generator, cfg, dt) if ffn == "moe" else
+                    ffn_init(generator, cfg.d_model, cfg.d_ff, dt)),
         }
 
     def init(self, generator: torch.Generator) -> dict:
@@ -73,8 +77,8 @@ class LM:
             params["lm_head"] = dense_init(generator, cfg.d_model,
                                            cfg.vocab_padded, dt)
         params["blocks"] = [
-            {f"sub{i}": self._init_sublayer(generator)
-             for i in range(len(cfg.layout))}
+            {f"sub{i}": self._init_sublayer(generator, ffn)
+             for i, (_, ffn) in enumerate(cfg.layout)}
             for _ in range(cfg.num_periods)]
         return params
 
@@ -82,12 +86,14 @@ class LM:
     # Shared block machinery
     # ------------------------------------------------------------------
     def _period_fwd(self, pp, x, *, cache=None, pos=None):
-        """One period.  Prefill (``cache is None``) returns the period's new
-        cache entries; decode writes into ``cache`` (this period's slices)
-        in place."""
+        """One period; returns ``(x, aux, new_cache)``.  ``aux`` sums the
+        period's MoE aux losses.  Prefill (``cache is None``) returns the
+        period's new cache entries; decode writes into ``cache`` (this
+        period's slices) in place."""
         cfg = self.cfg
+        aux = {"load_balance": 0.0, "router_z": 0.0}
         new_cache = {}
-        for i in range(len(cfg.layout)):
+        for i, (_, ffn) in enumerate(cfg.layout):
             sp = pp[f"sub{i}"]
             key = f"sub{i}"
             h = rms_norm(x, sp["norm_in"], cfg.norm_eps)
@@ -101,8 +107,14 @@ class LM:
                     pos)
             x = x + out
             h = rms_norm(x, sp["norm_ffn"], cfg.norm_eps)
-            x = x + ffn_apply(sp["ffn"], h, cfg.ffn_activation)
-        return x, new_cache
+            if ffn == "moe":
+                out, a = moe.moe_apply(sp["ffn"], h, cfg, exact=True,
+                                       decode=cache is not None)
+                aux = {name: aux[name] + a[name] for name in aux}
+            else:
+                out = ffn_apply(sp["ffn"], h, cfg.ffn_activation)
+            x = x + out
+        return x, aux, new_cache
 
     def _embed_inputs(self, params, batch):
         """Token embedding (the reference's vision prefix and encoder
@@ -149,7 +161,7 @@ class LM:
         x = self._embed_inputs(params, batch)
         per_period = []
         for pp in params["blocks"]:
-            x, ent = self._period_fwd(pp, x)
+            x, _, ent = self._period_fwd(pp, x)
             per_period.append(ent)
         caches = {key: {name: torch.stack([e[key][name]
                                            for e in per_period])
@@ -177,7 +189,7 @@ class LM:
         for p, pp in enumerate(params["blocks"]):
             layer_cache = {key: {name: t[p] for name, t in sub.items()}
                            for key, sub in cache.items()}
-            x, _ = self._period_fwd(pp, x, cache=layer_cache, pos=pos)
+            x, _, _ = self._period_fwd(pp, x, cache=layer_cache, pos=pos)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
         return logits[:, 0], cache

@@ -36,6 +36,7 @@ from repro_torch.solvers.power_iteration import (_pagerank_epilogue,
 from repro_torch.configs import reduced_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
+from repro_torch.models import moe as tmoe
 from repro_torch.models.model import LM
 from repro_torch.serve.engine import ServeEngine
 
@@ -572,6 +573,7 @@ WGMMA_SHAPES = {
     "d64-sq-gt-sk": (2, 333, 200, 2, 2, 64, True),
     "d128-sq-gt-sk": (1, 260, 77, 1, 3, 128, True),
     "d64-one-row": (3, 1, 1, 2, 1, 64, True),
+    "llama4-g5": (1, 256, 256, 8, 5, 128, True),
 }
 
 
@@ -654,6 +656,52 @@ def test_reduced_lm_generate_on_the_card(card):
     got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
     ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
     assert torch.equal(got.cpu(), ref)
+
+
+def test_reduced_moe_lm_generate_on_the_card(card):
+    """Reduced llama4-scout: the card's prefill runs the kernel once per
+    layer and its logits match the CPU model's; greedy tokens agree."""
+    cfg = reduced_config("llama4-scout-17b-a16e")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    before = fa.flash_launches
+    logits, _ = lm.prefill(on_card, {"inputs": toks.to(card)}, 48)
+    assert fa.flash_launches - before == cfg.num_layers
+    want, _ = lm.prefill(params, {"inputs": toks}, 48)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
+    ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "capacity"])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_apply_on_the_card_matches_its_cpu_run(card, top_k, exact):
+    """``moe_apply`` on card tensors against the same call on the CPU, in
+    fp32: equal routing, outputs and aux within 1e-5."""
+    cfg = dataclasses.replace(
+        reduced_config("llama4-scout-17b-a16e"),
+        moe=dataclasses.replace(reduced_config(
+            "llama4-scout-17b-a16e").moe, top_k=top_k))
+    params = tmoe.moe_init(torch.Generator().manual_seed(top_k), cfg,
+                           torch.float32)
+    x = torch.randn((3, 50, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    want, want_aux = tmoe.moe_apply(params, x, cfg, exact=exact)
+    on_card = tree_map(lambda t: t.to(card), params)
+    got, aux = tmoe.moe_apply(on_card, x.to(card), cfg, exact=exact)
+    assert got.is_cuda
+    want_i = tmoe._route(params, x.reshape(-1, cfg.d_model), cfg)[0]
+    got_i = tmoe._route(on_card, x.to(card).reshape(-1, cfg.d_model),
+                        cfg)[0]
+    assert torch.equal(got_i.cpu(), want_i)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for name in want_aux:
+        torch.testing.assert_close(aux[name].cpu(), want_aux[name],
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_cost_report_measures_on_the_card(card):

@@ -9,8 +9,11 @@ prefill attention is the model's chunked attention.
 Tolerance: logits at rtol = atol = 1e-4 in fp32 (sums in another order
 than XLA's, through a few layers).  In bf16 the two frameworks round at
 other places (each fused XLA computation against each torch op), so bf16
-logits agree within 5e-2 and greedy tokens are not compared.
+logits agree within 5e-2 and greedy tokens are not compared.  The MoE
+archs (llama4 scout and maverick) route in fp32 in both packages, and
+their routing (``topi`` of every MoE layer) must be equal exactly.
 """
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -25,16 +28,20 @@ import torch
 
 from repro import configs as jconfigs
 from repro.data import pipeline as jpipe
+from repro.models import moe as jmoe
 from repro.models.model import build as jbuild
 from repro.serve.engine import ServeEngine as JEngine
 from repro_torch import configs as tconfigs
 from repro_torch import convert
 from repro_torch.data import pipeline as tpipe
+from repro_torch.models import moe as tmoe
 from repro_torch.models.model import LM, build
 from repro_torch.serve.engine import ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b"]
+ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b",
+         "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
+MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, EXTRA = 2, 12, 4
 MAXLEN = S + EXTRA + 4
@@ -138,8 +145,76 @@ def test_decode_matches_prefill_of_the_longer_prompt(arch):
                                         toks[:, S + i:S + i + 1], S + i)
 
 
+@contextlib.contextmanager
+def recorded_routing():
+    """Both packages' ``_route`` record each call's ``topi`` and its
+    smallest top-1/top-2 probability gap, as numpy, into the yielded
+    ``{"ref": [...], "port": [...]}``.  The reference is run under
+    ``jax.disable_jit()``, so its scan runs eagerly and records values."""
+    seen = {"ref": [], "port": []}
+
+    def rec(where, route):
+        def run(params, xt, cfg):
+            topi, topw, aux = route(params, xt, cfg)
+            x32 = np.asarray(f32(xt), np.float64)
+            logits = x32 @ np.asarray(f32(params["router"]), np.float64)
+            top2 = np.sort(logits, axis=-1)[:, -2:]
+            seen[where].append((np.asarray(topi), float(
+                (top2[:, 1] - top2[:, 0]).min())))
+            return topi, topw, aux
+        return run
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmoe, "_route", rec("ref", jmoe._route))
+        mp.setattr(tmoe, "_route", rec("port", tmoe._route))
+        yield seen
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_routing_matches_reference(arch):
+    """Every MoE layer's ``topi`` in prefill and two decode steps equals
+    the reference's; a failure names the call and its smallest top-1/
+    top-2 logit gap."""
+    jlm, jparams, tlm, tparams, cfg = models(arch)
+    toks = tokens(cfg, seed=4)
+    with recorded_routing() as seen, jax.disable_jit():
+        _, jcache = jlm.prefill(jparams, {"inputs": jnp.asarray(
+            toks[:, :S])}, MAXLEN)
+        _, tcache = tlm.prefill(tparams, {"inputs": torch.from_numpy(
+            toks[:, :S])}, MAXLEN)
+        for i in range(2):
+            tok = toks[:, S + i:S + i + 1]
+            _, jcache = jlm.decode_step(jparams, jcache, jnp.asarray(tok),
+                                        jnp.int32(S + i))
+            tlm.decode_step(tparams, tcache, torch.from_numpy(tok), S + i)
+    moe_layers = sum(f == "moe" for _, f in cfg.layout) * cfg.num_periods
+    assert len(seen["ref"]) == len(seen["port"]) == 3 * moe_layers
+    print(f"{arch}: smallest top-1/top-2 logit gap "
+          f"{min(gap for _, gap in seen['ref']):.3e}")
+    for n, ((want, gap), (got, _)) in enumerate(zip(seen["ref"],
+                                                    seen["port"])):
+        np.testing.assert_array_equal(
+            got, want, err_msg=f"call {n}: smallest top-1/top-2 logit "
+                               f"gap {gap:.3e}")
+
+
 def test_bf16_prefill_and_decode_near_reference():
-    jlm, jparams, tlm, tparams, cfg = models("qwen1.5-0.5b", "bfloat16")
+    bf16_near_reference("qwen1.5-0.5b")
+
+
+def test_bf16_moe_prefill_and_decode_near_reference():
+    """llama4-scout in bf16: the router stays fp32, and the logits keep
+    the dense model's bound."""
+    tparams = bf16_near_reference("llama4-scout-17b-a16e")
+    ffn = tparams["blocks"][0]["sub0"]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["w_gate"].dtype == torch.bfloat16
+
+
+def bf16_near_reference(arch):
+    """Prefill and two decode steps in bf16 against the reference within
+    5e-2; returns the port's params."""
+    jlm, jparams, tlm, tparams, cfg = models(arch, "bfloat16")
     assert tparams["embed"].dtype == torch.bfloat16
     toks = tokens(cfg, seed=3)
     jl, jcache = jax.jit(lambda p, b: jlm.prefill(p, b, MAXLEN))(
@@ -155,6 +230,7 @@ def test_bf16_prefill_and_decode_near_reference():
         tl, tcache = tlm.decode_step(tparams, tcache, torch.from_numpy(tok),
                                      S + i)
         np.testing.assert_allclose(f32(tl), f32(jl), rtol=5e-2, atol=5e-2)
+    return tparams
 
 
 def test_carried_weights_are_bit_equal():
@@ -175,6 +251,39 @@ def test_carried_weights_are_bit_equal():
     with pytest.raises(ValueError, match="float32 or uint16"):
         convert.lm_params_from_arrays(cfg, {"embed": np.zeros(3, np.int8),
                                             "blocks": {}}, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_carried_moe_weights_are_bit_equal(arch):
+    """Every leaf of a bf16 MoE model carries bit for bit; the router
+    arrives and stays fp32, and so it does when every leaf comes as fp32."""
+    _, jparams, _, tparams, cfg = models(arch, "bfloat16")
+    want = to_numpy(jparams)
+    for p in range(cfg.num_periods):
+        for i, (_, ffn) in enumerate(cfg.layout):
+            got_ffn = tparams["blocks"][p][f"sub{i}"]["ffn"]
+            ref_ffn = want["blocks"][f"sub{i}"]["ffn"]
+            assert got_ffn.keys() == ref_ffn.keys()
+            assert ("router" in got_ffn) == (ffn == "moe")
+            for name, ref in ref_ffn.items():
+                got = got_ffn[name]
+                if name == "router":
+                    assert ref.dtype == np.float32
+                    assert got.dtype == torch.float32
+                    np.testing.assert_array_equal(got.numpy(), ref[p])
+                else:
+                    assert got.dtype == torch.bfloat16
+                    np.testing.assert_array_equal(
+                        got.view(torch.int16).numpy().view(np.uint16),
+                        ref[p])
+    fp = convert.lm_params_from_arrays(cfg, jax.tree.map(
+        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jparams),
+        device="cpu")
+    moe = fp["blocks"][0]["sub0"]["ffn"]
+    assert moe["router"].dtype == torch.float32
+    assert torch.equal(moe["router"],
+                       tparams["blocks"][0]["sub0"]["ffn"]["router"])
+    assert torch.equal(moe["w_up"], tparams["blocks"][0]["sub0"]["ffn"]["w_up"])
 
 
 def test_carried_weights_default_to_the_card():
@@ -226,10 +335,9 @@ def test_random_init_from_a_generator():
     assert a["embed"].shape == (cfg.vocab_padded, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-1.3b",
-                                  "minicpm3-4b", "whisper-base",
-                                  "paligemma-3b", "jamba-1.5-large-398b",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "minicpm3-4b",
+                                  "whisper-base", "paligemma-3b",
+                                  "jamba-1.5-large-398b"])
 def test_unported_families_raise_at_construction(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         LM(tconfigs.reduced_config(arch))
@@ -268,12 +376,20 @@ def launch(*args, cuda_visible=None):
         env=env, capture_output=True, text=True, timeout=300)
 
 
-def test_serve_launcher_on_the_cpu():
-    proc = launch("--arch", "qwen1.5-0.5b", "--reduced", "--device", "cpu",
+def served_on_the_cpu(arch):
+    proc = launch("--arch", arch, "--reduced", "--device", "cpu",
                   "--batch", "2", "--prompt-len", "8", "--gen", "4")
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "generated (2, 4) tokens" in proc.stdout
     assert proc.stdout.count("req ") == 2
+
+
+def test_serve_launcher_on_the_cpu():
+    served_on_the_cpu("qwen1.5-0.5b")
+
+
+def test_moe_serve_launcher_on_the_cpu():
+    served_on_the_cpu("llama4-scout-17b-a16e")
 
 
 def test_serve_launcher_refuses_without_a_card():
