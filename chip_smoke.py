@@ -167,8 +167,7 @@ package.  Phases:
    of its prefill inputs, card bf16 against the same function on the CPU
    in fp32 with the same weights: equal routing and
    ``||Δ|| <= MOE_LAYER_REL·||cpu||``, beside a control with two experts
-   that received tokens swapped, which must fail.  If the run has passed
-   ``MOE_SLOW_S`` seconds before phase 8, it serves 2 prompts, not 4.
+   that received tokens swapped, which must fail.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
@@ -2111,10 +2110,6 @@ MOE_ARCH = "llama4-scout-17b-a16e"
 # the published one.
 MOE_LAYERS = 12
 MOE_BATCH, MOE_PROMPT, MOE_DECODE = 4, 2000, 16
-# Past this many seconds of run before phase 8, it serves MOE_SLOW_BATCH
-# prompts instead of MOE_BATCH (same width and length) and says so.
-MOE_SLOW_S = 800.0
-MOE_SLOW_BATCH = 2
 # The flash kernel at the served prefill's shape (FLASH_CASES' layout).
 LLAMA4_FLASH = ("llama4 heads", MOE_BATCH, MOE_PROMPT, 8, 5, 128, 128,
                 True, torch.bfloat16)
@@ -2164,7 +2159,7 @@ def host_syncs(fn) -> list:
     return seen
 
 
-def phase_moe(dev, card, t_run):
+def phase_moe(dev, card):
     """Phase 8; returns (launches, max error, per-body flash record at the
     llama4 shape)."""
     # (a) the flash kernel at the served prefill's shape.
@@ -2192,11 +2187,6 @@ def phase_moe(dev, card, t_run):
     say(f"[phase8] (a) in {time.perf_counter() - t:.1f} s")
 
     # (b) serve llama4-scout at full width, MOE_LAYERS deep.
-    batch_n = MOE_BATCH
-    if time.perf_counter() - t_run > MOE_SLOW_S:
-        batch_n = MOE_SLOW_BATCH
-        say(f"[phase8] run past {MOE_SLOW_S:.0f} s: serving {batch_n} "
-            f"prompts, not {MOE_BATCH}")
     t = time.perf_counter()
     full = get_config(MOE_ARCH)
     cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
@@ -2216,7 +2206,7 @@ def phase_moe(dev, card, t_run):
     eng = ServeEngine(lm, params, max_len=max_len)
     rng = np.random.default_rng(SEED + 8)
     prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch_n, MOE_PROMPT))).to(dev)
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).to(dev)
     batch = {"inputs": prompts}
     eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
     torch.cuda.synchronize()
@@ -2237,7 +2227,7 @@ def phase_moe(dev, card, t_run):
                              f"{launches['flash_attention']} times in the "
                              f"serve ({by_body}), not the wgmma body once "
                              f"per layer ({cfg.num_layers})")
-    if tuple(out.shape) != (batch_n, MOE_DECODE + 1) or \
+    if tuple(out.shape) != (MOE_BATCH, MOE_DECODE + 1) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
                              f"range [{int(out.min())}, {int(out.max())}]")
@@ -2261,11 +2251,11 @@ def phase_moe(dev, card, t_run):
     decode_ms = (time.perf_counter() - t) * 1e3 / MOE_DECODE
     del logits, cache
     head = cfg.d_model * cfg.vocab_padded
-    say(f"[phase8] serve {batch_n} x {MOE_PROMPT} tokens + {MOE_DECODE} "
+    say(f"[phase8] serve {MOE_BATCH} x {MOE_PROMPT} tokens + {MOE_DECODE} "
         f"greedy decode steps: generate {gen_s:.3f} s, launches {launches},"
         f" flash by body {by_body}; prefill {prefill_ms:.2f} ms "
-        f"({batch_n * MOE_PROMPT / prefill_ms:.1f} tokens/ms), decode "
-        f"{decode_ms:.3f} ms per step ({batch_n * 1e3 / decode_ms:.1f} "
+        f"({MOE_BATCH * MOE_PROMPT / prefill_ms:.1f} tokens/ms), decode "
+        f"{decode_ms:.3f} ms per step ({MOE_BATCH * 1e3 / decode_ms:.1f} "
         f"tokens/s); peak memory {peak / 1e9:.2f} GB "
         f"(max_memory_allocated)  [{card}]")
     say(f"[phase8] each prefill and decode step copies lm_head to fp32 "
@@ -2687,7 +2677,7 @@ def main() -> int:
         f"of {total_mem / 1e9:.2f} GB; allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     t8 = time.perf_counter()
-    launches["moe"], err8, moe_bodies = phase_moe(dev, card, t_run)
+    launches["moe"], err8, moe_bodies = phase_moe(dev, card)
     errs["flash_attention"] = max(errs["flash_attention"], err8)
     for body, rec in moe_bodies.items():
         flash_bodies[body]["launches"] += rec.pop("launches")

@@ -10,7 +10,8 @@ cache keeps the reference's stacked layout,
 ``cache["sub0"]["k"]`` of shape ``(periods, B, max_len, KV, dh)``, and
 decode writes each token's K/V into it in place.  A MoE sub-layer serves
 through ``moe_apply(exact=True)``, the dropless dispatch, in prefill and
-decode; its aux losses are summed per period, as in the reference.
+decode; serving drops its aux losses (``loss``, which reads them, comes
+with the training slice).
 
 SSM, MLA, the encoder, the vision prefix and the int8 KV cache raise
 ``NotImplementedError`` at construction, and so does ``loss`` (the
@@ -86,12 +87,10 @@ class LM:
     # Shared block machinery
     # ------------------------------------------------------------------
     def _period_fwd(self, pp, x, *, cache=None, pos=None):
-        """One period; returns ``(x, aux, new_cache)``.  ``aux`` sums the
-        period's MoE aux losses.  Prefill (``cache is None``) returns the
-        period's new cache entries; decode writes into ``cache`` (this
-        period's slices) in place."""
+        """One period.  Prefill (``cache is None``) returns the period's new
+        cache entries; decode writes into ``cache`` (this period's slices)
+        in place."""
         cfg = self.cfg
-        aux = {"load_balance": 0.0, "router_z": 0.0}
         new_cache = {}
         for i, (_, ffn) in enumerate(cfg.layout):
             sp = pp[f"sub{i}"]
@@ -108,13 +107,11 @@ class LM:
             x = x + out
             h = rms_norm(x, sp["norm_ffn"], cfg.norm_eps)
             if ffn == "moe":
-                out, a = moe.moe_apply(sp["ffn"], h, cfg, exact=True,
-                                       decode=cache is not None)
-                aux = {name: aux[name] + a[name] for name in aux}
+                out, _ = moe.moe_apply(sp["ffn"], h, cfg, exact=True)
             else:
                 out = ffn_apply(sp["ffn"], h, cfg.ffn_activation)
             x = x + out
-        return x, aux, new_cache
+        return x, new_cache
 
     def _embed_inputs(self, params, batch):
         """Token embedding (the reference's vision prefix and encoder
@@ -161,7 +158,7 @@ class LM:
         x = self._embed_inputs(params, batch)
         per_period = []
         for pp in params["blocks"]:
-            x, _, ent = self._period_fwd(pp, x)
+            x, ent = self._period_fwd(pp, x)
             per_period.append(ent)
         caches = {key: {name: torch.stack([e[key][name]
                                            for e in per_period])
@@ -189,7 +186,7 @@ class LM:
         for p, pp in enumerate(params["blocks"]):
             layer_cache = {key: {name: t[p] for name, t in sub.items()}
                            for key, sub in cache.items()}
-            x, _, _ = self._period_fwd(pp, x, cache=layer_cache, pos=pos)
+            x, _ = self._period_fwd(pp, x, cache=layer_cache, pos=pos)
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
         return logits[:, 0], cache
