@@ -168,6 +168,29 @@ package.  Phases:
    in fp32 with the same weights: equal routing and
    ``||Δ|| <= MOE_LAYER_REL·||cpu||``, beside a control with two experts
    that received tokens swapped, which must fail.
+9. mamba2-1.3b SSM serving (the fourteenth slice's path), after phase
+   8's model is released (the free card memory is printed).  (a)
+   ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16 greedy decode
+   steps on mamba2-1.3b at its published width and depth (48 SSD
+   layers, d 2048, 64 heads of 64, d_state 128, chunk 256, vocab 50,280,
+   tied), bf16, random weights from a seeded generator made on the card;
+   the kernels' counters are set to 0 before ``generate`` and must all
+   read 0 after it (the model has no attention).  Prefill ms, decode ms a
+   step, the decode state's shapes, peak memory and a ``torch.profiler``
+   breakdown (busy share, kernel launches, top kernels) are printed.
+   (d) One mamba layer alone on layer 0's served input: host ms at
+   prefill and decode size, its share (×48) of the served prefill and
+   step, and its host syncs (sync debug mode), which must be none.  (b)
+   In fp32 (a copy of the served weights), the decode of token 257 after
+   a 256-token prefill against the last position of a 257-token prefill
+   (across the chunk boundary): logits within ``SSM_HANDOFF_TOL``, first
+   tokens equal outside the 2d band, and the same decode from a zeroed
+   ``h`` must fail; the bf16 weights' |Δ| is printed as a reading.  (c)
+   Layer 0's mixer on 4 × 300 of its served inputs, on the card in bf16
+   and in fp32 against the CPU in fp32 from the same bf16 weights:
+   ``||Δ|| <= MOE_LAYER_REL·||cpu||`` in bf16 (a control with conv_x's
+   taps reversed must fail) and ``SSM_LAYER_FP32_REL`` in fp32 (the scan
+   without its inter-chunk carry must fail).
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
@@ -230,6 +253,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.obs.profile import profiler_trace  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -1139,8 +1163,9 @@ def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
                   tag: str = "phase5") -> None:
     """``torch.profiler`` over one prefill and over ``steps`` decode steps:
     the card's busy ms (kernel time summed), its share of the unprofiled
-    host time in ``host_ms`` (the profiler slows the host), and the
-    kernels that take the most time."""
+    host time in ``host_ms`` (the profiler slows the host), the kernel
+    launches the profiler counted, and the kernels that take the most
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     n = min(64, batch["inputs"].shape[1])
@@ -1163,12 +1188,15 @@ def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
         total = sum(busy.values())
+        count = sum(e.count for e in kernels
+                    if not e.key.startswith(("Memcpy", "Memset")))
         top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
         per = 1 if prefill else steps
         say(f"[{tag}] profile {name} (per {'call' if prefill else 'step'}"
             f"): card busy {total / per:.3f} ms, {total / per / host_ms[name]:.2f}"
             f" of the unprofiled {host_ms[name]:.3f} ms (profiled host "
-            f"{prof_ms / per:.3f} ms); top kernels: "
+            f"{prof_ms / per:.3f} ms), {count / per:.1f} kernel launches; "
+            f"top kernels: "
             + "; ".join(f"{k[:60]} {v / per:.3f} ms" for k, v in top)
             + f"  [{card}]")
 
@@ -2378,6 +2406,253 @@ def phase_moe(dev, card):
     return launches, err, bodies
 
 
+# -- phase 9: mamba2-1.3b SSM serving ----------------------------------------
+SSM_ARCH = "mamba2-1.3b"
+SSM_BATCH, SSM_PROMPT, SSM_DECODE = 4, 2000, 16
+# Phase 9(b): a prefill of SSM_HANDOFF tokens, then one decode step, so
+# the P + 1 tokens of the prefill it is held against cross the chunk
+# boundary at 256.  In fp32 (a copy of the served bf16 weights) the
+# decode's logits must lie within SSM_HANDOFF_TOL of that prefill's last
+# position: about 10x the 1.2e-5 a 48-layer CPU model of d 256 gave (a
+# chunked sum against the recurrence, in fp32).  Zeroing the cache's h
+# (the control) gave 0.19 there and must fail.
+SSM_HANDOFF = 256
+SSM_HANDOFF_TOL = 2e-4
+# Phase 9(c): layer 0's mixer on SSM_CHECK_TOKENS of each prompt's
+# hidden states (one full chunk and a padded second), on the card in
+# bf16 against the same function on the CPU in fp32 with the same bf16
+# weights, ||Δ|| <= MOE_LAYER_REL·||cpu|| (a CPU bf16 run read 6.1e-3);
+# its control reverses conv_x's taps.  The card's fp32 run of the same
+# layer must lie within SSM_LAYER_FP32_REL of the CPU's: this is the
+# check that can see a dropped inter-chunk carry (the control), which
+# moves the layer's output by 1.2e-3 in norm at this init (every head
+# forgets within a few steps), below bf16's rounding.
+SSM_CHECK_TOKENS = 300
+SSM_LAYER_FP32_REL = 1e-4
+
+
+def dropped_carry(fn):
+    """``_ssd_chunk`` that starts every chunk from a zero state: the scan
+    without its inter-chunk carry (``y_inter`` and the carried h)."""
+    def run(h, inp, rep):
+        return fn(torch.zeros_like(h), inp, rep)
+    return run
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Host ms a call, the card drained after the last of ``iters``."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def phase_ssm(dev, card, t_run):
+    """Phase 9; returns the kernels' launches in its serve (all 0)."""
+    if time.perf_counter() - t_run > SLOW_RUN_S:
+        say(f"[phase9] the run has passed {SLOW_RUN_S:.0f} s "
+            f"({time.perf_counter() - t_run:.1f} s); phase 9 runs in full")
+    # (a) serve mamba2-1.3b at its published width and depth.
+    t = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    resident = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    s = cfg.ssm
+    mixer0 = params["blocks"][0]["sub0"]["mixer"]
+    say(f"[phase9] {SSM_ARCH}: {cfg.num_layers} layers of "
+        f"{cfg.layout[0]}, d={cfg.d_model}, SSD {ssm._heads_of(cfg)} heads "
+        f"of {s.head_dim}, d_state {s.d_state}, {s.n_groups} group, chunk "
+        f"{s.chunk_size}, conv {s.conv_width}, vocab {cfg.vocab_padded} "
+        f"(tied); {resident / 1e9:.3f} GB of weights made on the card in "
+        f"{time.perf_counter() - t:.1f} s; a_log "
+        f"{mixer0['a_log'].dtype}, wx {mixer0['wx'].dtype}")
+    max_len = SSM_PROMPT + SSM_DECODE + 1
+    eng = ServeEngine(lm, params, max_len=max_len)
+    rng = np.random.default_rng(SEED + 9)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))).to(dev)
+    batch = {"inputs": prompts}
+    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, SSM_DECODE + 1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"mamba2 has no attention, yet its serve "
+                             f"launched {launches}")
+    if tuple(out.shape) != (SSM_BATCH, SSM_DECODE + 1) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    state = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in cache["sub0"].values())
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(SSM_DECODE):
+        _, cache = eng.decode_step(cache, tok, SSM_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / SSM_DECODE
+    del logits, cache
+    say(f"[phase9] serve {SSM_BATCH} x {SSM_PROMPT} tokens + {SSM_DECODE} "
+        f"greedy decode steps: generate {gen_s:.3f} s, launches {launches};"
+        f" prefill {prefill_ms:.2f} ms ({SSM_BATCH * SSM_PROMPT / prefill_ms:.1f}"
+        f" tokens/ms), decode {decode_ms:.3f} ms per step "
+        f"({SSM_BATCH * 1e3 / decode_ms:.1f} tokens/s); decode state "
+        f"{state} ({state_bytes / 1e9:.3f} GB, no sequence axis); peak "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated)  [{card}]")
+    say(f"[phase9] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms}, tag="phase9")
+
+    # Layer 0's input, kept from a served prefill, for (c) and (d).
+    seen = []
+
+    def first_input(fn):
+        def rec(pp, x, *args, **kwargs):
+            if not seen:
+                seen.append(x.detach().clone())
+            return fn(pp, x, *args, **kwargs)
+        return rec
+
+    with patched(ssm, "ssm_forward", first_input(ssm.ssm_forward)):
+        eng.prefill(batch)
+    h0 = seen[0]
+
+    # (d) one mamba layer alone: host ms at prefill and decode size (x48:
+    # its share of the served step) and its host syncs.  Before (b) and
+    # (c), whose CPU runs leave torch's CPU threads spinning beside the
+    # host-bound decode.
+    one = {k: v[0].clone() for k, v in lm.init_cache(
+        SSM_BATCH, 1, device=dev)["sub0"].items()}
+    x_dec = h0[:, -1:].contiguous()
+    calls = {"prefill": lambda: ssm.ssm_forward(mixer0, h0, cfg,
+                                                return_state=True),
+             "decode": lambda: ssm.ssm_decode(mixer0, x_dec, cfg, one)}
+    syncs = {k: host_syncs(fn) for k, fn in calls.items()}
+    layer_ms = {"prefill": wall_ms(calls["prefill"], 5),
+                "decode": wall_ms(calls["decode"], 20)}
+    step = {"prefill": prefill_ms, "decode": decode_ms}
+    say(f"[phase9] one mamba layer (host clock, card drained): "
+        + ", ".join(f"{k} {layer_ms[k]:.3f} ms (x{cfg.num_layers}: "
+                    f"{layer_ms[k] * cfg.num_layers / step[k]:.2f} of the "
+                    f"served {k})" for k in layer_ms)
+        + f"; host syncs: prefill {len(syncs['prefill'])} "
+        f"{syncs['prefill']}, decode {len(syncs['decode'])} "
+        f"{syncs['decode']}  [{card}]")
+    if syncs["prefill"] or syncs["decode"]:
+        raise AssertionError(f"a mamba layer synchronises the host: {syncs}")
+    del one
+
+    # (b) the state handoff: decode token P+1 after a prefill of P, against
+    # the last position of a prefill of P+1 (crossing the chunk boundary).
+    t = time.perf_counter()
+    p = SSM_HANDOFF
+    nxt = prompts[:, p:p + 1]
+
+    def handoff(model, weights, control=False):
+        ref, _ = model.prefill(weights, {"inputs": prompts[:, :p + 1]}, p + 2)
+        _, c = model.prefill(weights, {"inputs": prompts[:, :p]}, p + 2)
+        if control:
+            c["sub0"]["h"].zero_()
+        got, _ = model.decode_step(weights, c, nxt, p)
+        real = slice(0, cfg.vocab_size)
+        return got[:, real], ref[:, real]
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    lm32 = LM(cfg32)
+    params32 = tree_map(lambda x: x.float(), params)
+    got, ref = handoff(lm32, params32)
+    d32 = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    held = [i for i, gp in enumerate(gaps) if gp > 2 * d32]
+    d_tok, r_tok = got.argmax(-1).tolist(), ref.argmax(-1).tolist()
+    ctl = float(torch.sub(*handoff(lm32, params32, control=True))
+                .abs().max())
+    bg, br = handoff(lm, params)
+    d16 = float((bg - br).abs().max())
+    say(f"[phase9] state handoff, fp32 copy of the weights: decode of token "
+        f"{p + 1} after a {p}-token prefill vs the {p + 1}-token prefill's "
+        f"last position: logits max |Δ| {d32:.4e} (tol {SSM_HANDOFF_TOL}); "
+        f"first tokens decode {d_tok}, prefill {r_tok}, prefill top-1/top-2 "
+        f"gaps " + ", ".join(f"{gp:.4f}" for gp in gaps) + f", held to "
+        f"equal: prompts {held}; control (cache h zeroed): {ctl:.4e}; the "
+        f"served bf16 weights read {d16:.4e} (a reading, no bound); in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    if not d32 <= SSM_HANDOFF_TOL:
+        raise AssertionError(f"decode after prefill differs from the longer "
+                             f"prefill: {d32}")
+    if any(d_tok[i] != r_tok[i] for i in held):
+        raise AssertionError(f"first tokens differ where the bound holds "
+                             f"them equal: {d_tok} vs {r_tok}")
+    if not ctl > SSM_HANDOFF_TOL:
+        raise AssertionError(f"a decode from a zeroed state passes the "
+                             f"handoff check ({ctl})")
+    del bg, br, got, ref
+
+    # (c) layer 0's mixer at full width: the card (bf16, and fp32 from the
+    # same weights) against the CPU in fp32.
+    t = time.perf_counter()
+    xs = h0[:, :SSM_CHECK_TOKENS]
+    got = ssm.ssm_forward(mixer0, xs, cfg)
+    got32 = ssm.ssm_forward(params32["blocks"][0]["sub0"]["mixer"],
+                            xs.float(), cfg32)
+    cpu = {k: v.cpu().float() for k, v in mixer0.items()}
+    x_cpu = xs.cpu().float()
+    want = ssm.ssm_forward(cpu, x_cpu, cfg32)
+    with patched(ssm, "_ssd_chunk", dropped_carry(ssm._ssd_chunk)):
+        ctl_carry = ssm.ssm_forward(cpu, x_cpu, cfg32)
+    flipped = dict(cpu, conv_x=cpu["conv_x"].flip(0))
+    ctl_conv = ssm.ssm_forward(flipped, x_cpu, cfg32)
+    r, r32 = rel_err(got.cpu(), want), rel_err(got32.cpu(), want)
+    rc = {name: (rel_err(got.cpu(), c), rel_err(got32.cpu(), c))
+          for name, c in (("carry dropped", ctl_carry),
+                          ("conv_x taps reversed", ctl_conv))}
+    say(f"[phase9] layer 0's mixer on {SSM_BATCH} x {SSM_CHECK_TOKENS} "
+        f"prefill tokens vs CPU fp32: card bf16 ||Δ||/||cpu|| {r:.3e} (tol "
+        f"{MOE_LAYER_REL}), card fp32 {r32:.3e} (tol {SSM_LAYER_FP32_REL}); "
+        f"controls (bf16, fp32): " + "; ".join(
+            f"{n} {a:.3e}, {b:.3e}" for n, (a, b) in rc.items())
+        + f"; in {time.perf_counter() - t:.1f} s  [{card}]")
+    if not (r <= MOE_LAYER_REL and r32 <= SSM_LAYER_FP32_REL):
+        raise AssertionError(f"the card's mamba layer differs from the "
+                             f"CPU's: bf16 {r}, fp32 {r32}")
+    if not rc["carry dropped"][1] > SSM_LAYER_FP32_REL:
+        raise AssertionError(f"a scan without its inter-chunk carry passes "
+                             f"the fp32 check ({rc['carry dropped'][1]})")
+    if not rc["conv_x taps reversed"][0] > MOE_LAYER_REL:
+        raise AssertionError(f"reversed conv taps pass the bf16 check "
+                             f"({rc['conv_x taps reversed'][0]})")
+    del params32, lm32, got32, cpu, flipped, want, ctl_carry, ctl_conv
+
+    del params, eng, mixer0, h0, seen
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2682,7 +2957,20 @@ def main() -> int:
     for body, rec in moe_bodies.items():
         flash_bodies[body]["launches"] += rec.pop("launches")
         flash_bodies[body].update(rec)
-    say(f"[phase8] ok in {time.perf_counter() - t8:.1f} s; whole run "
+    say(f"[phase8] ok in {time.perf_counter() - t8:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 9: mamba2-1.3b SSM serving (the fourteenth slice) ----------
+    # Phase 8's model went with its function; its cached blocks go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase9] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t9 = time.perf_counter()
+    launches["ssm"] = phase_ssm(dev, card, t_run)
+    say(f"[phase9] ok in {time.perf_counter() - t9:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

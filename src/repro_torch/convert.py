@@ -30,8 +30,9 @@ from repro_torch.core import format as sformat
 from repro_torch.core import partition as cpart
 
 # LM leaves whose dtype the reference fixes whatever ``param_dtype``: the
-# MoE router is fp32 (``moe_init``).
-FP32_LEAVES = frozenset({"router"})
+# MoE router (``moe_init``) and the SSM's decay, step bias and skip
+# (``ssm_init``) are fp32.
+FP32_LEAVES = frozenset({"router", "a_log", "dt_bias", "d_skip"})
 
 
 def _shard(d: dict, cfg: sformat.SerpensConfig) -> sformat.SerpensMatrix:

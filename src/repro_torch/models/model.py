@@ -1,21 +1,24 @@
 """The decoder LM: prefill and decode for serving.
 
 The port of the reference package's ``models/model.py`` for layouts of
-``("attn", "dense")`` and ``("attn", "moe")`` sub-layers (qwen1.5,
-codeqwen1.5, chatglm3; llama4 scout and maverick).  The parameters keep
-the reference's tree, with the period stack as a Python list:
-``params["blocks"][period]["sub0"]`` holds one layer, and the
-reference's ``scan`` over periods is a loop over that list.  The decode
-cache keeps the reference's stacked layout,
-``cache["sub0"]["k"]`` of shape ``(periods, B, max_len, KV, dh)``, and
-decode writes each token's K/V into it in place.  A MoE sub-layer serves
-through ``moe_apply(exact=True)``, the dropless dispatch, in prefill and
-decode; serving drops its aux losses (``loss``, which reads them, comes
-with the training slice).
+``("attn" | "mamba", "dense" | "moe" | "none")`` sub-layers (qwen1.5,
+codeqwen1.5, chatglm3; llama4 scout and maverick; mamba2 and the jamba
+hybrid).  The parameters keep the reference's tree, with the period
+stack as a Python list: ``params["blocks"][period]["sub0"]`` holds one
+layer, and the reference's ``scan`` over periods is a loop over that
+list.  The decode cache keeps the reference's stacked layout, one entry
+per sub-layer: ``cache["sub0"]["k"]`` of shape
+``(periods, B, max_len, KV, dh)`` for attention, ``"h"``
+``(periods, B, nh, hd, N)`` fp32 and the conv tails ``"conv_x"``/
+``"conv_b"``/``"conv_c"`` ``(periods, B, W-1, C)`` for a mamba mixer.
+Decode writes each token's K/V, and each mamba layer's new state, into
+it in place.  A MoE sub-layer serves through ``moe_apply(exact=True)``,
+the dropless dispatch, in prefill and decode; serving drops its aux
+losses (``loss``, which reads them, comes with the training slice).
 
-SSM, MLA, the encoder, the vision prefix and the int8 KV cache raise
-``NotImplementedError`` at construction, and so does ``loss`` (the
-training slice).
+MLA, cross-attention and the encoder, the vision prefix and the int8 KV
+cache raise ``NotImplementedError`` at construction, and so does
+``loss`` (the training slice).
 """
 from __future__ import annotations
 
@@ -24,13 +27,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     _dtype, dense_init, embed_init, ffn_apply, ffn_init, rms_norm)
+
+# Cache leaves with a sequence axis (the reference's list; ``ckv``/
+# ``krope`` and the int8 scales come with their slices).
+_SEQ_LEAVES = ("k", "v", "ckv", "krope", "k_s", "v_s")
+# A mamba layer's cache entry, in ``ssm_forward``'s state order.
+_SSM_LEAVES = ("h", "conv_x", "conv_b", "conv_c")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     for what, absent, where in (
-            ("SSM mixers", cfg.ssm is None, "the SSM slice"),
             ("MLA", cfg.mla is None, "the MLA slice"),
             ("the encoder", not cfg.encoder_layers,
              "the encoder-decoder slice"),
@@ -40,7 +49,8 @@ def _check_ported(cfg: ModelConfig) -> None:
         if not absent:
             raise attn._not_ported(f"{cfg.arch_id}: {what}", where)
     for mixer, ffn in cfg.layout:
-        if mixer != "attn" or ffn not in ("dense", "moe"):
+        if mixer not in ("attn", "mamba") or \
+                ffn not in ("dense", "moe", "none"):
             raise attn._not_ported(f"{cfg.arch_id}: sub-layer "
                                    f"({mixer!r}, {ffn!r})", "later slices")
 
@@ -55,16 +65,17 @@ class LM:
     # ------------------------------------------------------------------
     # Init
     # ------------------------------------------------------------------
-    def _init_sublayer(self, generator, ffn):
+    def _init_sublayer(self, generator, mixer, ffn):
         cfg, dt = self.cfg, self.pdtype
         dev = generator.device
-        return {
-            "norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
-            "mixer": attn.attn_init(generator, cfg, dt),
-            "norm_ffn": torch.ones(cfg.d_model, dtype=dt, device=dev),
-            "ffn": (moe.moe_init(generator, cfg, dt) if ffn == "moe" else
-                    ffn_init(generator, cfg.d_model, cfg.d_ff, dt)),
-        }
+        p = {"norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
+             "mixer": (ssm.ssm_init(generator, cfg, dt) if mixer == "mamba"
+                       else attn.attn_init(generator, cfg, dt))}
+        if ffn != "none":
+            p["norm_ffn"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
+            p["ffn"] = (moe.moe_init(generator, cfg, dt) if ffn == "moe" else
+                        ffn_init(generator, cfg.d_model, cfg.d_ff, dt))
+        return p
 
     def init(self, generator: torch.Generator) -> dict:
         """Random weights, made on ``generator``'s device."""
@@ -78,8 +89,8 @@ class LM:
             params["lm_head"] = dense_init(generator, cfg.d_model,
                                            cfg.vocab_padded, dt)
         params["blocks"] = [
-            {f"sub{i}": self._init_sublayer(generator, ffn)
-             for i, (_, ffn) in enumerate(cfg.layout)}
+            {f"sub{i}": self._init_sublayer(generator, mixer, ffn)
+             for i, (mixer, ffn) in enumerate(cfg.layout)}
             for _ in range(cfg.num_periods)]
         return params
 
@@ -92,11 +103,17 @@ class LM:
         in place."""
         cfg = self.cfg
         new_cache = {}
-        for i, (_, ffn) in enumerate(cfg.layout):
+        for i, (mixer, ffn) in enumerate(cfg.layout):
             sp = pp[f"sub{i}"]
             key = f"sub{i}"
             h = rms_norm(x, sp["norm_in"], cfg.norm_eps)
-            if cache is None:
+            if mixer == "mamba" and cache is None:
+                out, (hf, tails) = ssm.ssm_forward(sp["mixer"], h, cfg,
+                                                   return_state=True)
+                new_cache[key] = dict(zip(_SSM_LEAVES, (hf, *tails)))
+            elif mixer == "mamba":
+                out, _ = ssm.ssm_decode(sp["mixer"], h, cfg, cache[key])
+            elif cache is None:
                 out, (k, v) = attn.attn_forward(
                     sp["mixer"], h, cfg, causal=cfg.causal, return_kv=True)
                 new_cache[key] = {"k": k, "v": v}
@@ -105,6 +122,8 @@ class LM:
                     sp["mixer"], h, cfg, cache[key]["k"], cache[key]["v"],
                     pos)
             x = x + out
+            if ffn == "none":
+                continue
             h = rms_norm(x, sp["norm_ffn"], cfg.norm_eps)
             if ffn == "moe":
                 out, _ = moe.moe_apply(sp["ffn"], h, cfg, exact=True)
@@ -139,15 +158,16 @@ class LM:
     # Serving: prefill + decode
     # ------------------------------------------------------------------
     def _pad_cache_seq(self, caches, max_len):
-        """Grow prefill caches to ``max_len`` along the sequence axis
-        (axis 2 of the stacked ``(periods, B, S, KV, dh)`` layout)."""
+        """Grow the prefill's attention caches to ``max_len`` along the
+        sequence axis (axis 2 of the stacked ``(periods, B, S, KV, dh)``
+        layout); a mamba layer's state has no sequence axis."""
         out = {}
         for key, sub in caches.items():
             ent = {}
             for name, t in sub.items():
-                pad = max_len - t.shape[2]
-                if pad > 0:
-                    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                if name in _SEQ_LEAVES and t.shape[2] < max_len:
+                    width = [0, 0] * (t.ndim - 3) + [0, max_len - t.shape[2]]
+                    t = torch.nn.functional.pad(t, width)
                 ent[name] = t
             out[key] = ent
         return out
@@ -162,25 +182,36 @@ class LM:
             per_period.append(ent)
         caches = {key: {name: torch.stack([e[key][name]
                                            for e in per_period])
-                        for name in ("k", "v")}
-                  for key in per_period[0]}
+                        for name in ent}
+                  for key, ent in per_period[0].items()}
         h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
         return logits[:, 0], self._pad_cache_seq(caches, max_len)
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
-        """Zero decode cache (one entry per attention sub-layer)."""
+        """Zero decode cache (one entry per sub-layer, stacked over
+        periods): K/V for attention, ``init_ssm_cache``'s state for a
+        mamba mixer (``h`` fp32, the conv tails in ``dtype``)."""
         cfg = self.cfg
-        shape = (cfg.num_periods, batch_size, max_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        p = cfg.num_periods
+        shape = (p, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
         dt = dtype or self.adtype
-        return {f"sub{i}": {"k": torch.zeros(shape, dtype=dt, device=device),
-                            "v": torch.zeros(shape, dtype=dt, device=device)}
-                for i in range(len(cfg.layout))}
+        cache = {}
+        for i, (mixer, _) in enumerate(cfg.layout):
+            if mixer == "mamba":
+                one = ssm.init_ssm_cache(cfg, batch_size, dt, device)
+                ent = {name: t.new_zeros((p,) + t.shape)
+                       for name, t in one.items()}
+            else:
+                ent = {"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)}
+            cache[f"sub{i}"] = ent
+        return cache
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B, 1) int; pos: int (current write index).  Writes the
-        token's K/V into ``cache`` in place and returns (logits, cache)."""
+        token's K/V, and each mamba layer's new state, into ``cache`` in
+        place and returns (logits, cache)."""
         cfg = self.cfg
         x = self._embed_inputs(params, {"inputs": tokens})
         for p, pp in enumerate(params["blocks"]):

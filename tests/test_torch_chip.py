@@ -33,10 +33,12 @@ from repro_torch.solvers.cg import _cg_epilogue
 from repro_torch.solvers.power_iteration import (_pagerank_epilogue,
                                                  _power_epilogue)
 
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
+from repro_torch.models import ssm as tssm
+from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import LM
 from repro_torch.serve.engine import ServeEngine
 
@@ -675,6 +677,113 @@ def test_reduced_moe_lm_generate_on_the_card(card):
     got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
     ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
     assert torch.equal(got.cpu(), ref)
+
+
+def dropped_carry(fn):
+    """``_ssd_chunk`` starting every chunk from a zero state."""
+    return lambda h, inp, rep: fn(torch.zeros_like(h), inp, rep)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_reduced_ssm_lm_generate_on_the_card(card, arch, dtype):
+    """Reduced mamba2 and jamba on the card against the same model on the
+    CPU.  The 33-token prompt's last token opens a third 16-step chunk, so
+    it sees the earlier tokens only through the carried state.  fp32:
+    last-position logits within 1e-4 and greedy tokens equal; the control,
+    the CPU's prefill without the inter-chunk carry, must fail.  bf16: the
+    card's logits lie no farther, in norm, from an fp32 run of the same
+    weights than twice the CPU's bf16 logits do (each framework rounds
+    at its own points; jamba's eight bf16 sub-layers put card and CPU
+    0.07 apart at most), and first tokens equal the CPU's wherever its
+    top two lie more than twice the measured |Δ| apart.  The flash kernel
+    runs once per attention layer (jamba's one)."""
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype=dtype,
+                              activation_dtype=dtype)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 33)))
+    attn_layers = cfg.num_periods * sum(m == "attn" for m, _ in cfg.layout)
+    before = fa.flash_launches
+    logits, _ = lm.prefill(on_card, {"inputs": toks.to(card)}, 48)
+    assert fa.flash_launches - before == attn_layers
+    want, _ = lm.prefill(params, {"inputs": toks}, 48)
+    got, real = logits.cpu(), slice(0, cfg.vocab_size)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tssm, "_ssd_chunk", dropped_carry(tssm._ssd_chunk))
+            ctl, _ = lm.prefill(params, {"inputs": toks}, 48)
+        assert float((got - ctl)[:, real].abs().max()) > 1e-4
+        out = ServeEngine(lm, on_card, 48).generate(
+            {"inputs": toks.to(card)}, 6)
+        ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
+        assert torch.equal(out.cpu(), ref)
+    else:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        exact, _ = LM(cfg32).prefill(tree_map(lambda t: t.float(), params),
+                                     {"inputs": toks}, 48)
+        exact = exact[:, real]
+
+        def dist(x):
+            return float((x[:, real] - exact).norm() / exact.norm())
+
+        assert dist(got) <= 2 * dist(want), (dist(got), dist(want))
+        d = float((got - want)[:, real].abs().max())
+        top2 = want[:, real].topk(2, dim=-1).values
+        for i, gap in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+            if gap > 2 * d:
+                assert int(got[i, real].argmax()) == \
+                    int(want[i, real].argmax())
+
+
+def test_full_width_mamba_layer_on_the_card_matches_its_cpu_run(card):
+    """One mamba2-1.3b mixer at its published width (d 2048, 64 heads of
+    64, d_state 128, chunk 256) on 300 tokens (one chunk and a padded
+    second), against the CPU in fp32 from the same bf16 weights.  Card
+    bf16: ||Δ|| <= 2e-2·||cpu||, which the layer with conv_x's taps
+    reversed must fail.  Card fp32: output, final state, conv tails and
+    one decode step within 1e-4 of the CPU in norm, which the scan without
+    its inter-chunk carry must fail."""
+    cfg = get_config("mamba2-1.3b")
+    g = torch.Generator().manual_seed(0)
+    p16 = tssm.ssm_init(g, cfg, torch.bfloat16)
+    p32 = {k: v.float() for k, v in p16.items()}
+    x = torch.randn((2, 301, cfg.d_model), generator=g)
+    x = rms_norm(x, torch.ones(cfg.d_model)).to(torch.bfloat16).float()
+
+    def rel(a, b):
+        return float((a.cpu().float() - b).norm() / b.norm())
+
+    want, (h, tails) = tssm.ssm_forward(p32, x[:, :300], cfg,
+                                        return_state=True)
+    on16 = tree_map(lambda t: t.to(card), p16)
+    on32 = tree_map(lambda t: t.to(card), p32)
+    got16 = tssm.ssm_forward(on16, x[:, :300].to(card, torch.bfloat16), cfg)
+    got, (gh, gtails) = tssm.ssm_forward(on32, x[:, :300].to(card), cfg,
+                                         return_state=True)
+    assert rel(got16, want) <= 2e-2
+    assert rel(got, want) <= 1e-4 and rel(gh, h) <= 1e-4
+    for a, b in zip(gtails, tails):
+        assert rel(a, b) <= 1e-4
+    flipped = dict(p32, conv_x=p32["conv_x"].flip(0))
+    assert rel(got16, tssm.ssm_forward(flipped, x[:, :300], cfg)) > 2e-2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tssm, "_ssd_chunk", dropped_carry(tssm._ssd_chunk))
+        ctl = tssm.ssm_forward(p32, x[:, :300], cfg)
+    assert rel(got, ctl) > 1e-4
+    # One decode step from each side's state.
+    cache = {"h": h, "conv_x": tails[0], "conv_b": tails[1],
+             "conv_c": tails[2]}
+    cache = {k: v.clone() for k, v in cache.items()}
+    gcache = {k: v.clone() for k, v in zip(
+        ("h", "conv_x", "conv_b", "conv_c"), (gh, *gtails))}
+    step, _ = tssm.ssm_decode(p32, x[:, 300:], cfg, cache)
+    gstep, _ = tssm.ssm_decode(on32, x[:, 300:].to(card), cfg, gcache)
+    assert rel(gstep, step) <= 1e-4 and rel(gcache["h"], cache["h"]) <= 1e-4
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "capacity"])
