@@ -2151,6 +2151,16 @@ MOE_CHECK_TOKENS = 64
 MOE_LAYER_REL = 2e-2
 
 
+def first_input(fn, seen: list):
+    """``fn`` that keeps a copy of the input (its second argument) of its
+    first call in ``seen``."""
+    def rec(p, x, *args, **kwargs):
+        if not seen:
+            seen.append(x.detach().clone())
+        return fn(p, x, *args, **kwargs)
+    return rec
+
+
 def host_syncs(fn) -> list:
     """The host syncs of one call of ``fn``, as ``torch.cuda``'s sync
     debug mode reports them (one warning per synchronising call) while
@@ -2302,16 +2312,9 @@ def phase_moe(dev, card):
     ffn0 = params["blocks"][0]["sub0"]["ffn"]
     seen = []
 
-    def first_moe_input(fn):
-        def rec(p, x, *args, **kwargs):
-            if not seen:
-                seen.append(x.detach().clone())
-            return fn(p, x, *args, **kwargs)
-        return rec
-
     # (c) the same prefill with the plain attention in the kernel's place;
     # the kernel run also keeps layer 0's MoE input.
-    with patched(moe, "moe_apply", first_moe_input(moe.moe_apply)):
+    with patched(moe, "moe_apply", first_input(moe.moe_apply, seen)):
         k_logits, _ = eng.prefill(batch)
     with patched(fa, "flash_attention", fa.flash_attention_plain):
         p_logits, _ = eng.prefill(batch)
@@ -2529,15 +2532,7 @@ def phase_ssm(dev, card, t_run):
 
     # Layer 0's input, kept from a served prefill, for (c) and (d).
     seen = []
-
-    def first_input(fn):
-        def rec(pp, x, *args, **kwargs):
-            if not seen:
-                seen.append(x.detach().clone())
-            return fn(pp, x, *args, **kwargs)
-        return rec
-
-    with patched(ssm, "ssm_forward", first_input(ssm.ssm_forward)):
+    with patched(ssm, "ssm_forward", first_input(ssm.ssm_forward, seen)):
         eng.prefill(batch)
     h0 = seen[0]
 

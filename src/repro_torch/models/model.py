@@ -31,12 +31,6 @@ from repro_torch.models import ssm
 from repro_torch.models.layers import (
     _dtype, dense_init, embed_init, ffn_apply, ffn_init, rms_norm)
 
-# Cache leaves with a sequence axis (the reference's list; ``ckv``/
-# ``krope`` and the int8 scales come with their slices).
-_SEQ_LEAVES = ("k", "v", "ckv", "krope", "k_s", "v_s")
-# A mamba layer's cache entry, in ``ssm_forward``'s state order.
-_SSM_LEAVES = ("h", "conv_x", "conv_b", "conv_c")
-
 
 def _check_ported(cfg: ModelConfig) -> None:
     for what, absent, where in (
@@ -110,7 +104,8 @@ class LM:
             if mixer == "mamba" and cache is None:
                 out, (hf, tails) = ssm.ssm_forward(sp["mixer"], h, cfg,
                                                    return_state=True)
-                new_cache[key] = dict(zip(_SSM_LEAVES, (hf, *tails)))
+                new_cache[key] = {"h": hf, "conv_x": tails[0],
+                                  "conv_b": tails[1], "conv_c": tails[2]}
             elif mixer == "mamba":
                 out, _ = ssm.ssm_decode(sp["mixer"], h, cfg, cache[key])
             elif cache is None:
@@ -158,16 +153,17 @@ class LM:
     # Serving: prefill + decode
     # ------------------------------------------------------------------
     def _pad_cache_seq(self, caches, max_len):
-        """Grow the prefill's attention caches to ``max_len`` along the
-        sequence axis (axis 2 of the stacked ``(periods, B, S, KV, dh)``
-        layout); a mamba layer's state has no sequence axis."""
+        """Grow the prefill's K/V caches to ``max_len`` along the sequence
+        axis (axis 2 of the stacked ``(periods, B, S, KV, dh)`` layout).
+        Padded by name, as the reference does: a mamba layer's state has
+        no sequence axis."""
         out = {}
         for key, sub in caches.items():
             ent = {}
             for name, t in sub.items():
-                if name in _SEQ_LEAVES and t.shape[2] < max_len:
-                    width = [0, 0] * (t.ndim - 3) + [0, max_len - t.shape[2]]
-                    t = torch.nn.functional.pad(t, width)
+                pad = max_len - t.shape[2]
+                if name in ("k", "v") and pad > 0:
+                    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
                 ent[name] = t
             out[key] = ent
         return out

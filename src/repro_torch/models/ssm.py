@@ -208,7 +208,7 @@ def ssm_decode(p, x, cfg, cache):
     def conv_step(state, cur, w):
         # state: (B, W-1, C) previous raw inputs; cur: (B, C).  The conv
         # runs in fp32, unlike prefill's.
-        hist = torch.cat([state, cur[:, None].to(state.dtype)], dim=1)
+        hist = torch.cat([state, cur[:, None]], dim=1)
         out = (hist.float() * w.float()).sum(dim=1)
         state.copy_(hist[:, 1:])
         return F.silu(out)
