@@ -176,10 +176,13 @@ package.  Phases:
    tied), bf16, random weights from a seeded generator made on the card;
    the kernels' counters are set to 0 before ``generate`` and must all
    read 0 after it (the model has no attention).  Prefill ms, decode ms a
-   step, the decode state's shapes, peak memory and a ``torch.profiler``
-   breakdown (busy share, kernel launches, top kernels) are printed.
-   (d) One mamba layer alone on layer 0's served input: host ms at
-   prefill and decode size, its share (×48) of the served prefill and
+   step, the decode state's shapes and a ``torch.profiler`` breakdown
+   (busy share, kernel launches, top kernels) are printed; the serve's
+   peak allocation above what it started with must stay within
+   ``SSM_PEAK_OVER``, and a prefill whose conv tails are views of the
+   whole projections (the control) must exceed it.  (d) One mamba layer
+   alone on layer 0's served input: ms (CUDA events) at prefill and
+   decode size, its share (×48) of the served prefill and
    step, and its host syncs (sync debug mode), which must be none.  (b)
    In fp32 (a copy of the served weights), the decode of token 257 after
    a 256-token prefill against the last position of a 257-token prefill
@@ -188,7 +191,7 @@ package.  Phases:
    ``h`` must fail; the bf16 weights' |Δ| is printed as a reading.  (c)
    Layer 0's mixer on 4 × 300 of its served inputs, on the card in bf16
    and in fp32 against the CPU in fp32 from the same bf16 weights:
-   ``||Δ|| <= MOE_LAYER_REL·||cpu||`` in bf16 (a control with conv_x's
+   ``||Δ|| <= SSM_LAYER_REL·||cpu||`` in bf16 (a control with conv_x's
    taps reversed must fail) and ``SSM_LAYER_FP32_REL`` in fp32 (the scan
    without its inter-chunk carry must fail).
 
@@ -2424,14 +2427,23 @@ SSM_HANDOFF_TOL = 2e-4
 # Phase 9(c): layer 0's mixer on SSM_CHECK_TOKENS of each prompt's
 # hidden states (one full chunk and a padded second), on the card in
 # bf16 against the same function on the CPU in fp32 with the same bf16
-# weights, ||Δ|| <= MOE_LAYER_REL·||cpu|| (a CPU bf16 run read 6.1e-3);
+# weights, ||Δ|| <= SSM_LAYER_REL·||cpu|| (a CPU bf16 run read 6.1e-3);
 # its control reverses conv_x's taps.  The card's fp32 run of the same
 # layer must lie within SSM_LAYER_FP32_REL of the CPU's: this is the
 # check that can see a dropped inter-chunk carry (the control), which
 # moves the layer's output by 1.2e-3 in norm at this init (every head
 # forgets within a few steps), below bf16's rounding.
 SSM_CHECK_TOKENS = 300
+SSM_LAYER_REL = 2e-2
 SSM_LAYER_FP32_REL = 1e-4
+# Phase 9(a): the served run's peak allocation above what was allocated
+# before it.  Predicted about 1.3 GB: the 48 layers' decode state (0.40
+# GB) held twice while prefill stacks it, one layer's prefill temporaries
+# (fp32 copies of x and y, 0.13 GB each, and a chunk's 67 MB decay and
+# score tensors) and the fp32 copy of the tied embedding (0.41 GB) the
+# logits read.  Conv tails that keep their (B, S, C) projections alive
+# (the control) add 48 x 69.6 MB = 3.3 GB and must fail.
+SSM_PEAK_OVER = 2.5e9
 
 
 def dropped_carry(fn):
@@ -2442,15 +2454,10 @@ def dropped_carry(fn):
     return run
 
 
-def wall_ms(fn, iters: int) -> float:
-    """Host ms a call, the card drained after the last of ``iters``."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / iters
+def viewed_tails(projections, cfg):
+    """``_conv_tail`` returning views that keep each layer's whole
+    (B, S, C) projections alive: phase 9(a)'s memory control."""
+    return tuple(t[:, -(cfg.ssm.conv_width - 1):] for t in projections)
 
 
 def phase_ssm(dev, card, t_run):
@@ -2483,6 +2490,7 @@ def phase_ssm(dev, card, t_run):
     eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
 
     zero_launches()
     torch.cuda.synchronize()
@@ -2495,6 +2503,11 @@ def phase_ssm(dev, card, t_run):
     if any(launches.values()):
         raise AssertionError(f"mamba2 has no attention, yet its serve "
                              f"launched {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    with patched(ssm, "_conv_tail", viewed_tails):
+        eng.prefill(batch)
+    torch.cuda.synchronize()
+    ctl_over = torch.cuda.max_memory_allocated() - base
     if tuple(out.shape) != (SSM_BATCH, SSM_DECODE + 1) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
@@ -2525,7 +2538,17 @@ def phase_ssm(dev, card, t_run):
         f" tokens/ms), decode {decode_ms:.3f} ms per step "
         f"({SSM_BATCH * 1e3 / decode_ms:.1f} tokens/s); decode state "
         f"{state} ({state_bytes / 1e9:.3f} GB, no sequence axis); peak "
-        f"memory {peak / 1e9:.2f} GB (max_memory_allocated)  [{card}]")
+        f"memory {peak / 1e9:.3f} GB (max_memory_allocated), "
+        f"{(peak - base) / 1e9:.3f} GB over the {base / 1e9:.3f} GB held "
+        f"before the serve (bound {SSM_PEAK_OVER / 1e9}); control (conv "
+        f"tails kept as views, prefill alone): {ctl_over / 1e9:.3f} GB over"
+        f"  [{card}]")
+    if not peak - base <= SSM_PEAK_OVER:
+        raise AssertionError(f"the serve allocated {peak - base} bytes over "
+                             f"what it started with")
+    if not ctl_over > SSM_PEAK_OVER:
+        raise AssertionError(f"conv tails kept as views pass the memory "
+                             f"bound ({ctl_over})")
     say(f"[phase9] request 0's tokens: {out[0].tolist()}")
     profile_serve(eng, batch, out, card,
                   {"prefill": prefill_ms, "decode": decode_ms}, tag="phase9")
@@ -2536,7 +2559,7 @@ def phase_ssm(dev, card, t_run):
         eng.prefill(batch)
     h0 = seen[0]
 
-    # (d) one mamba layer alone: host ms at prefill and decode size (x48:
+    # (d) one mamba layer alone: ms at prefill and decode size (x48:
     # its share of the served step) and its host syncs.  Before (b) and
     # (c), whose CPU runs leave torch's CPU threads spinning beside the
     # host-bound decode.
@@ -2547,10 +2570,10 @@ def phase_ssm(dev, card, t_run):
                                                 return_state=True),
              "decode": lambda: ssm.ssm_decode(mixer0, x_dec, cfg, one)}
     syncs = {k: host_syncs(fn) for k, fn in calls.items()}
-    layer_ms = {"prefill": wall_ms(calls["prefill"], 5),
-                "decode": wall_ms(calls["decode"], 20)}
+    layer_ms = {"prefill": time_ms(calls["prefill"], 5),
+                "decode": time_ms(calls["decode"], 20)}
     step = {"prefill": prefill_ms, "decode": decode_ms}
-    say(f"[phase9] one mamba layer (host clock, card drained): "
+    say(f"[phase9] one mamba layer (CUDA events): "
         + ", ".join(f"{k} {layer_ms[k]:.3f} ms (x{cfg.num_layers}: "
                     f"{layer_ms[k] * cfg.num_layers / step[k]:.2f} of the "
                     f"served {k})" for k in layer_ms)
@@ -2629,17 +2652,17 @@ def phase_ssm(dev, card, t_run):
                           ("conv_x taps reversed", ctl_conv))}
     say(f"[phase9] layer 0's mixer on {SSM_BATCH} x {SSM_CHECK_TOKENS} "
         f"prefill tokens vs CPU fp32: card bf16 ||Δ||/||cpu|| {r:.3e} (tol "
-        f"{MOE_LAYER_REL}), card fp32 {r32:.3e} (tol {SSM_LAYER_FP32_REL}); "
+        f"{SSM_LAYER_REL}), card fp32 {r32:.3e} (tol {SSM_LAYER_FP32_REL}); "
         f"controls (bf16, fp32): " + "; ".join(
             f"{n} {a:.3e}, {b:.3e}" for n, (a, b) in rc.items())
         + f"; in {time.perf_counter() - t:.1f} s  [{card}]")
-    if not (r <= MOE_LAYER_REL and r32 <= SSM_LAYER_FP32_REL):
+    if not (r <= SSM_LAYER_REL and r32 <= SSM_LAYER_FP32_REL):
         raise AssertionError(f"the card's mamba layer differs from the "
                              f"CPU's: bf16 {r}, fp32 {r32}")
     if not rc["carry dropped"][1] > SSM_LAYER_FP32_REL:
         raise AssertionError(f"a scan without its inter-chunk carry passes "
                              f"the fp32 check ({rc['carry dropped'][1]})")
-    if not rc["conv_x taps reversed"][0] > MOE_LAYER_REL:
+    if not rc["conv_x taps reversed"][0] > SSM_LAYER_REL:
         raise AssertionError(f"reversed conv taps pass the bf16 check "
                              f"({rc['conv_x taps reversed'][0]})")
     del params32, lm32, got32, cpu, flipped, want, ctl_carry, ctl_conv

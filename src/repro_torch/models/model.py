@@ -195,9 +195,9 @@ class LM:
         cache = {}
         for i, (mixer, _) in enumerate(cfg.layout):
             if mixer == "mamba":
-                one = ssm.init_ssm_cache(cfg, batch_size, dt, device)
-                ent = {name: t.new_zeros((p,) + t.shape)
-                       for name, t in one.items()}
+                ent = {name: torch.zeros((p,) + sh, dtype=d, device=device)
+                       for name, (sh, d) in ssm.ssm_cache_layout(
+                           cfg, batch_size, dt).items()}
             else:
                 ent = {"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)}

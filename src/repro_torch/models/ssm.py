@@ -103,7 +103,10 @@ def _ssd_chunk(h, inp, nh_groups):
     y_inter = torch.einsum("blhn,bhpn->blhp", cc, h) * torch.exp(cum)[..., None]
     # chunk-final state
     decay_to_end = torch.exp(cum[:, -1:, :] - cum)     # (B,L,nh)
-    dbx = torch.einsum("bmhn,bmhp,bmh->bhpn", bc, xc, dt_j * decay_to_end)
+    # Weigh x first: a three-operand einsum taken left to right would
+    # build a (B, L, nh, N, hd) product (2 GB at mamba2-1.3b's prefill).
+    xw = xc * (dt_j * decay_to_end)[..., None]
+    dbx = torch.einsum("bmhn,bmhp->bhpn", bc, xw)
     h_new = h * torch.exp(cum[:, -1])[:, :, None, None] + dbx
     return h_new, y_intra + y_inter
 
@@ -172,24 +175,30 @@ def ssm_forward(p, x, cfg, *, return_state=False):
 
 
 def _conv_tail(projections, cfg):
-    """The last W-1 steps of each pre-conv projection (B, S, C)."""
+    """The last W-1 steps of each pre-conv projection (B, S, C), copied:
+    a view would keep the whole (B, S, C) projection alive in the cache."""
     w = cfg.ssm.conv_width
-    return tuple(t[:, -(w - 1):, :] for t in projections)
+    return tuple(t[:, -(w - 1):, :].clone() for t in projections)
+
+
+def ssm_cache_layout(cfg, batch, dtype=torch.float32):
+    """``{name: (shape, dtype)}`` of one layer's decode state: ``h`` fp32,
+    the conv tails in ``dtype``."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    gn = s.n_groups * s.d_state
+    tail = s.conv_width - 1
+    return {"h": ((batch, _heads_of(cfg), s.head_dim, s.d_state),
+                  torch.float32),
+            "conv_x": ((batch, tail, di), dtype),
+            "conv_b": ((batch, tail, gn), dtype),
+            "conv_c": ((batch, tail, gn), dtype)}
 
 
 def init_ssm_cache(cfg, batch, dtype=torch.float32, device=None):
-    s = cfg.ssm
-    nh = _heads_of(cfg)
-    di = s.expand * cfg.d_model
-    gn = s.n_groups * s.d_state
-    w = s.conv_width
-    return {
-        "h": torch.zeros((batch, nh, s.head_dim, s.d_state),
-                         dtype=torch.float32, device=device),
-        "conv_x": torch.zeros((batch, w - 1, di), dtype=dtype, device=device),
-        "conv_b": torch.zeros((batch, w - 1, gn), dtype=dtype, device=device),
-        "conv_c": torch.zeros((batch, w - 1, gn), dtype=dtype, device=device),
-    }
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in ssm_cache_layout(cfg, batch,
+                                                      dtype).items()}
 
 
 def ssm_decode(p, x, cfg, cache):

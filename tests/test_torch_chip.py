@@ -13,6 +13,8 @@ agree within ``1e-5 * sum(|terms|) + 1e-6`` and its state vectors within
 ``1e-5`` of the larger of the vector's magnitude before and after the step.
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -43,6 +45,9 @@ from repro_torch.models.model import LM
 from repro_torch.serve.engine import ServeEngine
 
 from torch_port_util import random_coo
+
+sys.path.append(os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import dropped_carry  # noqa: E402  (phase 9's control)
 
 pytestmark = pytest.mark.cuda
 
@@ -677,11 +682,6 @@ def test_reduced_moe_lm_generate_on_the_card(card):
     got = ServeEngine(lm, on_card, 48).generate({"inputs": toks.to(card)}, 6)
     ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
     assert torch.equal(got.cpu(), ref)
-
-
-def dropped_carry(fn):
-    """``_ssd_chunk`` starting every chunk from a zero state."""
-    return lambda h, inp, rep: fn(torch.zeros_like(h), inp, rep)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

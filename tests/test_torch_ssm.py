@@ -170,6 +170,19 @@ def test_ssm_forward_with_state(s, groups):
     close(tssm.ssm_forward(tw, torch.from_numpy(x), tcfg), jout)
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+def test_prefill_state_holds_no_sequence_tensor(batch):
+    """The returned h and conv tails own storage of their own size: a
+    view of a (B, S, C) projection would keep the whole prompt's
+    projections alive in every layer's cache entry."""
+    _, tcfg = cfgs()
+    _, tw = both(weights(tcfg, seed=3))
+    x = torch.from_numpy(hidden(tcfg, 37, batch=batch))
+    _, (h, tails) = tssm.ssm_forward(tw, x, tcfg, return_state=True)
+    for t in (h, *tails):
+        assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_ssm_cache_layout(dtype):
     jcfg, tcfg = cfgs()
