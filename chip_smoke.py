@@ -75,12 +75,14 @@ package.  Phases:
    fails the run).  (a) The kernel against its plain version on card
    tensors at qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32),
    chatglm3-6b heads (KV = 2, G = 16, dh = 128, S = 4096, bf16), one
-   non-causal case and one with dv ≠ dh; each bf16 case runs the wgmma
-   body and, on a copy one element into its storage, the mma body;
-   elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in fp32 (the
-   reference kernel tests') and 2e-2 in bf16, and in bf16 also
+   non-causal case, one with dv ≠ dh in fp32 and minicpm3-4b's MLA heads
+   (B = 4, S = 2000, 40 heads, dh = 96, dv = 64, bf16); each bf16 case at
+   dh = dv runs the wgmma body and, on a copy one element into its
+   storage, the mma body, and the MLA case runs the mma body on its own
+   tensors; elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in
+   fp32 (the reference kernel tests') and 2e-2 in bf16, and in bf16 also
    ``||Δ|| <= 5e-3·||plain||``, which a kernel that drops one kv tile
-   fails.  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
+   fails (checked at qwen's and at MLA's heads).  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
    greedy decode steps on qwen1.5-0.5b at full width and depth in bf16,
    random weights from a seeded generator; the flash counters are set to
    0 before ``generate`` and must read one wgmma launch per layer after
@@ -195,13 +197,41 @@ package.  Phases:
    taps reversed must fail) and ``SSM_LAYER_FP32_REL`` in fp32 (the scan
    without its inter-chunk carry must fail).
 
+10. minicpm3-4b MLA serving (the fifteenth slice's path), after phase
+   9's model is released (the free card memory is printed).  The flash
+   kernel's mma body at the served prefill's shape (q (4, 2000, 40, 1,
+   96), v (..., 64), bf16, causal) timed in turns with
+   ``scaled_dot_product_attention`` at the same head dims, beside the plain version and its bound (the unmasked pairs'
+   flops at 989 TFLOP/s, 0.104 ms).  (a) ``ServeEngine`` serves 4
+   prompts of 2000 tokens plus 16 greedy decode steps on minicpm3-4b at
+   its published width and depth, nothing cut (62 layers, d 2560, 40
+   heads, q_lora 768, kv_lora 256, rope 32 + nope 64, v 64, d_ff 6400,
+   vocab 73,448, untied), bf16, random weights from a seeded generator
+   made on the card; the kernels' counters are set to 0 before
+   ``generate`` and must read one mma launch per layer and no other
+   body.  Prefill ms, decode ms a step, the latent cache's bytes beside
+   a full K/V cache's, peak memory and a ``torch.profiler`` breakdown
+   are printed.  (d) One MLA layer alone on layer 0's served input: ms
+   (CUDA events) at prefill and decode size, its share (×62) of the
+   served prefill and step, and its host syncs, which must be none.  (b)
+   Layer 0's MLA mixer on 4 × 320 of its served inputs, the card in bf16
+   against the CPU in fp32 from the same weights: ``||Δ|| <=
+   MLA_LAYER_REL·||cpu||``, which the query heads split as ``[nope,
+   rope]`` and the expansion without ``kv_norm`` must fail.  (c) In fp32
+   (a copy of the served weights), the decode of token 301 after a
+   300-token prefill against the last position of a 301-token prefill:
+   logits within ``MLA_HANDOFF_TOL``, first tokens equal outside the 2d
+   band, and the same decode with the cache's ``krope`` zeroed must
+   fail; the bf16 weights' |Δ| and control are printed as readings.
+
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-the three timed shapes (``bodies``: phase 5's served prefill and
-prefill_32k, and llama4's served prefill), whose spmm entry lists each vector
+the four timed shapes (``bodies``: phase 5's served prefill and
+prefill_32k, llama4's served prefill, and minicpm3's for the mma body,
+with its plain time), whose spmm entry lists each vector
 width's main-path launches (``bodies``) and, at each served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
 spmv_fused entries give the stream pass's plan at G7 (``plan``: lanes a
@@ -1022,6 +1052,7 @@ FLASH_CASES = (
     ("chatglm3 heads", 1, 4096, 2, 16, 128, 128, True, torch.bfloat16),
     ("non-causal", 2, 1000, 16, 1, 64, 64, False, torch.float32),
     ("dv != dh", 2, 1000, 4, 2, 96, 64, True, torch.float32),
+    ("minicpm3 MLA heads", 4, 2000, 40, 1, 96, 64, True, torch.bfloat16),
 )
 # Largest |Δ| allowed between the last-position logits of the bf16 prefill
 # with the kernel and with the plain attention: about 3x the first H100
@@ -1136,26 +1167,30 @@ def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
                                  else "operations")
 
 
-def time_flash(b, s, kvh, g, dh, causal, dev, iters) -> dict:
-    """CUDA-event ms of the wgmma body, the mma body (on an offset copy of
-    the same tensors), ``scaled_dot_product_attention`` (a yardstick the
-    port never calls, on the same bf16 tensors viewed as (B, H, S, dh))
-    and the plain version.  The first three run in turns, in one order
-    and then the reverse; each reports the mean of its two readings."""
-    q, k, v = attention_inputs(b, s, kvh, g, dh, dh, torch.bfloat16, dev,
+def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None) -> dict:
+    """CUDA-event ms of the flash bodies that take these head dims (at
+    dh = dv the wgmma body, and the mma body on an offset copy of the same
+    tensors; at dh != dv the mma body), ``scaled_dot_product_attention``
+    (a yardstick the port never calls, on the same bf16 tensors viewed as
+    (B, H, S, dh)) and the plain version.  All but the plain run in
+    turns, in one order and then the reverse; each reports the mean of
+    its two readings."""
+    dv = dv or dh
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
                                SEED + 5)
-    qo, ko, vo = map(offset_copy, (q, k, v))
-    if (fa.flash_body(q, k, v), fa.flash_body(qo, ko, vo)) != \
-            ("wgmma", "mma"):
-        raise AssertionError("the timed tensors do not reach both bodies")
+    inputs = ({"wgmma": (q, k, v), "mma": tuple(map(offset_copy, (q, k, v)))}
+              if dh == dv else {"mma": (q, k, v)})
+    if any(fa.flash_body(*t) != body for body, t in inputs.items()):
+        raise AssertionError("the timed tensors do not reach the bodies "
+                             f"{list(inputs)}")
     h = kvh * g
     p = functools.partial
-    runs = {"wgmma": p(fa.flash_attention, q, k, v, causal=causal),
-            "mma": p(fa.flash_attention, qo, ko, vo, causal=causal),
-            "library": p(torch.nn.functional.scaled_dot_product_attention,
-                         q.view(b, s, h, dh).transpose(1, 2),
-                         k.transpose(1, 2), v.transpose(1, 2),
-                         is_causal=causal, enable_gqa=g > 1)}
+    runs = {body: p(fa.flash_attention, *t, causal=causal)
+            for body, t in inputs.items()}
+    runs["library"] = p(torch.nn.functional.scaled_dot_product_attention,
+                        q.view(b, s, h, dh).transpose(1, 2),
+                        k.transpose(1, 2), v.transpose(1, 2),
+                        is_causal=causal, enable_gqa=g > 1)
     out = in_turns(runs, iters[0])
     out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
                              causal=causal), iters[1])
@@ -1253,16 +1288,19 @@ def wgmma_build_report() -> str:
 
 def check_flash_case(case, dev, tag):
     """One ``FLASH_CASES`` entry: the kernel against its plain version on
-    card tensors (in bf16 the wgmma body on the tensors and the mma body
-    on an offset copy).  Returns the largest error and (q, k, v, plain)."""
+    card tensors (in bf16 at dh = dv the wgmma body on the tensors and the
+    mma body on an offset copy; at dh != dv the mma body on the tensors).
+    Returns the largest error and (q, k, v, plain)."""
     name, b, s, kvh, g, dh, dv, causal, dt = case
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
     runs = [(q, k, v)]
     if dt == torch.bfloat16:
-        if fa.flash_body(q, k, v) != "wgmma":
-            raise AssertionError(f"bf16 case {name} is not on the wgmma "
+        body = "wgmma" if dh == dv else "mma"
+        if fa.flash_body(q, k, v) != body:
+            raise AssertionError(f"bf16 case {name} is not on the {body} "
                                  f"body")
-        runs.append(tuple(map(offset_copy, (q, k, v))))
+        if body == "wgmma":
+            runs.append(tuple(map(offset_copy, (q, k, v))))
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     err = 0.0
     for qq, kk, vv in runs:
@@ -1296,13 +1334,14 @@ def phase_lm(dev, card):
         name, dt = case[0], case[-1]
         e, (q, k, v, want) = check_flash_case(case, dev, "phase5")
         err = max(err, e)
-        if dt == torch.bfloat16 and name == "qwen heads":
+        if dt == torch.bfloat16 and name in ("qwen heads",
+                                             "minicpm3 MLA heads"):
             ctl = dropped_tile_control(q, k, v, want)
             r, e = rel_err(ctl, want), float((ctl.float() - want.float())
                                              .abs().max())
-            say(f"[phase5] control (one 64-key tile dropped for the last 64"
-                f" queries) vs plain: ||Δ||/||plain|| {r:.3e}, max err "
-                f"{e:.3e}")
+            say(f"[phase5] control, {name} (one 64-key tile dropped for "
+                f"the last 64 queries) vs plain: ||Δ||/||plain|| {r:.3e}, "
+                f"max err {e:.3e}")
             if not r > FLASH_BF16_REL:
                 raise AssertionError(f"the bf16 norm check passes a kernel "
                                      f"that drops a kv tile ({r})")
@@ -2671,6 +2710,281 @@ def phase_ssm(dev, card, t_run):
     return launches
 
 
+# -- phase 10: minicpm3-4b MLA serving -------------------------------------
+MLA_ARCH = "minicpm3-4b"
+MLA_BATCH, MLA_PROMPT, MLA_DECODE = 4, 2000, 16
+# The flash kernel at the served prefill's shape: q (4, 2000, 40, 1, 96),
+# v (..., 64), bf16, causal; phase 5(a) checks it and its control.
+MLA_FLASH = next(c for c in FLASH_CASES if c[0] == "minicpm3 MLA heads")
+# Phase 10(b): layer 0's MLA mixer on MLA_CHECK_TOKENS of each prompt's
+# hidden states, on the card in bf16 against the same function on the CPU
+# in fp32 from the same bf16 weights: ||Δ|| <= MLA_LAYER_REL·||cpu|| (the
+# same layer in bf16 on the CPU read 5.8e-3 on 2 x 320 random tokens).
+# Two controls must fail it: the query heads split as [nope, rope] and
+# the expansion without kv_norm (on the CPU they read 0.87 and 0.21).
+MLA_CHECK_TOKENS = 320
+MLA_LAYER_REL = 2e-2
+# Phase 10(c): decode of token MLA_HANDOFF + 1 after a prefill of
+# MLA_HANDOFF tokens, in fp32 (a copy of the served bf16 weights), held
+# against the last position of the MLA_HANDOFF + 1 prefill: logits
+# within MLA_HANDOFF_TOL, about 100x the 2.4e-6 a 6-layer CPU model of
+# the published width read (the card's fp32 flash body against the
+# decode's torch ops, through 62 layers).  The decode with the cache's
+# krope zeroed (it read 0.43 there) must fail it.
+MLA_HANDOFF = 300
+MLA_HANDOFF_TOL = 2e-4
+
+
+def nope_first(mixer, cfg):
+    """MLA weights on which the port computes what a port that splits
+    each query head as ``[nope, rope]`` (DeepSeek-V2's published order)
+    would compute on ``mixer``: each head's ``wq_b`` columns rotated by
+    ``nope_head_dim``, so the slice the port rotates and pairs with
+    ``k_rope`` is the head's last ``rope_head_dim`` columns."""
+    c = cfg.mla
+    w = mixer["wq_b"].reshape(c.q_lora_rank, cfg.num_heads, -1)
+    w = torch.cat([w[..., c.nope_head_dim:], w[..., :c.nope_head_dim]], -1)
+    return dict(mixer, wq_b=w.reshape(c.q_lora_rank, -1))
+
+
+def without_kv_norm(mixer):
+    """``models.attention.rms_norm`` that returns unchanged the latent it
+    would normalise with ``mixer``'s ``kv_norm``: patched in, the MLA
+    expansion runs without its norm."""
+    norm = attn.rms_norm
+
+    def run(x, scale, eps=1e-5):
+        return x if scale is mixer["kv_norm"] else norm(x, scale, eps)
+    return run
+
+
+def phase_mla(dev, card, t_run):
+    """Phase 10; returns (launches, max error, per-body flash record at
+    MLA's shape)."""
+    if time.perf_counter() - t_run > SLOW_RUN_S:
+        say(f"[phase10] the run has passed {SLOW_RUN_S:.0f} s "
+            f"({time.perf_counter() - t_run:.1f} s); phase 10 runs in full")
+    # The mma body at the served prefill's shape, timed in turns with
+    # scaled_dot_product_attention (phase 5(a) checked it against plain).
+    t = time.perf_counter()
+    _, b, s, kvh, g, dh, dv, causal, _ = MLA_FLASH
+    tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3), dv=dv)
+    bd, by = flash_bound(b, s, kvh, g, dh, dv, causal)
+    bytes_ms = 2 * b * s * kvh * (g * dh + dh + dv + g * dv) \
+        / HBM_BYTES_PER_S * 1e3
+    reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                      for n, r in tm["reads"].items())
+    mma, lib = tm["mma"], tm["library"]
+    say(f"[phase10] flash minicpm3 MLA heads (B={b}, S={s}, H={kvh}, "
+        f"dh={dh}, dv={dv}, bf16, causal): mma body {mma:.4f} ms "
+        f"({bd / mma:.3f} of the bound), scaled_dot_product_attention "
+        f"{lib:.4f} ms (the mma body at {lib / mma:.2f}x its speed), plain "
+        f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}; the bytes alone "
+        f"{bytes_ms:.4f} ms); readings in turns: {reads}  [{card}]")
+    bodies = {"mma": {"minicpm3": {"ms": mma, "bound_ms": bd,
+                                   "plain_ms": tm["plain"],
+                                   "library_ms": lib}}}
+    say(f"[phase10] flash timings in {time.perf_counter() - t:.1f} s")
+
+    # (a) serve minicpm3-4b at its published width and depth.
+    t = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    c = cfg.mla
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    resident = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    mixer0 = params["blocks"][0]["sub0"]["mixer"]
+    say(f"[phase10] {MLA_ARCH}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads, MLA q_lora {c.q_lora_rank}, kv_lora "
+        f"{c.kv_lora_rank}, rope {c.rope_head_dim} + nope {c.nope_head_dim}"
+        f", v {c.v_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded} "
+        f"(untied); {resident / 1e9:.3f} GB of weights made on the card in "
+        f"{time.perf_counter() - t:.1f} s; nothing cut")
+    max_len = MLA_PROMPT + MLA_DECODE + 1
+    eng = ServeEngine(lm, params, max_len=max_len)
+    rng = np.random.default_rng(SEED + 10)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT + 1))).to(dev)
+    batch = {"inputs": prompts[:, :MLA_PROMPT]}
+    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, MLA_DECODE + 1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    want_bodies = {name: cfg.num_layers if name == "mma" else 0
+                   for name in by_body}
+    if launches["flash_attention"] != cfg.num_layers or \
+            by_body != want_bodies:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve ({by_body}), not the mma body once per "
+                             f"layer ({cfg.num_layers})")
+    if tuple(out.shape) != (MLA_BATCH, MLA_DECODE + 1) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+    bodies["mma"]["launches"] = by_body["mma"]
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    latent = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
+    latent_bytes = sum(x.numel() * x.element_size()
+                       for x in cache["sub0"].values())
+    full_kv = (2 * cfg.num_layers * MLA_BATCH * max_len * cfg.num_heads
+               * (c.rope_head_dim + c.nope_head_dim + c.v_head_dim))
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(MLA_DECODE):
+        _, cache = eng.decode_step(cache, tok, MLA_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / MLA_DECODE
+    del logits, cache
+    say(f"[phase10] serve {MLA_BATCH} x {MLA_PROMPT} tokens + {MLA_DECODE} "
+        f"greedy decode steps: generate {gen_s:.3f} s, launches {launches},"
+        f" flash by body {by_body}; prefill {prefill_ms:.2f} ms "
+        f"({MLA_BATCH * MLA_PROMPT / prefill_ms:.1f} tokens/ms), decode "
+        f"{decode_ms:.3f} ms per step ({MLA_BATCH * 1e3 / decode_ms:.1f} "
+        f"tokens/s); latent cache {latent} = {latent_bytes / 1e9:.3f} GB "
+        f"against {full_kv / 1e9:.3f} GB for a full K/V cache of "
+        f"{cfg.num_heads} x ({c.rope_head_dim + c.nope_head_dim} + "
+        f"{c.v_head_dim}) ({full_kv / latent_bytes:.1f}x); peak memory "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated), "
+        f"{(peak - base) / 1e9:.3f} GB over the {base / 1e9:.3f} GB held "
+        f"before the serve  [{card}]")
+    say(f"[phase10] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms},
+                  tag="phase10")
+
+    # Layer 0's input, kept from a served prefill, for (b) and (d).
+    seen = []
+    with patched(attn, "mla_forward", first_input(attn.mla_forward, seen)):
+        eng.prefill(batch)
+    h0 = seen[0]
+
+    # (d) one MLA layer alone: ms at prefill and decode size (x62: its
+    # share of the served step) and its host syncs.  Before (b) and (c),
+    # whose CPU runs leave torch's CPU threads spinning.
+    one = lm.init_cache(MLA_BATCH, max_len, device=dev)["sub0"]
+    ckv1, krope1 = one["ckv"][0], one["krope"][0]
+    x_dec = h0[:, -1:].contiguous()
+    calls = {"prefill": lambda: attn.mla_forward(mixer0, h0, cfg),
+             "decode": lambda: attn.mla_decode(mixer0, x_dec, cfg, ckv1,
+                                               krope1, MLA_PROMPT)}
+    syncs = {k: host_syncs(fn) for k, fn in calls.items()}
+    layer_ms = {"prefill": time_ms(calls["prefill"], 5),
+                "decode": time_ms(calls["decode"], 20)}
+    step = {"prefill": prefill_ms, "decode": decode_ms}
+    say(f"[phase10] one MLA layer (CUDA events): "
+        + ", ".join(f"{k} {layer_ms[k]:.3f} ms (x{cfg.num_layers}: "
+                    f"{layer_ms[k] * cfg.num_layers / step[k]:.2f} of the "
+                    f"served {k})" for k in layer_ms)
+        + f"; host syncs: prefill {len(syncs['prefill'])} "
+        f"{syncs['prefill']}, decode {len(syncs['decode'])} "
+        f"{syncs['decode']}  [{card}]")
+    if syncs["prefill"] or syncs["decode"]:
+        raise AssertionError(f"an MLA layer synchronises the host: {syncs}")
+    del one, ckv1, krope1
+
+    # (b) layer 0's mixer at full width: the card in bf16 against the CPU
+    # in fp32 from the same weights; two controls.
+    t = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    xs = h0[:, :MLA_CHECK_TOKENS]
+    got = attn.mla_forward(mixer0, xs, cfg).cpu()
+    cpu = {k: v.cpu().float() for k, v in mixer0.items()}
+    x_cpu = xs.cpu().float()
+    want = attn.mla_forward(cpu, x_cpu, cfg32)
+    ctl = {"query heads split [nope, rope]": attn.mla_forward(
+        nope_first(cpu, cfg), x_cpu, cfg32)}
+    with patched(attn, "rms_norm", without_kv_norm(cpu)):
+        ctl["expansion without kv_norm"] = attn.mla_forward(cpu, x_cpu,
+                                                            cfg32)
+    r = rel_err(got, want)
+    rc = {name: rel_err(got, x) for name, x in ctl.items()}
+    say(f"[phase10] layer 0's MLA mixer on {MLA_BATCH} x {MLA_CHECK_TOKENS} "
+        f"prefill tokens, card bf16 vs CPU fp32: ||Δ||/||cpu|| {r:.3e} (tol "
+        f"{MLA_LAYER_REL}); controls: " + "; ".join(
+            f"{n} {x:.3e}" for n, x in rc.items())
+        + f"; in {time.perf_counter() - t:.1f} s  [{card}]")
+    if not r <= MLA_LAYER_REL:
+        raise AssertionError(f"the card's MLA layer differs from the CPU's: "
+                             f"{r}")
+    for name, x in rc.items():
+        if not x > MLA_LAYER_REL:
+            raise AssertionError(f"control {name!r} passes the layer check "
+                                 f"({x})")
+    del got, cpu, x_cpu, want, ctl
+
+    # (c) the latent cache's handoff: decode token P + 1 after a prefill
+    # of P, against the last position of a prefill of P + 1.
+    t = time.perf_counter()
+    p = MLA_HANDOFF
+    nxt = prompts[:, p:p + 1]
+
+    def handoff(model, weights, control=False):
+        ref, _ = model.prefill(weights, {"inputs": prompts[:, :p + 1]}, p + 2)
+        _, lc = model.prefill(weights, {"inputs": prompts[:, :p]}, p + 2)
+        if control:
+            lc["sub0"]["krope"].zero_()
+        dec, _ = model.decode_step(weights, lc, nxt, p)
+        real = slice(0, cfg.vocab_size)
+        return dec[:, real], ref[:, real]
+
+    lm32 = LM(cfg32)
+    params32 = tree_map(lambda x: x.float(), params)
+    dec, ref = handoff(lm32, params32)
+    d32 = float((dec - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    held = [i for i, gp in enumerate(gaps) if gp > 2 * d32]
+    d_tok, r_tok = dec.argmax(-1).tolist(), ref.argmax(-1).tolist()
+    ctl32 = float(torch.sub(*handoff(lm32, params32, control=True))
+                  .abs().max())
+    del params32, lm32, dec, ref
+    d16 = float(torch.sub(*handoff(lm, params)).abs().max())
+    ctl16 = float(torch.sub(*handoff(lm, params, control=True)).abs().max())
+    say(f"[phase10] latent cache handoff, fp32 copy of the weights: decode "
+        f"of token {p + 1} after a {p}-token prefill vs the {p + 1}-token "
+        f"prefill's last position: logits max |Δ| {d32:.4e} (tol "
+        f"{MLA_HANDOFF_TOL}); first tokens decode {d_tok}, prefill {r_tok}, "
+        f"prefill top-1/top-2 gaps " + ", ".join(f"{gp:.4f}" for gp in gaps)
+        + f", held to equal: prompts {held}; control (cache krope zeroed): "
+        f"{ctl32:.4e}; the served bf16 weights read {d16:.4e}, their "
+        f"control {ctl16:.4e} (readings, no bound); in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    if not d32 <= MLA_HANDOFF_TOL:
+        raise AssertionError(f"decode after prefill differs from the longer "
+                             f"prefill: {d32}")
+    if any(d_tok[i] != r_tok[i] for i in held):
+        raise AssertionError(f"first tokens differ where the bound holds "
+                             f"them equal: {d_tok} vs {r_tok}")
+    if not ctl32 > MLA_HANDOFF_TOL:
+        raise AssertionError(f"a decode with the cache's krope zeroed passes "
+                             f"the handoff check ({ctl32})")
+
+    del params, eng, mixer0, h0, seen
+    return launches, bodies
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2988,7 +3302,22 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
     t9 = time.perf_counter()
     launches["ssm"] = phase_ssm(dev, card, t_run)
-    say(f"[phase9] ok in {time.perf_counter() - t9:.1f} s; whole run "
+    say(f"[phase9] ok in {time.perf_counter() - t9:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 10: minicpm3-4b MLA serving (the fifteenth slice) ----------
+    # Phase 9's model went with its function; its cached blocks go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase10] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    t10 = time.perf_counter()
+    launches["mla"], mla_bodies = phase_mla(dev, card, t_run)
+    flash_bodies["mma"]["launches"] += mla_bodies["mma"].pop("launches")
+    flash_bodies["mma"].update(mla_bodies["mma"])
+    say(f"[phase10] ok in {time.perf_counter() - t10:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -3004,8 +3333,8 @@ def main() -> int:
              bound_by=bounds[name][1], library_ms=times[name]["library_ms"])
         for name in sorted(KERNELS)]}
     # The flash kernel's bodies: launches on the main paths, and ms, bound
-    # and library ms at the served shape, at prefill_32k and at llama4's
-    # served prefill.
+    # and library ms at the served shape, at prefill_32k, at llama4's
+    # served prefill and (the mma body) at minicpm3's.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]

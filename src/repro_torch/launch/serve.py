@@ -25,7 +25,7 @@ def main(argv=None):
     if args.host_devices or args.shard_kv_seq:
         raise NotImplementedError(
             "--host-devices and --shard-kv-seq are not ported yet: they "
-            "come with the multi-GPU slice (ROADMAP Queue 1 #6)")
+            "come with the multi-GPU slice (ROADMAP Queue 1 #8)")
 
     import numpy as np
     import torch

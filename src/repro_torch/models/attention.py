@@ -1,17 +1,24 @@
-"""Attention mixers: GQA/MQA/MHA for prefill and decode.
+"""Attention mixers: GQA/MQA/MHA and MLA, for prefill and decode.
 
-The port of the reference package's ``models/attention.py`` for the dense
+The port of the reference package's ``models/attention.py`` for the
 decoders.  The layouts are the reference's: q grouped as
 ``(B, S, KV, G, dh)``, K and V as ``(B, S, KV, dh)``.
 
-Prefill (:func:`attn_forward`) runs the hand-written flash-attention
-kernel off the CPU and :func:`chunked_attention`, the twin of the
-reference's XLA path, on CPU tensors.  Decode (:func:`attn_decode`) is
-torch ops on both, as it is XLA outside any kernel in the reference.
+Prefill (:func:`attn_forward`, :func:`mla_forward`) runs the hand-written
+flash-attention kernel off the CPU and :func:`chunked_attention`, the
+twin of the reference's XLA path, on CPU tensors.  Decode
+(:func:`attn_decode`, :func:`mla_decode`) is torch ops on both, as it is
+XLA outside any kernel in the reference.
 
-Not ported yet, each raising ``NotImplementedError``: MLA (MiniCPM3),
-cross-attention (Whisper), the int8 KV cache, the sequence-sharded decode
-(multi-GPU slice) and the VLM's ``prefix_len`` on the card.
+MLA (multi-head latent attention, MiniCPM3) keeps the reference's layout:
+each query head is ``[rope, nope]``, K is ``[k_rope on every head,
+k_nope]``, one KV head per query head, and the decode cache holds only
+the latent ``c_kv`` (before ``kv_norm``) and ``k_rope`` (after RoPE),
+expanded through ``wkv_b`` at every step.
+
+Not ported yet, each raising ``NotImplementedError``: cross-attention
+(Whisper), the int8 KV cache, the sequence-sharded decode (multi-GPU
+slice) and the VLM's ``prefix_len`` on the card.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 
 def _not_ported(what: str, where: str):
@@ -46,6 +53,24 @@ def attn_init(generator, cfg, dtype, cross=False):
         p["bk"] = torch.zeros(kvd, dtype=dtype, device=dev)
         p["bv"] = torch.zeros(kvd, dtype=dtype, device=dev)
     return p
+
+
+def mla_init(generator, cfg, dtype):
+    d, c = cfg.d_model, cfg.mla
+    h = cfg.num_heads
+    qh = c.rope_head_dim + c.nope_head_dim
+    dev = generator.device
+    return {
+        "wq_a": dense_init(generator, d, c.q_lora_rank, dtype),
+        "q_norm": torch.ones(c.q_lora_rank, dtype=dtype, device=dev),
+        "wq_b": dense_init(generator, c.q_lora_rank, h * qh, dtype),
+        "wkv_a": dense_init(generator, d, c.kv_lora_rank + c.rope_head_dim,
+                            dtype),
+        "kv_norm": torch.ones(c.kv_lora_rank, dtype=dtype, device=dev),
+        "wkv_b": dense_init(generator, c.kv_lora_rank,
+                            h * (c.nope_head_dim + c.v_head_dim), dtype),
+        "wo": dense_init(generator, h * c.v_head_dim, d, dtype),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -194,3 +219,90 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos):
     pr = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgcs,bskd->bckgd", pr.to(cache_v.dtype), cache_v)
     return o.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): full-sequence and decode.  The decode
+# cache stores only (c_kv, k_rope); K/V are re-expanded through wkv_b.
+# ---------------------------------------------------------------------------
+def _mla_qkv(p, x, cfg, positions):
+    """q (B, S, H, rope + nope) with the rope half rotated and first;
+    ``c_kv`` (B, S, kv_lora_rank), not normalised; ``k_rope``
+    (B, S, 1, rope), rotated.  MLA's RoPE covers its whole slice whatever
+    ``cfg.rope_fraction`` says."""
+    c = cfg.mla
+    b, s = x.shape[:2]
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wq_b"]).reshape(b, s, cfg.num_heads,
+                                 c.rope_head_dim + c.nope_head_dim)
+    q_rope = apply_rope(q[..., :c.rope_head_dim], positions, 1.0,
+                        cfg.rope_theta)
+    q = torch.cat([q_rope, q[..., c.rope_head_dim:]], -1)
+    kv_a = x @ p["wkv_a"]
+    c_kv = kv_a[..., :c.kv_lora_rank]
+    k_rope = apply_rope(kv_a[..., None, c.kv_lora_rank:], positions, 1.0,
+                        cfg.rope_theta)
+    return q, c_kv, k_rope
+
+
+def _mla_expand(p, c_kv, k_rope, cfg):
+    """K (B, S, H, rope + nope) and V (B, S, H, v_head_dim) from the
+    latent: ``kv_norm`` on ``c_kv``, then ``wkv_b``.  V is a strided view
+    of the expansion."""
+    c = cfg.mla
+    h = cfg.num_heads
+    b, s = c_kv.shape[:2]
+    kv = (rms_norm(c_kv, p["kv_norm"], cfg.norm_eps) @ p["wkv_b"]).reshape(
+        b, s, h, c.nope_head_dim + c.v_head_dim)
+    k_nope, v = kv[..., :c.nope_head_dim], kv[..., c.nope_head_dim:]
+    k = torch.cat([k_rope.expand(b, s, h, c.rope_head_dim), k_nope], -1)
+    return k, v
+
+
+def mla_forward(p, x, cfg, *, positions=None, return_kv=False):
+    """Full-sequence MLA.  x: (B, S, D).  q is grouped with KV = H and
+    G = 1 whatever ``cfg.num_kv_heads`` says; off the CPU the scores run
+    in the flash-attention kernel (dh = rope + nope, dv = v_head_dim), on
+    the CPU in :func:`chunked_attention`.  ``return_kv`` adds the cache
+    entries ``(c_kv, k_rope)``, (B, S, kv_lora_rank) and (B, S, rope)."""
+    b, s, _ = x.shape
+    c = cfg.mla
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    k, v = _mla_expand(p, c_kv, k_rope, cfg)
+    qg = q[:, :, :, None, :]
+    if x.device.type != "cpu":
+        o = fa.flash_attention(qg, k, v.contiguous(), causal=cfg.causal)
+    else:
+        o = chunked_attention(qg, k, v, causal=cfg.causal,
+                              chunk=cfg.attn_chunk,
+                              kv_block=cfg.attn_kv_block)
+    out = o.reshape(b, s, cfg.num_heads * c.v_head_dim) @ p["wo"]
+    if return_kv:
+        return out, (c_kv, k_rope[:, :, 0, :])
+    return out
+
+
+def mla_decode(p, x, cfg, cache_ckv, cache_krope, pos):
+    """Single-token MLA decode.  x: (B, 1, D); cache_ckv (B, Smax,
+    kv_lora_rank); cache_krope (B, Smax, rope); pos: int.
+
+    The token's ``c_kv`` and ``k_rope`` are written into the caches in
+    place (and the caches returned), then K and V are expanded over the
+    whole cache and the positions after ``pos`` masked, with fp32 scores,
+    as the reference computes it."""
+    c = cfg.mla
+    b = x.shape[0]
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    cache_ckv[:, pos] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, pos] = k_rope[:, 0, 0].to(cache_krope.dtype)
+    k, v = _mla_expand(p, cache_ckv, cache_krope[:, :, None, :], cfg)
+    scale = (c.rope_head_dim + c.nope_head_dim) ** -0.5
+    scores = torch.einsum("bchd,bshd->bhcs", q.float(), k.float()) * scale
+    live = torch.arange(k.shape[1], device=x.device) <= pos
+    pr = torch.softmax(scores.masked_fill(~live, NEG_INF), dim=-1)
+    o = torch.einsum("bhcs,bshd->bchd", pr.to(v.dtype), v)
+    o = o.reshape(b, 1, cfg.num_heads * c.v_head_dim)
+    return o @ p["wo"], cache_ckv, cache_krope

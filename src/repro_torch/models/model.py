@@ -2,23 +2,26 @@
 
 The port of the reference package's ``models/model.py`` for layouts of
 ``("attn" | "mamba", "dense" | "moe" | "none")`` sub-layers (qwen1.5,
-codeqwen1.5, chatglm3; llama4 scout and maverick; mamba2 and the jamba
-hybrid).  The parameters keep the reference's tree, with the period
-stack as a Python list: ``params["blocks"][period]["sub0"]`` holds one
-layer, and the reference's ``scan`` over periods is a loop over that
-list.  The decode cache keeps the reference's stacked layout, one entry
-per sub-layer: ``cache["sub0"]["k"]`` of shape
-``(periods, B, max_len, KV, dh)`` for attention, ``"h"``
+codeqwen1.5, chatglm3; minicpm3's MLA; llama4 scout and maverick;
+mamba2 and the jamba hybrid).  The parameters keep the reference's tree,
+with the period stack as a Python list: ``params["blocks"][period]
+["sub0"]`` holds one layer, and the reference's ``scan`` over periods is
+a loop over that list.  The decode cache keeps the reference's stacked
+layout, one entry per sub-layer: ``cache["sub0"]["k"]`` of shape
+``(periods, B, max_len, KV, dh)`` for attention, ``"ckv"``
+``(periods, B, max_len, kv_lora_rank)`` and ``"krope"``
+``(periods, B, max_len, rope_head_dim)`` for MLA, ``"h"``
 ``(periods, B, nh, hd, N)`` fp32 and the conv tails ``"conv_x"``/
 ``"conv_b"``/``"conv_c"`` ``(periods, B, W-1, C)`` for a mamba mixer.
-Decode writes each token's K/V, and each mamba layer's new state, into
-it in place.  A MoE sub-layer serves through ``moe_apply(exact=True)``,
-the dropless dispatch, in prefill and decode; serving drops its aux
-losses (``loss``, which reads them, comes with the training slice).
+Decode writes each token's K/V (or MLA latents), and each mamba layer's
+new state, into it in place.  A MoE sub-layer serves through
+``moe_apply(exact=True)``, the dropless dispatch, in prefill and decode;
+serving drops its aux losses (``loss``, which reads them, comes with the
+training slice).
 
-MLA, cross-attention and the encoder, the vision prefix and the int8 KV
-cache raise ``NotImplementedError`` at construction, and so does
-``loss`` (the training slice).
+Cross-attention and the encoder, the vision prefix and the int8 KV cache
+raise ``NotImplementedError`` at construction, and so does ``loss`` (the
+training slice).
 """
 from __future__ import annotations
 
@@ -34,7 +37,6 @@ from repro_torch.models.layers import (
 
 def _check_ported(cfg: ModelConfig) -> None:
     for what, absent, where in (
-            ("MLA", cfg.mla is None, "the MLA slice"),
             ("the encoder", not cfg.encoder_layers,
              "the encoder-decoder slice"),
             ("the vision prefix", not cfg.vision_tokens, "the VLM slice"),
@@ -62,9 +64,12 @@ class LM:
     def _init_sublayer(self, generator, mixer, ffn):
         cfg, dt = self.cfg, self.pdtype
         dev = generator.device
+        if mixer == "mamba":
+            init = ssm.ssm_init
+        else:
+            init = attn.mla_init if cfg.mla else attn.attn_init
         p = {"norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
-             "mixer": (ssm.ssm_init(generator, cfg, dt) if mixer == "mamba"
-                       else attn.attn_init(generator, cfg, dt))}
+             "mixer": init(generator, cfg, dt)}
         if ffn != "none":
             p["norm_ffn"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
             p["ffn"] = (moe.moe_init(generator, cfg, dt) if ffn == "moe" else
@@ -108,6 +113,14 @@ class LM:
                                   "conv_b": tails[1], "conv_c": tails[2]}
             elif mixer == "mamba":
                 out, _ = ssm.ssm_decode(sp["mixer"], h, cfg, cache[key])
+            elif cfg.mla and cache is None:
+                out, (ckv, krope) = attn.mla_forward(sp["mixer"], h, cfg,
+                                                     return_kv=True)
+                new_cache[key] = {"ckv": ckv, "krope": krope}
+            elif cfg.mla:
+                out, _, _ = attn.mla_decode(
+                    sp["mixer"], h, cfg, cache[key]["ckv"],
+                    cache[key]["krope"], pos)
             elif cache is None:
                 out, (k, v) = attn.attn_forward(
                     sp["mixer"], h, cfg, causal=cfg.causal, return_kv=True)
@@ -153,17 +166,19 @@ class LM:
     # Serving: prefill + decode
     # ------------------------------------------------------------------
     def _pad_cache_seq(self, caches, max_len):
-        """Grow the prefill's K/V caches to ``max_len`` along the sequence
-        axis (axis 2 of the stacked ``(periods, B, S, KV, dh)`` layout).
-        Padded by name, as the reference does: a mamba layer's state has
-        no sequence axis."""
+        """Grow the prefill's attention caches to ``max_len`` along the
+        sequence axis, axis 2 of the stacked ``(periods, B, S, ...)``
+        layouts (5-D K/V, 4-D MLA latents).  Padded by name, as the
+        reference does: a mamba layer's state has no sequence axis."""
         out = {}
         for key, sub in caches.items():
             ent = {}
             for name, t in sub.items():
                 pad = max_len - t.shape[2]
-                if name in ("k", "v") and pad > 0:
-                    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                if name in ("k", "v", "ckv", "krope") and pad > 0:
+                    # F.pad lists (before, after) from the last axis back.
+                    t = torch.nn.functional.pad(
+                        t, (0, 0) * (t.dim() - 3) + (0, pad))
                 ent[name] = t
             out[key] = ent
         return out
@@ -186,8 +201,9 @@ class LM:
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Zero decode cache (one entry per sub-layer, stacked over
-        periods): K/V for attention, ``init_ssm_cache``'s state for a
-        mamba mixer (``h`` fp32, the conv tails in ``dtype``)."""
+        periods): K/V for attention, the latents ``ckv``/``krope`` for
+        MLA, ``init_ssm_cache``'s state for a mamba mixer (``h`` fp32, the
+        conv tails in ``dtype``)."""
         cfg = self.cfg
         p = cfg.num_periods
         shape = (p, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -198,6 +214,12 @@ class LM:
                 ent = {name: torch.zeros((p,) + sh, dtype=d, device=device)
                        for name, (sh, d) in ssm.ssm_cache_layout(
                            cfg, batch_size, dt).items()}
+            elif cfg.mla:
+                ent = {name: torch.zeros((p, batch_size, max_len, width),
+                                         dtype=dt, device=device)
+                       for name, width in (
+                           ("ckv", cfg.mla.kv_lora_rank),
+                           ("krope", cfg.mla.rope_head_dim))}
             else:
                 ent = {"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -206,8 +228,8 @@ class LM:
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B, 1) int; pos: int (current write index).  Writes the
-        token's K/V, and each mamba layer's new state, into ``cache`` in
-        place and returns (logits, cache)."""
+        token's K/V (or MLA latents), and each mamba layer's new state,
+        into ``cache`` in place and returns (logits, cache)."""
         cfg = self.cfg
         x = self._embed_inputs(params, {"inputs": tokens})
         for p, pp in enumerate(params["blocks"]):

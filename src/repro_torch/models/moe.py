@@ -159,7 +159,7 @@ def moe_apply(params, x, cfg, exact=False, decode=False, *, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "moe_apply(mesh=...) is not ported yet: the expert-parallel "
-            "dispatchers come with the multi-GPU slice (ROADMAP Queue 1 #6)")
+            "dispatchers come with the multi-GPU slice (ROADMAP Queue 1 #8)")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     topi, topw, aux = _route(params, xt, cfg)

@@ -15,7 +15,7 @@ class ServeEngine:
         if mesh is not None or shard_kv_seq:
             raise NotImplementedError(
                 "ServeEngine(mesh=..., shard_kv_seq=...) is not ported yet: "
-                "it comes with the multi-GPU slice (ROADMAP Queue 1 #6)")
+                "it comes with the multi-GPU slice (ROADMAP Queue 1 #8)")
         self.lm = lm
         self.params = params
         self.max_len = max_len

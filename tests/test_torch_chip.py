@@ -47,7 +47,9 @@ from repro_torch.serve.engine import ServeEngine
 from torch_port_util import random_coo
 
 sys.path.append(os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import dropped_carry  # noqa: E402  (phase 9's control)
+# Phase 9's control, and phase 10's bound, controls and patching helper.
+from chip_smoke import (MLA_LAYER_REL, dropped_carry,  # noqa: E402
+                        nope_first, patched, without_kv_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -520,6 +522,7 @@ FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
     "dh128-gqa": (1, 200, 200, 2, 4, 128, 128, True),
     "dh96-dv64": (2, 130, 130, 2, 2, 96, 64, False),
     "odd-dims": (1, 45, 45, 2, 2, 20, 13, True),   # no 16-byte rows
+    "mla-heads": (2, 1000, 1000, 8, 1, 96, 64, True),   # minicpm3's dims
 }
 # The bf16 bodies against plain in norm: ||Δ|| <= FLASH_BF16_REL·||plain||
 # (chip_smoke.py's bound, which a kernel that drops one kv tile fails).
@@ -738,6 +741,90 @@ def test_reduced_ssm_lm_generate_on_the_card(card, arch, dtype):
             if gap > 2 * d:
                 assert int(got[i, real].argmax()) == \
                     int(want[i, real].argmax())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_mla_lm_generate_on_the_card(card, dtype):
+    """Reduced minicpm3 (rope 8 + nope 8, v 24: dv > dh) on the card
+    against the same model on the CPU; its prefill runs the flash kernel
+    once per layer, on the fma body in fp32 and the mma body in bf16.
+    fp32: last-position logits within 1e-4 and greedy tokens equal.  bf16:
+    the card's logits lie no farther, in norm, from an fp32 run of the
+    same weights than twice the CPU's bf16 logits do."""
+    cfg = dataclasses.replace(reduced_config("minicpm3-4b"),
+                              param_dtype=dtype, activation_dtype=dtype)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40)))
+    body = "fma" if dtype == "float32" else "mma"
+    before = fa.flash_launches_by_body[body]
+    logits, _ = lm.prefill(on_card, {"inputs": toks.to(card)}, 48)
+    assert fa.flash_launches_by_body[body] - before == cfg.num_layers
+    want, _ = lm.prefill(params, {"inputs": toks}, 48)
+    got, real = logits.cpu(), slice(0, cfg.vocab_size)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        out = ServeEngine(lm, on_card, 48).generate(
+            {"inputs": toks.to(card)}, 6)
+        ref = ServeEngine(lm, params, 48).generate({"inputs": toks}, 6)
+        assert torch.equal(out.cpu(), ref)
+    else:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        exact, _ = LM(cfg32).prefill(tree_map(lambda t: t.float(), params),
+                                     {"inputs": toks}, 48)
+        exact = exact[:, real]
+
+        def dist(x):
+            return float((x[:, real] - exact).norm() / exact.norm())
+
+        assert dist(got) <= 2 * dist(want), (dist(got), dist(want))
+
+
+def test_full_width_mla_layer_on_the_card_matches_its_cpu_run(card):
+    """One minicpm3-4b MLA mixer at its published width (d 2560, 40 heads,
+    rope 32 + nope 64, v 64) on 2 x 320 tokens, the card in bf16 against
+    the CPU in fp32 from the same bf16 weights: ||Δ|| <= MLA_LAYER_REL·
+    ||cpu|| (chip_smoke.py phase 10(b)), which the query heads split as
+    [nope, rope] and the expansion without kv_norm must fail.  Then one
+    decode step from each side's latent cache, card fp32 within 1e-4 of
+    the CPU in norm."""
+    cfg = get_config("minicpm3-4b")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    p16 = tattn.mla_init(g, cfg, torch.bfloat16)
+    p32 = {k: v.float() for k, v in p16.items()}
+    x = torch.randn((2, 321, cfg.d_model), generator=g)
+    x = rms_norm(x, torch.ones(cfg.d_model)).to(torch.bfloat16).float()
+
+    def rel(a, b):
+        return float((a.cpu().float() - b).norm() / b.norm())
+
+    want, (ckv, krope) = tattn.mla_forward(p32, x[:, :320], cfg32,
+                                           return_kv=True)
+    on16 = tree_map(lambda t: t.to(card), p16)
+    got16 = tattn.mla_forward(on16, x[:, :320].to(card, torch.bfloat16),
+                              cfg)
+    assert rel(got16, want) <= MLA_LAYER_REL
+    assert rel(got16, tattn.mla_forward(nope_first(p32, cfg), x[:, :320],
+                                        cfg32)) > MLA_LAYER_REL
+    with patched(tattn, "rms_norm", without_kv_norm(p32)):
+        ctl = tattn.mla_forward(p32, x[:, :320], cfg32)
+    assert rel(got16, ctl) > MLA_LAYER_REL
+    # One fp32 decode step at position 320 from each side's latents.
+    on32 = tree_map(lambda t: t.to(card), p32)
+    cache = [torch.cat([t, torch.zeros_like(t[:, :1])], 1)
+             for t in (ckv, krope)]
+    gcache = [t.to(card) for t in cache]
+    step, _, _ = tattn.mla_decode(p32, x[:, 320:], cfg32, *cache, 320)
+    gstep, _, _ = tattn.mla_decode(on32, x[:, 320:].to(card), cfg32,
+                                   *gcache, 320)
+    assert rel(gstep, step) <= 1e-4
+    assert rel(gcache[0], cache[0]) <= 1e-4 and \
+        rel(gcache[1], cache[1]) <= 1e-4
 
 
 def test_full_width_mamba_layer_on_the_card_matches_its_cpu_run(card):

@@ -11,8 +11,9 @@ than XLA's, through a few layers).  In bf16 the two frameworks round at
 other places (each fused XLA computation against each torch op), so bf16
 logits agree within 5e-2 and greedy tokens are not compared.  The MoE
 archs (llama4 scout and maverick) route in fp32 in both packages, and
-their routing (``topi`` of every MoE layer) must be equal exactly.  The
-SSM archs (mamba2, and the jamba hybrid of attention, mamba and top-2
+their routing (``topi`` of every MoE layer) must be equal exactly.
+minicpm3's MLA (its reduced sibling has dv = 24 > dh = 16) is held to
+the same bounds.  The SSM archs (mamba2, and the jamba hybrid of attention, mamba and top-2
 MoE sub-layers) run the SSD scan in fp32 in both packages and are held
 to the same bounds.
 """
@@ -42,7 +43,7 @@ from repro_torch.models.model import LM, build
 from repro_torch.serve.engine import ServeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b",
+ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b", "minicpm3-4b",
          "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
          "mamba2-1.3b", "jamba-1.5-large-398b"]
 MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
@@ -338,7 +339,7 @@ def test_init_cache_has_the_prefill_layout():
         assert not bool(zero["sub0"][name].any())
 
 
-@pytest.mark.parametrize("arch", ["chatglm3-6b"] + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "minicpm3-4b"] + SSM_ARCHS)
 def test_init_cache_matches_the_reference(arch):
     """``init_cache`` has the reference's entries, key, shape and dtype,
     in fp32 and bf16, and the prefill's layout; it is all zeros."""
@@ -359,11 +360,10 @@ def test_init_cache_matches_the_reference(arch):
         [(k, n, t.shape, t.dtype) for k, n, t in leaves(cache)]
 
 
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_carried_ssm_weights_are_bit_equal(arch):
-    """Every leaf of a bf16 SSM model carries bit for bit; ``a_log``,
-    ``dt_bias`` and ``d_skip`` arrive and stay fp32, as the router does."""
-    _, jparams, _, tparams, cfg = models(arch, "bfloat16")
+def assert_carried_bit_equal(jparams, tparams, cfg) -> set:
+    """Every block leaf of a bf16 model carries bit for bit, key for key;
+    those in ``convert.FP32_LEAVES`` arrive and stay fp32.  Returns the
+    names of the fp32 leaves seen."""
     want = to_numpy(jparams)
     seen = set()
     for p in range(cfg.num_periods):
@@ -383,7 +383,33 @@ def test_carried_ssm_weights_are_bit_equal(arch):
                     np.testing.assert_array_equal(
                         g.view(torch.int16).numpy().view(np.uint16), r[p])
         walk(tparams["blocks"][p], want["blocks"], ())
+    return seen
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_carried_ssm_weights_are_bit_equal(arch):
+    """Every leaf of a bf16 SSM model carries bit for bit; ``a_log``,
+    ``dt_bias`` and ``d_skip`` arrive and stay fp32, as the router does."""
+    _, jparams, _, tparams, cfg = models(arch, "bfloat16")
+    seen = assert_carried_bit_equal(jparams, tparams, cfg)
     assert {"a_log", "dt_bias", "d_skip"} <= seen
+
+
+def test_carried_mla_weights_are_bit_equal():
+    """minicpm3's MLA leaves (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``,
+    ``kv_norm``, ``wkv_b``, ``wo``) carry bit for bit in bf16, none fp32."""
+    _, jparams, _, tparams, cfg = models("minicpm3-4b", "bfloat16")
+    assert not assert_carried_bit_equal(jparams, tparams, cfg)
+    assert sorted(tparams["blocks"][0]["sub0"]["mixer"]) == sorted(
+        ["wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"])
+
+
+def test_bf16_mla_prefill_and_decode_near_reference():
+    """minicpm3 in bf16 keeps the dense model's bound; the latent cache is
+    bf16."""
+    tparams = bf16_near_reference("minicpm3-4b")
+    assert tparams["blocks"][0]["sub0"]["mixer"]["wkv_b"].dtype == \
+        torch.bfloat16
 
 
 def test_bf16_ssm_prefill_and_decode_near_reference():
@@ -465,8 +491,7 @@ def test_random_init_from_a_generator():
     assert a["embed"].shape == (cfg.vocab_padded, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-base",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "paligemma-3b"])
 def test_unported_families_raise_at_construction(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         LM(tconfigs.reduced_config(arch))
@@ -523,6 +548,10 @@ def test_moe_serve_launcher_on_the_cpu():
 
 def test_ssm_serve_launcher_on_the_cpu():
     served_on_the_cpu("mamba2-1.3b")
+
+
+def test_mla_serve_launcher_on_the_cpu():
+    served_on_the_cpu("minicpm3-4b")
 
 
 def test_serve_launcher_refuses_without_a_card():
