@@ -2763,7 +2763,8 @@ def phase_mla(dev, card, t_run):
     MLA's shape)."""
     if time.perf_counter() - t_run > SLOW_RUN_S:
         say(f"[phase10] the run has passed {SLOW_RUN_S:.0f} s "
-            f"({time.perf_counter() - t_run:.1f} s); phase 10 runs in full")
+            f"({time.perf_counter() - t_run:.1f} s); phase 10 runs in full"
+            f"  [{card}]")
     # The mma body at the served prefill's shape, timed in turns with
     # scaled_dot_product_attention (phase 5(a) checked it against plain).
     t = time.perf_counter()
@@ -2784,7 +2785,8 @@ def phase_mla(dev, card, t_run):
     bodies = {"mma": {"minicpm3": {"ms": mma, "bound_ms": bd,
                                    "plain_ms": tm["plain"],
                                    "library_ms": lib}}}
-    say(f"[phase10] flash timings in {time.perf_counter() - t:.1f} s")
+    say(f"[phase10] flash timings in {time.perf_counter() - t:.1f} s  "
+        f"[{card}]")
 
     # (a) serve minicpm3-4b at its published width and depth.
     t = time.perf_counter()
@@ -2800,7 +2802,7 @@ def phase_mla(dev, card, t_run):
         f"{c.kv_lora_rank}, rope {c.rope_head_dim} + nope {c.nope_head_dim}"
         f", v {c.v_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded} "
         f"(untied); {resident / 1e9:.3f} GB of weights made on the card in "
-        f"{time.perf_counter() - t:.1f} s; nothing cut")
+        f"{time.perf_counter() - t:.1f} s; nothing cut  [{card}]")
     max_len = MLA_PROMPT + MLA_DECODE + 1
     eng = ServeEngine(lm, params, max_len=max_len)
     rng = np.random.default_rng(SEED + 10)
@@ -3312,13 +3314,13 @@ def main() -> int:
     free, total_mem = torch.cuda.mem_get_info()
     say(f"[phase10] card memory before the phase: {free / 1e9:.2f} GB free "
         f"of {total_mem / 1e9:.2f} GB; allocated "
-        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
     t10 = time.perf_counter()
     launches["mla"], mla_bodies = phase_mla(dev, card, t_run)
     flash_bodies["mma"]["launches"] += mla_bodies["mma"].pop("launches")
     flash_bodies["mma"].update(mla_bodies["mma"])
     say(f"[phase10] ok in {time.perf_counter() - t10:.1f} s; whole run "
-        f"{time.perf_counter() - t_run:.1f} s")
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
     for name, count in total.items():
