@@ -76,13 +76,13 @@ package.  Phases:
    tensors at qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32),
    chatglm3-6b heads (KV = 2, G = 16, dh = 128, S = 4096, bf16), one
    non-causal case, one with dv ≠ dh in fp32 and minicpm3-4b's MLA heads
-   (B = 4, S = 2000, 40 heads, dh = 96, dv = 64, bf16); each bf16 case at
-   dh = dv runs the wgmma body and, on a copy one element into its
-   storage, the mma body, and the MLA case runs the mma body on its own
-   tensors; elementwise ``|Δ| <= tol·(1 + |plain|)`` with tol 2e-5 in
-   fp32 (the reference kernel tests') and 2e-2 in bf16, and in bf16 also
-   ``||Δ|| <= 5e-3·||plain||``, which a kernel that drops one kv tile
-   fails (checked at qwen's and at MLA's heads).  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
+   (B = 4, S = 2000, 40 heads, dh = 96, dv = 64, bf16); each bf16 case
+   runs the wgmma body on its tensors and, on a copy one element into its
+   storage, the mma body; elementwise ``|Δ| <= tol·(1 + |plain|)`` with
+   tol 2e-5 in fp32 (the reference kernel tests') and 2e-2 in bf16, and
+   in bf16 also ``||Δ|| <= 5e-3·||plain||``, which a kernel that drops
+   one kv tile fails (checked at qwen's and at MLA's heads, for both
+   bodies).  (b) ``ServeEngine`` serves 4 prompts of 2000 tokens plus 16
    greedy decode steps on qwen1.5-0.5b at full width and depth in bf16,
    random weights from a seeded generator; the flash counters are set to
    0 before ``generate`` and must read one wgmma launch per layer after
@@ -199,16 +199,17 @@ package.  Phases:
 
 10. minicpm3-4b MLA serving (the fifteenth slice's path), after phase
    9's model is released (the free card memory is printed).  The flash
-   kernel's mma body at the served prefill's shape (q (4, 2000, 40, 1,
-   96), v (..., 64), bf16, causal) timed in turns with
-   ``scaled_dot_product_attention`` at the same head dims, beside the plain version and its bound (the unmasked pairs'
+   kernel at the served prefill's shape (q (4, 2000, 40, 1, 96), v (...,
+   64), bf16, causal): the wgmma body, the mma body (on an offset copy)
+   and ``scaled_dot_product_attention`` at the same head dims timed in
+   turns, beside the plain version and its bound (the unmasked pairs'
    flops at 989 TFLOP/s, 0.104 ms).  (a) ``ServeEngine`` serves 4
    prompts of 2000 tokens plus 16 greedy decode steps on minicpm3-4b at
    its published width and depth, nothing cut (62 layers, d 2560, 40
    heads, q_lora 768, kv_lora 256, rope 32 + nope 64, v 64, d_ff 6400,
    vocab 73,448, untied), bf16, random weights from a seeded generator
    made on the card; the kernels' counters are set to 0 before
-   ``generate`` and must read one mma launch per layer and no other
+   ``generate`` and must read one wgmma launch per layer and no other
    body.  Prefill ms, decode ms a step, the latent cache's bytes beside
    a full K/V cache's, peak memory and a ``torch.profiler`` breakdown
    are printed.  (d) One MLA layer alone on layer 0's served input: ms
@@ -230,8 +231,8 @@ last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
 the four timed shapes (``bodies``: phase 5's served prefill and
-prefill_32k, llama4's served prefill, and minicpm3's for the mma body,
-with its plain time), whose spmm entry lists each vector
+prefill_32k, llama4's served prefill, and minicpm3's, with its plain
+time), whose spmm entry lists each vector
 width's main-path launches (``bodies``) and, at each served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
 spmv_fused entries give the stream pass's plan at G7 (``plan``: lanes a
@@ -1168,18 +1169,19 @@ def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
 
 
 def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None) -> dict:
-    """CUDA-event ms of the flash bodies that take these head dims (at
-    dh = dv the wgmma body, and the mma body on an offset copy of the same
-    tensors; at dh != dv the mma body), ``scaled_dot_product_attention``
-    (a yardstick the port never calls, on the same bf16 tensors viewed as
-    (B, H, S, dh)) and the plain version.  All but the plain run in
-    turns, in one order and then the reverse; each reports the mean of
-    its two readings."""
+    """CUDA-event ms of the flash bodies that take these head dims (the
+    body ``flash_body`` names for the tensors, and when that is the wgmma
+    body also the mma body on an offset copy of the same tensors),
+    ``scaled_dot_product_attention`` (a yardstick the port never calls, on
+    the same bf16 tensors viewed as (B, H, S, dh)) and the plain version.
+    All but the plain run in turns, in one order and then the reverse;
+    each reports the mean of its two readings."""
     dv = dv or dh
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
                                SEED + 5)
-    inputs = ({"wgmma": (q, k, v), "mma": tuple(map(offset_copy, (q, k, v)))}
-              if dh == dv else {"mma": (q, k, v)})
+    inputs = {fa.flash_body(q, k, v): (q, k, v)}
+    if "wgmma" in inputs:
+        inputs["mma"] = tuple(map(offset_copy, (q, k, v)))
     if any(fa.flash_body(*t) != body for body, t in inputs.items()):
         raise AssertionError("the timed tensors do not reach the bodies "
                              f"{list(inputs)}")
@@ -1264,43 +1266,46 @@ def launch_body(q, k, v, causal):
 
 def wgmma_build_report() -> str:
     """The wgmma body's ``-Xptxas=-v`` lines (registers, spills) at each
-    head dim and its dynamic shared memory; raises on a spill."""
+    (dh, dv) pair and its dynamic shared memory; raises on a spill."""
     log = BUILD_LOGS.get("flash_attention", "")
     if not log:
         return "no nvcc log (the library was already built)"
     lines = log.splitlines()
-    out = []
+    out, built = [], set()
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line or \
                 "flash_fwd_wgmma_kernel" not in line:
             continue
-        d = int(re.search(r"flash_fwd_wgmma_kernelILi(\d+)E", line)[1])
+        dh, dv = map(int, re.search(
+            r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)E", line).groups())
         props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
                          else x.strip() for x in lines[i + 2:i + 4])
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
-            raise AssertionError(f"the wgmma body spills at D={d}: {props}")
-        out.append(f"D={d}: {props}, {fa.wgmma_smem_bytes(d)} bytes "
-                   f"dynamic shared memory")
-    if len(out) != len(fa.WGMMA_HEAD_DIMS):
+            raise AssertionError(f"the wgmma body spills at (dh, dv) = "
+                                 f"({dh}, {dv}): {props}")
+        built.add((dh, dv))
+        out.append(f"(dh, dv) = ({dh}, {dv}): {props}, "
+                   f"{fa.wgmma_smem_bytes(dh, dv)} bytes dynamic shared "
+                   f"memory")
+    if sorted(built) != sorted(fa.WGMMA_HEAD_DIMS) or \
+            len(out) != len(built):
         raise AssertionError(f"no ptxas report for every wgmma build: {out}")
     return "; ".join(out)
 
 
 def check_flash_case(case, dev, tag):
     """One ``FLASH_CASES`` entry: the kernel against its plain version on
-    card tensors (in bf16 at dh = dv the wgmma body on the tensors and the
-    mma body on an offset copy; at dh != dv the mma body on the tensors).
-    Returns the largest error and (q, k, v, plain)."""
+    card tensors (in bf16, every case a served head, the wgmma body on the
+    tensors and the mma body on an offset copy).  Returns the largest
+    error and (q, k, v, plain)."""
     name, b, s, kvh, g, dh, dv, causal, dt = case
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
     runs = [(q, k, v)]
     if dt == torch.bfloat16:
-        body = "wgmma" if dh == dv else "mma"
-        if fa.flash_body(q, k, v) != body:
-            raise AssertionError(f"bf16 case {name} is not on the {body} "
+        if fa.flash_body(q, k, v) != "wgmma":
+            raise AssertionError(f"bf16 case {name} is not on the wgmma "
                                  f"body")
-        if body == "wgmma":
-            runs.append(tuple(map(offset_copy, (q, k, v))))
+        runs.append(tuple(map(offset_copy, (q, k, v))))
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     err = 0.0
     for qq, kk, vv in runs:
@@ -1341,7 +1346,8 @@ def phase_lm(dev, card):
                                              .abs().max())
             say(f"[phase5] control, {name} (one 64-key tile dropped for "
                 f"the last 64 queries) vs plain: ||Δ||/||plain|| {r:.3e}, "
-                f"max err {e:.3e}")
+                f"max err {e:.3e}; the bound both bodies met above fails "
+                f"it")
             if not r > FLASH_BF16_REL:
                 raise AssertionError(f"the bf16 norm check passes a kernel "
                                      f"that drops a kv tile ({r})")
@@ -2765,8 +2771,9 @@ def phase_mla(dev, card, t_run):
         say(f"[phase10] the run has passed {SLOW_RUN_S:.0f} s "
             f"({time.perf_counter() - t_run:.1f} s); phase 10 runs in full"
             f"  [{card}]")
-    # The mma body at the served prefill's shape, timed in turns with
-    # scaled_dot_product_attention (phase 5(a) checked it against plain).
+    # The wgmma body, and the mma body on an offset copy, at the served
+    # prefill's shape, timed in turns with scaled_dot_product_attention
+    # (phase 5(a) checked both against plain).
     t = time.perf_counter()
     _, b, s, kvh, g, dh, dv, causal, _ = MLA_FLASH
     tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3), dv=dv)
@@ -2775,16 +2782,19 @@ def phase_mla(dev, card, t_run):
         / HBM_BYTES_PER_S * 1e3
     reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
                       for n, r in tm["reads"].items())
-    mma, lib = tm["mma"], tm["library"]
+    wg, mma, lib = tm["wgmma"], tm["mma"], tm["library"]
     say(f"[phase10] flash minicpm3 MLA heads (B={b}, S={s}, H={kvh}, "
-        f"dh={dh}, dv={dv}, bf16, causal): mma body {mma:.4f} ms "
-        f"({bd / mma:.3f} of the bound), scaled_dot_product_attention "
-        f"{lib:.4f} ms (the mma body at {lib / mma:.2f}x its speed), plain "
-        f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}; the bytes alone "
-        f"{bytes_ms:.4f} ms); readings in turns: {reads}  [{card}]")
-    bodies = {"mma": {"minicpm3": {"ms": mma, "bound_ms": bd,
-                                   "plain_ms": tm["plain"],
-                                   "library_ms": lib}}}
+        f"dh={dh}, dv={dv}, bf16, causal): wgmma body {wg:.4f} ms "
+        f"({bd / wg:.3f} of the bound), mma body {mma:.4f} ms "
+        f"({bd / mma:.3f}; wgmma at {mma / wg:.2f}x its speed), "
+        f"scaled_dot_product_attention {lib:.4f} ms (the wgmma body at "
+        f"{lib / wg:.2f}x its speed), plain {tm['plain']:.4f} ms; bound "
+        f"{bd:.4f} ms ({by}; the bytes alone {bytes_ms:.4f} ms); readings "
+        f"in turns: {reads}  [{card}]")
+    bodies = {body: {"minicpm3": {"ms": tm[body], "bound_ms": bd,
+                                  "plain_ms": tm["plain"],
+                                  "library_ms": lib}}
+              for body in ("wgmma", "mma")}
     say(f"[phase10] flash timings in {time.perf_counter() - t:.1f} s  "
         f"[{card}]")
 
@@ -2823,19 +2833,20 @@ def phase_mla(dev, card, t_run):
     launches = read_launches()
     by_body = dict(fa.flash_launches_by_body)
     peak = torch.cuda.max_memory_allocated()
-    want_bodies = {name: cfg.num_layers if name == "mma" else 0
+    want_bodies = {name: cfg.num_layers if name == "wgmma" else 0
                    for name in by_body}
     if launches["flash_attention"] != cfg.num_layers or \
             by_body != want_bodies:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the mma body once per "
-                             f"layer ({cfg.num_layers})")
+                             f"serve ({by_body}), not the wgmma body once "
+                             f"per layer ({cfg.num_layers}) and no other")
     if tuple(out.shape) != (MLA_BATCH, MLA_DECODE + 1) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
                              f"range [{int(out.min())}, {int(out.max())}]")
-    bodies["mma"]["launches"] = by_body["mma"]
+    for name in bodies:
+        bodies[name]["launches"] = by_body[name]
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3317,8 +3328,9 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
     t10 = time.perf_counter()
     launches["mla"], mla_bodies = phase_mla(dev, card, t_run)
-    flash_bodies["mma"]["launches"] += mla_bodies["mma"].pop("launches")
-    flash_bodies["mma"].update(mla_bodies["mma"])
+    for body, rec in mla_bodies.items():
+        flash_bodies[body]["launches"] += rec.pop("launches")
+        flash_bodies[body].update(rec)
     say(f"[phase10] ok in {time.perf_counter() - t10:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
@@ -3336,7 +3348,7 @@ def main() -> int:
         for name in sorted(KERNELS)]}
     # The flash kernel's bodies: launches on the main paths, and ms, bound
     # and library ms at the served shape, at prefill_32k, at llama4's
-    # served prefill and (the mma body) at minicpm3's.
+    # served prefill and at minicpm3's.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]

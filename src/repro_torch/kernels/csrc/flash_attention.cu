@@ -15,8 +15,10 @@
 // flops over the tensor cores' bf16 rate.  Three bodies; the wrapper
 // (kernels/flash_attention.py, flash_body) picks one from dtype, head dims
 // and alignment alone:
-//   * flash_fwd_wgmma_kernel, bf16 with dh = dv in {64, 128} and 16-byte
-//     aligned bases (the served heads): built for that rate.  A producer
+//   * flash_fwd_wgmma_kernel, bf16 with (dh, dv) in {(64, 64), (128, 128),
+//     (96, 64)} and 16-byte aligned bases (the served heads; (96, 64) is
+//     multi-head latent attention's rope 32 + nope 64 against v 64): built
+//     for that rate.  A producer
 //     warpgroup keeps a ring of K/V tiles in flight with TMA (128-byte
 //     swizzle, rows past S zero-filled on load and clipped on store), so
 //     loads overlap the math; two consumer warpgroups of 64 q rows each
@@ -568,23 +570,39 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 // 128-byte swizzle in boxes of 64 columns (128 bytes); a head dim of 128
 // is two boxes side by side, each its own [rows][64] block in shared
 // memory.  Rows past S are zero on load and clipped on store by TMA.
+// The Q·K side (q, k: DH columns) and the P·V side (v, o: DV columns)
+// have their own boxes.  A DH that is no multiple of 64 (MLA's 96) takes
+// whole boxes too: the last box runs past the map's DH columns, TMA fills
+// the rest with zeros (and counts the whole box's bytes on the barrier),
+// and Q·K's DH/16 steps never read them.
 constexpr int kWgBQ = 128;       // q rows per block: 64 per consumer
 constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumers
 constexpr int kBoxCols = 64;     // bf16 per 128-byte swizzled box row
 constexpr int kRowBytes = 128;
 constexpr int kQBoxRows = 64;    // q and o boxes: one consumer's rows
+constexpr int kMaxSmem = 232448;  // a block's opt-in shared memory
 
-template <int D> struct WgCfg {
+template <int DH, int DV> struct WgCfg {
   static constexpr int BK = 128;                  // keys per kv tile
-  static constexpr int STAGES = 3;                // ring depth
-  static constexpr int CB = D / kBoxCols;         // column boxes per row
-  static constexpr int Q_BYTES = kWgBQ * D * 2;
-  static constexpr int TILE_BYTES = BK * D * 2;   // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  // Ring depth.  Three stages of the widest pair, (128, 128), are what
+  // fits; (96, 64) would take four (230,528 bytes), which a source
+  // variant times (tools/flash_variants.py).
+  static constexpr int STAGES = 3;
+  static constexpr int CBK = (DH + kBoxCols - 1) / kBoxCols;  // q, k boxes
+  static constexpr int CBV = DV / kBoxCols;                   // v, o boxes
+  static constexpr int Q_BYTES = kWgBQ * CBK * kRowBytes;
+  static constexpr int K_BYTES = BK * CBK * kRowBytes;  // one K tile
+  static constexpr int V_BYTES = BK * CBV * kRowBytes;  // one V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int DATA_BYTES = Q_BYTES + STAGES * STAGE_BYTES;
   // + the mbarriers (q, full[STAGES], empty[STAGES]) and room to align
   // the base to the 1024 bytes the swizzle pattern repeats over.
   static constexpr int SMEM_BYTES = 1024 + DATA_BYTES + 128;
+  static_assert(DH % 16 == 0 && DV % kBoxCols == 0,
+                "Q K^T steps 16 columns; P V takes whole boxes");
+  // O is staged in the consumer's dead q rows, box for box.
+  static_assert(CBV <= CBK, "O's boxes fit in Q's");
+  static_assert(SMEM_BYTES <= kMaxSmem, "the ring fits a block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -787,15 +805,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n128(d, a, db);
 }
 
-// S = Q K^T for one consumer: 64 q rows x BK keys, D/16 steps of 16
+// S = Q K^T for one consumer: 64 q rows x BK keys, DH/16 steps of 16
 // columns; a step's 32 bytes advance the descriptor inside its 128-byte
 // swizzled row, and every 64 columns move to the next column box.
-template <int D, int BK>
+template <int DH, int BK>
 __device__ __forceinline__ void qk_issue(float (&sc)[BK / 2], uint32_t sQw,
                                          uint32_t ks) {
   static_assert(BK == 128, "S is one m64n128k16 product per 16 columns");
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DH / 16; ++kk) {
     const int c = kk / 4;                // column box
     const uint32_t off = (kk % 4) * 32;  // 16 columns in it
     wgmma_ss_n128(sc,
@@ -807,13 +825,13 @@ __device__ __forceinline__ void qk_issue(float (&sc)[BK / 2], uint32_t sQw,
 // O += P V for one consumer: BK/16 steps of 16 keys (16 rows of the V
 // tile, 2048 bytes); V is keys x dv with dv contiguous (MN-major, the
 // transpose bit), column boxes BK rows apart (the leading byte offset).
-template <int D, int BK>
-__device__ __forceinline__ void pv_issue(float (&o)[D / 2],
+template <int DV, int BK>
+__device__ __forceinline__ void pv_issue(float (&o)[DV / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t vs) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs<D>(o, pa[kk],
+    wgmma_rs<DV>(o, pa[kk],
                 smem_desc(vs + kk * 16 * kRowBytes, BK * kRowBytes, 1024));
 }
 
@@ -878,7 +896,7 @@ __device__ __forceinline__ void to_bf16(const float (&sc)[NS],
 // `heads` = KV·G q heads; grid x = B·heads, grid y = q tiles (longest
 // causal rows first).  scale_log2 = scale·log2(e): p = 2^(dot·scale_log2 -
 // m) with m the running row max of dot·scale_log2.
-template <int D>
+template <int DH, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                            __grid_constant__ const CUtensorMap tk,
@@ -886,11 +904,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            __grid_constant__ const CUtensorMap to, int sq,
                            int sk, int heads, int g, int causal,
                            float scale_log2) {
-  using C = WgCfg<D>;
+  using C = WgCfg<DH, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base;  // [CB][kWgBQ rows][128 B]
-  // Stage s: K [CB][BK][128 B], then V likewise.
+  const uint32_t sQ = base;  // [CBK][kWgBQ rows][128 B]
+  // Stage s: K [CBK][BK][128 B], then V [CBV][BK][128 B].
   const uint32_t sKV = base + C::Q_BYTES;
   const uint32_t q_bar = base + C::DATA_BYTES;
   const uint32_t full_bar = q_bar + 8;
@@ -924,7 +942,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (tw == 0) {
       mbar_expect_tx(q_bar, C::Q_BYTES);
       for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < C::CB; ++c)
+        for (int c = 0; c < C::CBK; ++c)
           tma_load(sQ + (c * kWgBQ + kQBoxRows * w) * kRowBytes, &tq, q_bar,
                    c * kBoxCols, hq, q0 + kQBoxRows * w, b);
       for (int t = 0; t < n_tiles; ++t) {
@@ -934,12 +952,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_wait(empty_bar + 8 * s, ((t / C::STAGES) & 1) ^ 1);
         mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
         const uint32_t ks = sKV + s * C::STAGE_BYTES;
-        for (int c = 0; c < C::CB; ++c) {
+        for (int c = 0; c < C::CBK; ++c)
           tma_load(ks + c * C::BK * kRowBytes, &tk, full_bar + 8 * s,
                    c * kBoxCols, kv, t * C::BK, b);
-          tma_load(ks + C::TILE_BYTES + c * C::BK * kRowBytes, &tv,
+        for (int c = 0; c < C::CBV; ++c)
+          tma_load(ks + C::K_BYTES + c * C::BK * kRowBytes, &tv,
                    full_bar + 8 * s, c * kBoxCols, kv, t * C::BK, b);
-        }
       }
     }
     return;
@@ -951,7 +969,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   // products on the tensor cores.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   constexpr int NS = C::BK / 2;  // S: BK/8 n-tiles of 4 floats
-  constexpr int NO = D / 2;      // O: D/8 n-tiles of 4 floats
+  constexpr int NO = DV / 2;     // O: DV/8 n-tiles of 4 floats
   const int cw = wg - 1;
   const int warp = tw / 32, lane = tw % 32;
   const int row0 = q0 + kQBoxRows * cw;            // this consumer's rows:
@@ -985,7 +1003,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wait_full(t);
     float sc[NS], corr[2];
     wgmma_fence();
-    qk_issue<D, C::BK>(sc, sQw, stage(t));
+    qk_issue<DH, C::BK>(sc, sQw, stage(t));
     wgmma_commit();
     wgmma_wait<0>();
     pin(sc);
@@ -998,7 +1016,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     pin(o);
     pin(pa);
     wgmma_fence();
-    pv_issue<D, C::BK>(o, pa, stage(t) + C::TILE_BYTES);
+    pv_issue<DV, C::BK>(o, pa, stage(t) + C::K_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     pin(o);
@@ -1029,7 +1047,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
   if (tw == 0 && row0 < sq) {
-    for (int c = 0; c < C::CB; ++c)
+    for (int c = 0; c < C::CBV; ++c)
       tma_store(&to, sQw + c * kWgBQ * kRowBytes, c * kBoxCols, hq, row0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -1063,19 +1081,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <int D>
+template <int DH, int DV>
 int launch_wgmma(const void* const ptrs[4], const long long* dims,
-                 const long long* strides, const int* boxes, int b, int sq,
-                 int sk, int heads, int g, int causal, float scale,
-                 cudaStream_t stream) {
-  using C = WgCfg<D>;
+                 const long long* strides, const int* boxes, int qk_boxes,
+                 int vo_boxes, int b, int sq, int sk, int heads, int g,
+                 int causal, float scale, cudaStream_t stream) {
+  using C = WgCfg<DH, DV>;
   // The maps' geometry comes from the caller; the boxes must be the tiles
-  // this build was compiled for: q, k, v, o in that order.
+  // this build was compiled for, and the column dims its head dims: q, k
+  // (DH), v, o (DV) in that order.
   const int box_rows[4] = {kQBoxRows, C::BK, C::BK, kQBoxRows};
+  const int cols[4] = {DH, DH, DV, DV};
+  if (qk_boxes != C::CBK || vo_boxes != C::CBV)
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 4; ++i)
     if (boxes[4 * i] != kBoxCols || boxes[4 * i + 1] != 1 ||
         boxes[4 * i + 2] != box_rows[i] || boxes[4 * i + 3] != 1 ||
-        dims[4 * i] != D)
+        dims[4 * i] != cols[i])
       return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -1095,7 +1117,7 @@ int launch_wgmma(const void* const ptrs[4], const long long* dims,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return -(int)r;  // the CUresult, negated
   }
-  auto kern = flash_fwd_wgmma_kernel<D>;
+  auto kern = flash_fwd_wgmma_kernel<DH, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -1139,32 +1161,45 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The Hopper bf16 body: q, k, v, o contiguous bf16 in the layouts above,
-// dh = dv = d in {64, 128}, 16-byte-aligned bases.  dims, strides and
-// boxes describe the rank-4 maps of q, k, v and o in that order (4 dims
-// innermost first, the byte strides of dims 1-3, 4 box dims each);
-// col_boxes = d / 64.  Returns the CUDA status, or minus the CUresult if a
-// map cannot be encoded.
+// (dh, dv) in {(64, 64), (128, 128), (96, 64)}, 16-byte-aligned bases.
+// dims, strides and boxes describe the rank-4 maps of q, k, v and o in
+// that order (4 dims innermost first, the byte strides of dims 1-3, 4 box
+// dims each); qk_boxes and vo_boxes are the 64-column boxes across dh and
+// across dv.  Returns the CUDA status, or minus the CUresult if a map
+// cannot be encoded.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* dims,
                                          const long long* strides,
-                                         const int* boxes, int col_boxes,
-                                         int b, int sq, int sk, int heads,
-                                         int g, int d, int causal,
-                                         float scale, void* stream) {
-  if ((d != 64 && d != 128) || col_boxes * kBoxCols != d || sq < 1 ||
-      sk < 1 || b < 1 || heads < 1 || g < 1 || heads % g != 0)
+                                         const int* boxes, int qk_boxes,
+                                         int vo_boxes, int b, int sq, int sk,
+                                         int heads, int g, int dh, int dv,
+                                         int causal, float scale,
+                                         void* stream) {
+  if (sq < 1 || sk < 1 || b < 1 || heads < 1 || g < 1 || heads % g != 0)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   auto s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_wgmma<64>(ptrs, dims, strides, boxes, b, sq, sk,
-                                    heads, g, causal, scale, s)
-                 : launch_wgmma<128>(ptrs, dims, strides, boxes, b, sq, sk,
-                                     heads, g, causal, scale, s);
+  if (dh == 64 && dv == 64)
+    return launch_wgmma<64, 64>(ptrs, dims, strides, boxes, qk_boxes,
+                                vo_boxes, b, sq, sk, heads, g, causal, scale,
+                                s);
+  if (dh == 128 && dv == 128)
+    return launch_wgmma<128, 128>(ptrs, dims, strides, boxes, qk_boxes,
+                                  vo_boxes, b, sq, sk, heads, g, causal,
+                                  scale, s);
+  if (dh == 96 && dv == 64)
+    return launch_wgmma<96, 64>(ptrs, dims, strides, boxes, qk_boxes,
+                                vo_boxes, b, sq, sk, heads, g, causal, scale,
+                                s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of the wgmma body at head dim d (0 if none).
-extern "C" int flash_attention_wgmma_smem_bytes(int d) {
-  return d == 64 ? WgCfg<64>::SMEM_BYTES
-                 : d == 128 ? WgCfg<128>::SMEM_BYTES : 0;
+// Dynamic shared memory of the wgmma body at head dims (dh, dv) (0 if it
+// is not built for them).
+extern "C" int flash_attention_wgmma_smem_bytes(int dh, int dv) {
+  return dh == 64 && dv == 64     ? WgCfg<64, 64>::SMEM_BYTES
+         : dh == 128 && dv == 128 ? WgCfg<128, 128>::SMEM_BYTES
+         : dh == 96 && dv == 64   ? WgCfg<96, 64>::SMEM_BYTES
+                                  : 0;
 }

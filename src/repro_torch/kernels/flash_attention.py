@@ -7,7 +7,7 @@ accumulator in fp32 on chip, so each call reads Q, K and V and writes O
 once.  It has three bodies, and :func:`flash_body` picks one from the
 inputs' dtype, head dims and alignment alone:
 
-* ``"wgmma"``: bf16 with ``dh == dv`` in :data:`WGMMA_HEAD_DIMS` and
+* ``"wgmma"``: bf16 with ``(dh, dv)`` in :data:`WGMMA_HEAD_DIMS` and
   16-byte-aligned bases (the served heads).  TMA brings K/V tiles into a
   ring of shared-memory stages and ``wgmma`` runs both products; its
   rank-4 tensor maps are described by :func:`tma_geometry`.
@@ -48,14 +48,16 @@ _MAX_GRID_Y = 65535
 # Rows of q per step of the plain version: bounds its fp32 score tensor.
 _PLAIN_CHUNK = 512
 
-# The wgmma body: head dims it is built for; q rows per TMA box (one
-# consumer warpgroup's rows; a block takes two) and keys per kv tile at
-# each head dim, both compiled into the kernel; 64 bf16 columns per box,
-# the most a 128-byte swizzle takes, so a head of 128 is two boxes side by
-# side.
-WGMMA_HEAD_DIMS = (64, 128)
+# The wgmma body: the (dh, dv) pairs it is built for (the served heads:
+# qwen1.5's, chatglm3's and llama4's, and minicpm3's multi-head latent
+# attention, rope 32 + nope 64 against v 64); q rows per TMA box (one
+# consumer warpgroup's rows; a block takes two) and keys per kv tile,
+# both compiled into the kernel; 64 bf16 columns per box, the most a
+# 128-byte swizzle takes, so a head of 128 is two boxes side by side and
+# one of 96 two boxes whose second TMA fills past column 96 with zeros.
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
 _WG_Q_BOX_ROWS = 64
-_WG_KV_TILE = {64: 128, 128: 128}
+_WG_KV_TILE = 128
 _BOX_COLS = 64
 _BF16_BYTES = 2
 
@@ -74,9 +76,9 @@ def _declare(lib) -> None:
     i64s, i32s = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i32)
     lib.flash_attention_fwd_wgmma.argtypes = [
         p, p, p, p, i64s, i64s, i32s, i32, i32, i32, i32, i32, i32, i32,
-        i32, ctypes.c_float, p]
+        i32, i32, i32, ctypes.c_float, p]
     lib.flash_attention_fwd_wgmma.restype = i32
-    lib.flash_attention_wgmma_smem_bytes.argtypes = [i32]
+    lib.flash_attention_wgmma_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_wgmma_smem_bytes.restype = i32
 
 
@@ -88,40 +90,43 @@ class TensorMap(NamedTuple):
     box: tuple[int, int, int, int]
 
 
-def tma_geometry(b, sq, sk, kvh, g, d) -> dict:
-    """The wgmma body's maps of q, k, v and o, each the reference layout
-    read as (d, heads, S, B) with no reshaping copy: a box spans one head
-    and rows along S, so a tile never crosses a batch.  Also
-    ``"col_boxes"``, the boxes side by side across a head dim of ``d``."""
-    def tmap(rows, heads, box_rows):
+def tma_geometry(b, sq, sk, kvh, g, dh, dv) -> dict:
+    """The wgmma body's maps of q, k (``dh`` columns), v and o (``dv``
+    columns), each the reference layout read as (d, heads, S, B) with no
+    reshaping copy: a box spans one head and rows along S, so a tile never
+    crosses a batch.  Also ``"qk_col_boxes"`` and ``"vo_col_boxes"``, the
+    boxes side by side across ``dh`` and across ``dv``."""
+    def tmap(d, rows, heads, box_rows):
         row = heads * d * _BF16_BYTES
         return TensorMap((d, heads, rows, b), (d * _BF16_BYTES, row,
                                                 rows * row),
                          (_BOX_COLS, 1, box_rows, 1))
-    return {"q": tmap(sq, kvh * g, _WG_Q_BOX_ROWS),
-            "k": tmap(sk, kvh, _WG_KV_TILE[d]),
-            "v": tmap(sk, kvh, _WG_KV_TILE[d]),
-            "o": tmap(sq, kvh * g, _WG_Q_BOX_ROWS),
-            "col_boxes": -(-d // _BOX_COLS)}
+    return {"q": tmap(dh, sq, kvh * g, _WG_Q_BOX_ROWS),
+            "k": tmap(dh, sk, kvh, _WG_KV_TILE),
+            "v": tmap(dv, sk, kvh, _WG_KV_TILE),
+            "o": tmap(dv, sq, kvh * g, _WG_Q_BOX_ROWS),
+            "qk_col_boxes": -(-dh // _BOX_COLS),
+            "vo_col_boxes": -(-dv // _BOX_COLS)}
 
 
-def wgmma_smem_bytes(d: int) -> int:
-    """Dynamic shared memory one block of the wgmma body takes at head dim
-    ``d`` (q tile, K/V ring, barriers), from the built library."""
+def wgmma_smem_bytes(dh: int, dv: int) -> int:
+    """Dynamic shared memory one block of the wgmma body takes at head
+    dims ``(dh, dv)`` (q tile, K/V ring, barriers), from the built
+    library."""
     return _build.load("flash_attention",
-                       _declare).flash_attention_wgmma_smem_bytes(d)
+                       _declare).flash_attention_wgmma_smem_bytes(dh, dv)
 
 
 def flash_body(q, k, v) -> str:
     """The body that runs these (checked) inputs on the card: ``"fma"``
-    for fp32; ``"wgmma"`` for bf16 with ``dh == dv`` in
+    for fp32; ``"wgmma"`` for bf16 with ``(dh, dv)`` in
     :data:`WGMMA_HEAD_DIMS` and every base 16-byte aligned (so every row
     stride is a multiple of 16 bytes, as TMA needs); ``"mma"`` for any
     other bf16 shape."""
     if q.dtype == torch.float32:
         return "fma"
     dh, dv = q.shape[-1], v.shape[-1]
-    if dh == dv and dh in WGMMA_HEAD_DIMS and \
+    if (dh, dv) in WGMMA_HEAD_DIMS and \
             all(t.data_ptr() % 16 == 0 for t in (q, k, v)):
         return "wgmma"
     return "mma"
@@ -205,15 +210,17 @@ def flash_attention(q, k, v, *, causal=True):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     if body == "wgmma":
-        geo = tma_geometry(b, sq, sk, kvh, g, dh)
+        geo = tma_geometry(b, sq, sk, kvh, g, dh, dv)
         maps = [geo[n] for n in ("q", "k", "v", "o")]
         dims = (ctypes.c_longlong * 16)(*(x for m in maps for x in m.dims))
         strides = (ctypes.c_longlong * 12)(
             *(x for m in maps for x in m.strides))
         boxes = (ctypes.c_int * 16)(*(x for m in maps for x in m.box))
+        # The scale is the true dh's, never the padded width's.
         status = lib.flash_attention_fwd_wgmma(
-            *ptrs, dims, strides, boxes, geo["col_boxes"], b, sq, sk,
-            kvh * g, g, dh, int(causal), dh ** -0.5, stream)
+            *ptrs, dims, strides, boxes, geo["qk_col_boxes"],
+            geo["vo_col_boxes"], b, sq, sk, kvh * g, g, dh, dv, int(causal),
+            dh ** -0.5, stream)
     else:
         status = lib.flash_attention_fwd(
             *ptrs, b, sq, sk, kvh, g, dh, dv, int(causal),

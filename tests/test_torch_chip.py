@@ -47,9 +47,10 @@ from repro_torch.serve.engine import ServeEngine
 from torch_port_util import random_coo
 
 sys.path.append(os.path.join(os.path.dirname(__file__), ".."))
-# Phase 9's control, and phase 10's bound, controls and patching helper.
+# Phase 9's control, phase 10's bound, controls and patching helper, and
+# phase 5's misaligned copy.
 from chip_smoke import (MLA_LAYER_REL, dropped_carry,  # noqa: E402
-                        nope_first, patched, without_kv_norm)
+                        nope_first, offset_copy, patched, without_kv_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -556,50 +557,78 @@ def test_flash_kernel_matches_plain(card, shape, dtype):
     b, sq, sk, kv, g, dh, dv, causal = FLASH_SHAPES[shape]
     q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv, sq + dh)
     got, body = run_flash(q, k, v, causal)
-    # bf16 runs the wgmma body only at dh = dv in {64, 128}; odd dims and
-    # the other head dims take the mma body.
+    # bf16 runs the wgmma body only at (dh, dv) in {(64, 64), (128, 128),
+    # (96, 64)}; odd dims and the other head dims take the mma body.
     assert body == ("fma" if dtype == torch.float32 else
-                    "wgmma" if shape == "dh128-gqa" else "mma")
+                    "wgmma" if shape in ("dh128-gqa", "dh96-dv64",
+                                         "mla-heads") else "mma")
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-# The wgmma body's shapes: b, sq, sk, kv, g, d, causal.  Ragged S with
-# B >= 2 (a tile that crossed a batch would read the next one's rows),
-# chatglm3's GQA (G = 16), non-causal, Sq < Sk, and Sq > Sk (causal rows
-# past Sk see every key: q and k both count from 0).
+# The wgmma body's shapes: b, sq, sk, kv, g, dh, dv, causal.  Ragged S
+# with B >= 2 (a tile that crossed a batch would read the next one's
+# rows), chatglm3's GQA (G = 16), non-causal, Sq < Sk, and Sq > Sk (causal
+# rows past Sk see every key: q and k both count from 0); each at
+# (dh, dv) = (96, 64) too, where the second q/k column box runs past the
+# tensor's 96 columns, and minicpm3's MLA heads (G = 1, 40 heads).
 WGMMA_SHAPES = {
-    "d64-s130": (2, 130, 130, 2, 1, 64, True),
-    "d128-s130": (2, 130, 130, 2, 2, 128, True),
-    "d64-s2000": (2, 2000, 2000, 4, 1, 64, True),
-    "d128-s2000": (2, 2000, 2000, 2, 1, 128, True),
-    "chatglm3-g16": (1, 600, 600, 2, 16, 128, True),
-    "d64-non-causal": (2, 300, 300, 2, 2, 64, False),
-    "d128-non-causal": (2, 300, 300, 2, 1, 128, False),
-    "d64-sq-lt-sk": (2, 200, 333, 2, 2, 64, True),
-    "d128-sq-lt-sk": (2, 77, 260, 1, 3, 128, True),
-    "d64-sq-gt-sk": (2, 333, 200, 2, 2, 64, True),
-    "d128-sq-gt-sk": (1, 260, 77, 1, 3, 128, True),
-    "d64-one-row": (3, 1, 1, 2, 1, 64, True),
-    "llama4-g5": (1, 256, 256, 8, 5, 128, True),
+    "d64-s130": (2, 130, 130, 2, 1, 64, 64, True),
+    "d128-s130": (2, 130, 130, 2, 2, 128, 128, True),
+    "d64-s2000": (2, 2000, 2000, 4, 1, 64, 64, True),
+    "d128-s2000": (2, 2000, 2000, 2, 1, 128, 128, True),
+    "chatglm3-g16": (1, 600, 600, 2, 16, 128, 128, True),
+    "d64-non-causal": (2, 300, 300, 2, 2, 64, 64, False),
+    "d128-non-causal": (2, 300, 300, 2, 1, 128, 128, False),
+    "d64-sq-lt-sk": (2, 200, 333, 2, 2, 64, 64, True),
+    "d128-sq-lt-sk": (2, 77, 260, 1, 3, 128, 128, True),
+    "d64-sq-gt-sk": (2, 333, 200, 2, 2, 64, 64, True),
+    "d128-sq-gt-sk": (1, 260, 77, 1, 3, 128, 128, True),
+    "d64-one-row": (3, 1, 1, 2, 1, 64, 64, True),
+    "llama4-g5": (1, 256, 256, 8, 5, 128, 128, True),
+    "mla-s130": (2, 130, 130, 3, 1, 96, 64, True),
+    "mla-gqa-s130": (2, 130, 130, 2, 2, 96, 64, True),
+    "mla-non-causal": (2, 300, 300, 2, 1, 96, 64, False),
+    "mla-sq-lt-sk": (2, 200, 333, 2, 1, 96, 64, True),
+    "mla-sq-gt-sk": (2, 333, 200, 2, 1, 96, 64, True),
+    "mla-one-row": (3, 1, 1, 2, 1, 96, 64, True),
+    "mla-heads": (4, 2000, 2000, 40, 1, 96, 64, True),
 }
 
 
-@pytest.mark.parametrize("shape", sorted(WGMMA_SHAPES))
-def test_flash_wgmma_body_matches_plain(card, shape):
-    b, sq, sk, kv, g, d, causal = WGMMA_SHAPES[shape]
-    q, k, v = flash_inputs(card, torch.bfloat16, b, sq, sk, kv, g, d, d,
-                           sq + sk + d)
-    got, body = run_flash(q, k, v, causal)
-    assert body == "wgmma"
-    want = fa.flash_attention_plain(q, k, v, causal=causal)
+def check_bf16_flash(got, want):
+    """A bf16 body against plain: elementwise within 2e-2 and
+    ||Δ|| <= FLASH_BF16_REL·||plain||."""
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     err = (got.float() - want.float()).norm() / want.float().norm()
     assert float(err) <= FLASH_BF16_REL
+
+
+@pytest.mark.parametrize("shape", sorted(WGMMA_SHAPES))
+def test_flash_wgmma_body_matches_plain(card, shape):
+    b, sq, sk, kv, g, dh, dv, causal = WGMMA_SHAPES[shape]
+    q, k, v = flash_inputs(card, torch.bfloat16, b, sq, sk, kv, g, dh, dv,
+                           sq + sk + dh)
+    got, body = run_flash(q, k, v, causal)
+    assert body == "wgmma"
+    check_bf16_flash(got, fa.flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("shape", ["mla-s130", "mla-non-causal",
+                                   "mla-heads"])
+def test_flash_mma_body_at_the_mla_pair(card, shape):
+    """The mma body still takes (96, 64) where the wgmma body cannot:
+    the same tensors one element into their storage."""
+    b, sq, sk, kv, g, dh, dv, causal = WGMMA_SHAPES[shape]
+    q, k, v = flash_inputs(card, torch.bfloat16, b, sq, sk, kv, g, dh, dv,
+                           sq + sk + dh)
+    got, body = run_flash(*map(offset_copy, (q, k, v)), causal)
+    assert body == "mma"
+    check_bf16_flash(got, fa.flash_attention_plain(q, k, v, causal=causal))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -31,7 +31,12 @@ def qkv(b, sq, sk, kv, g, dh, dv, dtype=torch.bfloat16, offset=0):
     (torch.bfloat16, 64, 64, 1, "mma"),        # misaligned view
     (torch.bfloat16, 128, 128, 4, "mma"),      # 8-byte aligned only
     (torch.bfloat16, 128, 128, 8, "wgmma"),    # 16-byte aligned view
-    (torch.bfloat16, 96, 64, 0, "mma"),        # dv != dh
+    (torch.bfloat16, 96, 64, 0, "wgmma"),      # minicpm3's MLA heads
+    (torch.bfloat16, 96, 64, 1, "mma"),        # misaligned MLA view
+    (torch.bfloat16, 96, 64, 4, "mma"),        # 8-byte aligned only
+    (torch.bfloat16, 96, 64, 8, "wgmma"),      # 16-byte aligned view
+    (torch.bfloat16, 64, 96, 0, "mma"),        # the pair reversed
+    (torch.bfloat16, 128, 64, 0, "mma"),       # a pair it is not built for
     (torch.bfloat16, 64, 128, 0, "mma"),
     (torch.bfloat16, 96, 96, 0, "mma"),        # a head dim it is not built for
     (torch.bfloat16, 32, 32, 0, "mma"),
@@ -52,28 +57,65 @@ def test_one_misaligned_tensor_is_enough_for_the_mma_body():
     assert fa.flash_body(q, k_off, v) == "mma"
 
 
-SERVED = {                      # arch -> (kv heads, group, head dim)
-    arch: (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
-           cfg.head_dim)
-    for arch, cfg in ((a, get_config(a)) for a in
-                      ("qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b"))}
+def served_heads(cfg):
+    """(kv heads, group, dh, dv) of the flash kernel's served prefill: MLA
+    runs one KV head per query head, dh = rope + nope, dv = v_head_dim."""
+    if cfg.mla is not None:
+        c = cfg.mla
+        return (cfg.num_heads, 1, c.rope_head_dim + c.nope_head_dim,
+                c.v_head_dim)
+    return (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+            cfg.head_dim, cfg.head_dim)
+
+
+SERVED = {arch: served_heads(get_config(arch)) for arch in (
+    "qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b", "llama4-scout-17b-a16e",
+    "minicpm3-4b")}
+
+
+def test_minicpm3_heads_are_the_mla_pair():
+    assert SERVED["minicpm3-4b"] == (40, 1, 96, 64)
+    assert SERVED["llama4-scout-17b-a16e"] == (8, 5, 128, 128)
+    geo = fa.tma_geometry(4, 2000, 2000, 40, 1, 96, 64)
+    # Q·K's maps: 96 columns in two boxes; P·V's: 64 columns in one.
+    assert geo["q"].dims[0] == geo["k"].dims[0] == 96
+    assert geo["qk_col_boxes"] == 2
+    assert geo["v"].dims[0] == geo["o"].dims[0] == 64
+    assert geo["vo_col_boxes"] == 1
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_one_misaligned_mla_tensor_is_enough_for_the_mma_body(which):
+    aligned = dict(zip("qkv", qkv(1, 8, 8, 4, 1, 96, 64)))
+    shifted = dict(zip("qkv", qkv(1, 8, 8, 4, 1, 96, 64, offset=1)))
+    assert fa.flash_body(*aligned.values()) == "wgmma"
+    mixed = dict(aligned, **{which: shifted[which]})
+    assert fa.flash_body(*mixed.values()) == "mma"
 
 
 @pytest.mark.parametrize("arch", sorted(SERVED))
 @pytest.mark.parametrize("b,sq,sk", [(4, 2000, 2000), (1, 32768, 32768),
                                      (2, 77, 260)])
 def test_tma_geometry_describes_the_reference_layout(arch, b, sq, sk):
-    kvh, g, d = SERVED[arch]
-    assert d in fa.WGMMA_HEAD_DIMS
-    geo = fa.tma_geometry(b, sq, sk, kvh, g, d)
-    assert geo["col_boxes"] == d // 64 and geo["col_boxes"] * 64 == d
+    kvh, g, dh, dv = SERVED[arch]
+    assert (dh, dv) in fa.WGMMA_HEAD_DIMS
+    geo = fa.tma_geometry(b, sq, sk, kvh, g, dh, dv)
+    # Whole 64-column boxes: dh = 96 takes two (TMA fills columns 96-127
+    # with zeros), dv = 64 one.
+    assert geo["qk_col_boxes"] == -(-dh // 64)
+    assert geo["vo_col_boxes"] * 64 == dv
     meta = dict(dtype=torch.bfloat16, device="meta")
-    q = o = torch.empty((b, sq, kvh, g, d), **meta)
-    k = v = torch.empty((b, sk, kvh, d), **meta)
-    for name, t, heads, rows in (("q", q, kvh * g, sq), ("k", k, kvh, sk),
-                                 ("v", v, kvh, sk), ("o", o, kvh * g, sq)):
+    q = torch.empty((b, sq, kvh, g, dh), **meta)
+    o = torch.empty((b, sq, kvh, g, dv), **meta)
+    k = torch.empty((b, sk, kvh, dh), **meta)
+    v = torch.empty((b, sk, kvh, dv), **meta)
+    for name, t, heads, rows, d in (("q", q, kvh * g, sq, dh),
+                                    ("k", k, kvh, sk, dh),
+                                    ("v", v, kvh, sk, dv),
+                                    ("o", o, kvh * g, sq, dv)):
         m = geo[name]
-        # Innermost first: (d, heads, S, B), with no reshaping copy.
+        # Innermost first: (d, heads, S, B), with no reshaping copy; the
+        # column dim is the tensor's own head dim, never a padded one.
         assert m.dims == (d, heads, rows, b)
         # Byte strides of dims 1-3 are the tensor's own: (G, KV) fold into
         # one heads axis because they are adjacent and contiguous.
@@ -85,20 +127,26 @@ def test_tma_geometry_describes_the_reference_layout(arch, b, sq, sk):
         # and rows along S, one batch.
         assert m.box[0] * es <= 128 and (m.box[0] * es) % 16 == 0
         assert m.box[1] == 1 and m.box[3] == 1 and 0 < m.box[2] <= 256
-    # q and o share their geometry; k and v theirs.
-    assert geo["q"] == geo["o"] and geo["k"] == geo["v"]
+    # q and o share their boxes and, at dh = dv, their geometry; k and v
+    # likewise.
+    assert geo["q"].box == geo["o"].box and geo["k"].box == geo["v"].box
+    assert (geo["q"] == geo["o"] and geo["k"] == geo["v"]) == (dh == dv)
 
 
-@pytest.mark.parametrize("d", fa.WGMMA_HEAD_DIMS)
-def test_tma_geometry_addresses_every_element(d):
+@pytest.mark.parametrize("dh,dv", fa.WGMMA_HEAD_DIMS)
+def test_tma_geometry_addresses_every_element(dh, dv):
     """Element (b, s, h, c) of each map sits at the byte offset the
     reference layout gives it, for random coordinates across boxes."""
     b, sq, sk, kvh, g = 3, 130, 70, 2, 3
-    geo = fa.tma_geometry(b, sq, sk, kvh, g, d)
-    rng = np.random.default_rng(d)
-    for name, rows, heads in (("q", sq, kvh * g), ("k", sk, kvh),
-                              ("v", sk, kvh), ("o", sq, kvh * g)):
+    geo = fa.tma_geometry(b, sq, sk, kvh, g, dh, dv)
+    rng = np.random.default_rng(dh + dv)
+    for name, rows, heads, d, boxes in (
+            ("q", sq, kvh * g, dh, "qk_col_boxes"),
+            ("k", sk, kvh, dh, "qk_col_boxes"),
+            ("v", sk, kvh, dv, "vo_col_boxes"),
+            ("o", sq, kvh * g, dv, "vo_col_boxes")):
         m = geo[name]
+        assert m.dims[0] == d and all(s % 16 == 0 for s in m.strides)
         ref = torch.arange(b * rows * heads * d).view(b, rows, heads, d)
         for _ in range(50):
             bi, si, hi, ci = (int(rng.integers(n)) for n in
@@ -108,13 +156,15 @@ def test_tma_geometry_addresses_every_element(d):
             assert off % 2 == 0
             assert int(ref[bi, si, hi, ci]) == off // 2
         # Box coordinates: column box j starts 64 columns in, so a head
-        # of 128 reads columns [0, 64) and [64, 128) as two boxes.
-        assert [j * m.box[0] for j in range(geo["col_boxes"])] == \
+        # of 128 reads columns [0, 64) and [64, 128) as two boxes, and one
+        # of 96 reads [0, 64) and [64, 96) with the rest of its second box
+        # zero.
+        assert [j * m.box[0] for j in range(geo[boxes])] == \
             list(range(0, d, 64))
 
 
 def test_wgmma_head_dims_are_the_served_heads():
-    assert sorted({d for _, _, d in SERVED.values()}) == \
+    assert sorted({(dh, dv) for _, _, dh, dv in SERVED.values()}) == \
         sorted(fa.WGMMA_HEAD_DIMS)
 
 
