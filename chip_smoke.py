@@ -225,15 +225,46 @@ package.  Phases:
    band, and the same decode with the cache's ``krope`` zeroed must
    fail; the bf16 weights' |Δ| and control are printed as readings.
 
+11. whisper-base encoder-decoder serving (the seventeenth slice's path),
+   after phase 10's model is released (the free card memory is printed).
+   The flash kernel at the served prefill's two non-causal shapes in
+   bf16, the encoder's (16, 1500, 1500, 8, 1, 64, 64) and the
+   cross-attention's (16, 192, 1500, ...): the wgmma body and the mma
+   body (offset copy) against the plain version under phase 5(a)'s
+   tolerances, beside a control with one 64-key tile dropped for the
+   last 64 queries that must fail, then timed in turns with
+   ``scaled_dot_product_attention``, beside the plain version and the
+   bound (the encoder's flops at 989 TFLOP/s, 0.0745 ms; the cross
+   shape's bytes at 3.35 TB/s, 0.0166 ms).  ``ServeEngine`` serves 16
+   clips of 1500 stub frames, each with a 192-token prompt, plus 64
+   greedy tokens on whisper-base at its published width and depth,
+   nothing cut (6 encoder and 6 decoder layers, d 512, 8 heads of 64,
+   d_ff 2048 gelu, vocab 51,865 padded to 51,968, untied), bf16, random
+   weights from a seeded generator made on the card; the kernels'
+   counters are set to 0 before ``generate`` and must read 18 wgmma
+   launches (each encoder layer, each decoder layer's self and cross)
+   and no other body.  The encoder's ms (CUDA events), prefill ms,
+   decode ms a step, the cross cache's bytes beside the self K/V's, peak
+   memory and a ``torch.profiler`` breakdown are printed.  (b) Encoder
+   layer 0's self-attention and decoder layer 0's cross-attention on 2
+   clips of their served inputs, the card in bf16 against the CPU in
+   fp32 from the same weights: ``||Δ|| <= WHISPER_LAYER_REL·||cpu||``,
+   which each run causal must fail.  (c) In fp32 (a copy of the served
+   weights), the decode of token 193 after a 192-token prefill against
+   the last position of a 193-token prefill over the same frames: logits
+   within ``WHISPER_HANDOFF_TOL``, first tokens equal outside the 2d
+   band, and the same decode with the cache's ``xk`` zeroed must fail.
+
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-the four timed shapes (``bodies``: phase 5's served prefill and
-prefill_32k, llama4's served prefill, and minicpm3's, with its plain
-time), whose spmm entry lists each vector
-width's main-path launches (``bodies``) and, at each served width, its
+the six timed shapes (``bodies``: phase 5's served prefill and
+prefill_32k, llama4's served prefill, minicpm3's, and whisper's encoder
+and cross shapes, these three with their plain time), whose spmm entry
+lists each vector width's main-path launches (``bodies``) and, at each
+served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
 spmv_fused entries give the stream pass's plan at G7 (``plan``: lanes a
 block, row windows, tile splits).
@@ -1074,11 +1105,14 @@ LM_FP32_DECODE_TOL = 1e-4
 LM_FP32_ATTN_REL = 1e-5
 
 
-def attention_inputs(b, s, kvh, g, dh, dv, dtype, dev, seed):
+def attention_inputs(b, s, kvh, g, dh, dv, dtype, dev, seed, sk=None):
+    """Seeded q (B, S, KV, G, dh), k and v (B, Sk, KV, dh | dv); Sk = S
+    unless given."""
+    sk = sk or s
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, s, kvh, g, dh), generator=gen, device=dev)
-    k = torch.randn((b, s, kvh, dh), generator=gen, device=dev)
-    v = torch.randn((b, s, kvh, dv), generator=gen, device=dev)
+    k = torch.randn((b, sk, kvh, dh), generator=gen, device=dev)
+    v = torch.randn((b, sk, kvh, dv), generator=gen, device=dev)
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -1105,19 +1139,19 @@ def rel_err(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def dropped_tile_control(q, k, v, want, rows=64, tile=64):
-    """``want`` (the causal plain output) with one middle ``tile``-key
-    tile left out of the last ``rows`` queries: what a kernel that skips a
-    kv tile would give."""
+def dropped_tile_control(q, k, v, want, rows=64, tile=64, causal=True):
+    """``want`` (the plain output; causal ones have Sq = Sk) with one
+    middle ``tile``-key tile left out of the last ``rows`` queries: what a
+    kernel that skips a kv tile would give."""
     s = q.shape[1]
-    t0 = s // 2 // tile * tile
+    t0 = k.shape[1] // 2 // tile * tile
     kd = torch.cat([k[:, :t0], k[:, t0 + tile:]], 1)
     vd = torch.cat([v[:, :t0], v[:, t0 + tile:]], 1)
     ctl = want.clone()
     # Keys past the tile move down by ``tile``; the queries' offset moves
     # with them, so the causal mask keeps its pairs.
     ctl[:, -rows:] = attn.chunked_attention(
-        q[:, -rows:], kd, vd, causal=True, q_offset=s - rows - tile,
+        q[:, -rows:], kd, vd, causal=causal, q_offset=s - rows - tile,
         chunk=rows)
     return ctl
 
@@ -1156,29 +1190,35 @@ def last_mixer_output(attention=None):
         yield outs
 
 
-def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2):
+def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2, sk=None):
     """Least time of one call: q, k, v read once and o written once over
     the memory rate, or the flops of the unmasked (q, k) pairs (2·dh for
-    the score, 2·dv for P·V) over the bf16 tensor-core rate."""
-    pairs = b * kvh * g * (s * (s + 1) // 2 if causal else s * s)
-    nbytes = dtype_bytes * (b * s * kvh * (g * dh + dh + dv + g * dv))
+    the score, 2·dv for P·V) over the bf16 tensor-core rate.  Sk = S
+    unless given (non-causal only)."""
+    sk = sk or s
+    if causal and sk != s:
+        raise ValueError("a causal bound is counted at Sq = Sk")
+    pairs = b * kvh * g * (s * (s + 1) // 2 if causal else s * sk)
+    nbytes = dtype_bytes * b * kvh * (s * g * (dh + dv) + sk * (dh + dv))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (dh + dv) * pairs / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None) -> dict:
+def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
+               sk=None) -> dict:
     """CUDA-event ms of the flash bodies that take these head dims (the
     body ``flash_body`` names for the tensors, and when that is the wgmma
     body also the mma body on an offset copy of the same tensors),
     ``scaled_dot_product_attention`` (a yardstick the port never calls, on
-    the same bf16 tensors viewed as (B, H, S, dh)) and the plain version.
-    All but the plain run in turns, in one order and then the reverse;
-    each reports the mean of its two readings."""
+    the same bf16 tensors viewed as (B, H, S, dh)) and the plain version,
+    with Sk = S unless given.  All but the plain run in turns, in one
+    order and then the reverse; each reports the mean of its two
+    readings."""
     dv = dv or dh
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
-                               SEED + 5)
+                               SEED + 5, sk=sk)
     inputs = {fa.flash_body(q, k, v): (q, k, v)}
     if "wgmma" in inputs:
         inputs["mma"] = tuple(map(offset_copy, (q, k, v)))
@@ -1209,7 +1249,7 @@ def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
     from torch.profiler import ProfilerActivity, profile
 
     n = min(64, batch["inputs"].shape[1])
-    _, cache = eng.prefill({"inputs": batch["inputs"][:, :n]})
+    _, cache = eng.prefill(dict(batch, inputs=batch["inputs"][:, :n]))
     torch.cuda.synchronize()
     for name, prefill in (("prefill", True), ("decode", False)):
         with warnings.catch_warnings(), profile(
@@ -1293,13 +1333,14 @@ def wgmma_build_report() -> str:
     return "; ".join(out)
 
 
-def check_flash_case(case, dev, tag):
-    """One ``FLASH_CASES`` entry: the kernel against its plain version on
-    card tensors (in bf16, every case a served head, the wgmma body on the
-    tensors and the mma body on an offset copy).  Returns the largest
-    error and (q, k, v, plain)."""
+def check_flash_case(case, dev, tag, sk=None):
+    """One ``FLASH_CASES`` entry, with Sk = S unless given: the kernel
+    against its plain version on card tensors (in bf16, every case a
+    served head, the wgmma body on the tensors and the mma body on an
+    offset copy).  Returns the largest error and (q, k, v, plain)."""
     name, b, s, kvh, g, dh, dv, causal, dt = case
-    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s)
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s,
+                               sk=sk)
     runs = [(q, k, v)]
     if dt == torch.bfloat16:
         if fa.flash_body(q, k, v) != "wgmma":
@@ -1321,7 +1362,8 @@ def check_flash_case(case, dev, tag):
                 raise AssertionError(f"flash {name} bf16 {body} vs plain: "
                                      f"||Δ||/||plain|| {r}")
         say(f"[{tag}] flash {body} body vs plain, {name} (B={b}, S={s}, "
-            f"KV={kvh}, G={g}, dh={dh}, dv={dv}, causal={causal}, {dt}): "
+            f"Sk={k.shape[1]}, KV={kvh}, G={g}, dh={dh}, dv={dv}, "
+            f"causal={causal}, {dt}): "
             f"max err {e:.3e} (tol {FLASH_TOL[dt]}){rel}")
         del got
     return err, (q, k, v, want)
@@ -2998,6 +3040,284 @@ def phase_mla(dev, card, t_run):
     return launches, bodies
 
 
+# -- phase 11: whisper-base encoder-decoder serving -------------------------
+WHISPER_ARCH = "whisper-base"
+# 16 clips of 30 s (1500 frames each), each with a 192-token decoder
+# prompt (the previous window's text, which long-form transcription
+# conditions on), then 64 greedy steps: max_len 264, inside Whisper's
+# 448-token text context.
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = 16, 192, 64
+WHISPER_MAX_LEN = WHISPER_PROMPT + WHISPER_DECODE + 8
+# The flash kernel at the served prefill's two non-causal shapes, bf16
+# (FLASH_CASES' layout; Sk in WHISPER_FLASH_SK): the encoder's
+# self-attention over the frames, and each decoder layer's
+# cross-attention of the prompt over them.
+WHISPER_FLASH = {
+    "whisper_encoder": ("whisper encoder", WHISPER_BATCH, 1500, 8, 1, 64,
+                        64, False, torch.bfloat16),
+    "whisper_cross": ("whisper cross", WHISPER_BATCH, WHISPER_PROMPT, 8, 1,
+                      64, 64, False, torch.bfloat16)}
+WHISPER_FLASH_SK = 1500
+# Phase 11(b): encoder layer 0's and decoder layer 0's cross-attention on
+# WHISPER_CHECK_CLIPS of their served inputs, the card in bf16 against the
+# CPU in fp32 from the same bf16 weights: ||Δ|| <= WHISPER_LAYER_REL·
+# ||cpu||, the bound phase 10(b) holds MLA to.  The encoder run causal and
+# the cross-attention run causal (controls) must fail it.
+WHISPER_CHECK_CLIPS = 2
+WHISPER_LAYER_REL = 2e-2
+# Phase 11(c): decode of token P + 1 after a P-token prefill, in fp32 (a
+# copy of the served bf16 weights), against the last position of the
+# (P + 1)-token prefill over the same frames: logits within
+# WHISPER_HANDOFF_TOL, phase 10(c)'s bound.  The decode with the cache's
+# xk zeroed (the control) must fail it.
+WHISPER_HANDOFF_TOL = 2e-4
+
+
+def causal_cross():
+    """``models.attention.chunked_attention`` run causal whatever the
+    caller asks: patched in, the CPU's cross-attention turns causal."""
+    run = attn.chunked_attention
+
+    def causal(*args, **kwargs):
+        return run(*args, **dict(kwargs, causal=True))
+    return causal
+
+
+def whisper_flash(dev, card):
+    """Phase 11's kernel checks and timings at the served shapes; returns
+    (max error, per-body record)."""
+    t = time.perf_counter()
+    err = 0.0
+    bodies = {"wgmma": {}, "mma": {}}
+    sk = WHISPER_FLASH_SK
+    for key, case in WHISPER_FLASH.items():
+        name, b, s, kvh, g, dh, dv, causal, _ = case
+        e, (q, k, v, want) = check_flash_case(case, dev, "phase11", sk=sk)
+        err = max(err, e)
+        ctl = dropped_tile_control(q, k, v, want, causal=False)
+        r = rel_err(ctl, want)
+        say(f"[phase11] control, {name} (one 64-key tile dropped for the "
+            f"last 64 queries) vs plain: ||Δ||/||plain|| {r:.3e}; the bound "
+            f"both bodies met above fails at {FLASH_BF16_REL}")
+        if not r > FLASH_BF16_REL:
+            raise AssertionError(f"the dropped-tile control passes the "
+                                 f"{name} check ({r})")
+        del q, k, v, want, ctl
+        tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3), sk=sk)
+        bd, by = flash_bound(b, s, kvh, g, dh, dv, causal, sk=sk)
+        reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                          for n, r in tm["reads"].items())
+        wg, mma, lib = tm["wgmma"], tm["mma"], tm["library"]
+        say(f"[phase11] flash {name} (B={b}, Sq={s}, Sk={sk}, H={kvh}, "
+            f"dh={dh}, bf16, non-causal): wgmma body {wg:.4f} ms "
+            f"({bd / wg:.3f} of the bound), mma body {mma:.4f} ms "
+            f"({bd / mma:.3f}), scaled_dot_product_attention {lib:.4f} ms "
+            f"(the wgmma body at {lib / wg:.2f}x its speed), plain "
+            f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}); readings in "
+            f"turns: {reads}  [{card}]")
+        for body in bodies:
+            bodies[body][key] = {"ms": tm[body], "bound_ms": bd,
+                                 "plain_ms": tm["plain"], "library_ms": lib}
+    say(f"[phase11] flash checks and timings in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    return err, bodies
+
+
+def phase_whisper(dev, card):
+    """Phase 11; returns (launches, max error, per-body flash record at
+    whisper's two shapes)."""
+    err, bodies = whisper_flash(dev, card)
+
+    # (serve) whisper-base at its published width and depth.
+    t = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    resident = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    say(f"[phase11] {WHISPER_ARCH}: {cfg.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim} (KV {cfg.num_kv_heads}), "
+        f"d_ff {cfg.d_ff} ({cfg.ffn_activation}), vocab {cfg.vocab_padded} "
+        f"(untied), layout {cfg.layout}; {n_params} parameters, "
+        f"{resident / 1e9:.3f} GB made on the card in "
+        f"{time.perf_counter() - t:.1f} s; nothing cut  [{card}]")
+    eng = ServeEngine(lm, params, max_len=WHISPER_MAX_LEN)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT + 1))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)).to(dev)
+    batch = {"inputs": prompts[:, :WHISPER_PROMPT], "frames": frames}
+    eng.generate(dict(batch, inputs=prompts[:, :16]), 2)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, WHISPER_DECODE)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
+    want_bodies = {name: per_prefill if name == "wgmma" else 0
+                   for name in by_body}
+    if launches["flash_attention"] != per_prefill or by_body != want_bodies:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve ({by_body}), not the wgmma body "
+                             f"{per_prefill} times (each encoder layer, "
+                             f"each decoder layer's self and cross) and no "
+                             f"other")
+    if tuple(out.shape) != (WHISPER_BATCH, WHISPER_DECODE) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+    for name in bodies:
+        bodies[name]["launches"] = by_body[name]
+
+    enc_ms = time_ms(lambda: lm._encode(params, frames), 5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    shapes = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
+    nbytes = {name: x.numel() * x.element_size()
+              for name, x in cache["sub0"].items()}
+    self_kv, cross_kv = nbytes["k"] + nbytes["v"], nbytes["xk"] + nbytes["xv"]
+    tok = out[:, :1]
+    steps = WHISPER_DECODE - 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        _, cache = eng.decode_step(cache, tok, WHISPER_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / steps
+    del logits, cache
+    say(f"[phase11] serve {WHISPER_BATCH} clips x {cfg.encoder_seq} frames, "
+        f"{WHISPER_PROMPT}-token prompts + {WHISPER_DECODE} greedy tokens: "
+        f"generate {gen_s:.3f} s, launches {launches}, flash by body "
+        f"{by_body}; encoder {enc_ms:.3f} ms (CUDA events), prefill "
+        f"{prefill_ms:.2f} ms (encoder included; "
+        f"{WHISPER_BATCH * WHISPER_PROMPT / prefill_ms:.1f} prompt tokens/"
+        f"ms), decode {decode_ms:.3f} ms per step "
+        f"({WHISPER_BATCH * 1e3 / decode_ms:.1f} tokens/s); cache {shapes}: "
+        f"cross xk/xv {cross_kv / 1e9:.4f} GB beside self k/v "
+        f"{self_kv / 1e9:.4f} GB at max_len {WHISPER_MAX_LEN}; peak memory "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated), "
+        f"{(peak - base) / 1e9:.3f} GB over the {base / 1e9:.3f} GB held "
+        f"before the serve  [{card}]")
+    say(f"[phase11] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms},
+                  tag="phase11")
+
+    # (b) encoder layer 0's and decoder layer 0's cross-attention on
+    # WHISPER_CHECK_CLIPS of their served inputs: card bf16 against CPU
+    # fp32 from the same weights, each beside its causal control.
+    t = time.perf_counter()
+    enc_in, cross_in = [], []
+    with patched(attn, "attn_forward",
+                 first_input(attn.attn_forward, enc_in)), \
+            patched(attn, "cross_attn_forward",
+                    first_input(attn.cross_attn_forward, cross_in)):
+        eng.prefill(batch)
+    n = WHISPER_CHECK_CLIPS
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    enc_out = lm._encode(params, frames[:n])
+    mixers = {"encoder layer 0": params["encoder"][0]["mixer"],
+              "decoder layer 0 cross": params["blocks"][0]["sub0"]["mixer"]}
+    cpu = {k: {name: w.cpu().float() for name, w in m.items()}
+           for k, m in mixers.items()}
+    xe, xc = enc_in[0][:n], cross_in[0][:n]
+    xe_cpu, xc_cpu, eo_cpu = (x.cpu().float() for x in (xe, xc, enc_out))
+    runs = {"encoder layer 0": (
+        attn.attn_forward(mixers["encoder layer 0"], xe, cfg, causal=False),
+        attn.attn_forward(cpu["encoder layer 0"], xe_cpu, cfg32,
+                          causal=False),
+        attn.attn_forward(cpu["encoder layer 0"], xe_cpu, cfg32,
+                          causal=True))}
+    want = attn.cross_attn_forward(cpu["decoder layer 0 cross"], xc_cpu,
+                                   eo_cpu, cfg32)
+    with patched(attn, "chunked_attention", causal_cross()):
+        ctl = attn.cross_attn_forward(cpu["decoder layer 0 cross"], xc_cpu,
+                                      eo_cpu, cfg32)
+    runs["decoder layer 0 cross"] = (attn.cross_attn_forward(
+        mixers["decoder layer 0 cross"], xc, enc_out, cfg), want, ctl)
+    for name, (got, want, ctl) in runs.items():
+        r, rc = rel_err(got.cpu(), want), rel_err(got.cpu(), ctl)
+        say(f"[phase11] {name} on {n} clips (Sq {got.shape[1]}), card bf16 "
+            f"vs CPU fp32: ||Δ||/||cpu|| {r:.3e} (tol {WHISPER_LAYER_REL}); "
+            f"control (run causal) {rc:.3e}  [{card}]")
+        if not r <= WHISPER_LAYER_REL:
+            raise AssertionError(f"the card's {name} differs from the "
+                                 f"CPU's: {r}")
+        if not rc > WHISPER_LAYER_REL:
+            raise AssertionError(f"the causal control of {name} passes the "
+                                 f"layer check ({rc})")
+    say(f"[phase11] (b) in {time.perf_counter() - t:.1f} s")
+    del enc_in, cross_in, cpu, runs, want, ctl, enc_out
+
+    # (c) the cross cache's handoff: decode token P + 1 after a prefill
+    # of P, against the last position of a prefill of P + 1.
+    t = time.perf_counter()
+    p = WHISPER_PROMPT
+    nxt = prompts[:, p:p + 1]
+
+    def handoff(model, weights, control=False):
+        ref, _ = model.prefill(weights, dict(batch, inputs=prompts[:, :p + 1]),
+                               p + 2)
+        _, lc = model.prefill(weights, batch, p + 2)
+        if control:
+            lc["sub0"]["xk"].zero_()
+        dec, _ = model.decode_step(weights, lc, nxt, p)
+        real = slice(0, cfg.vocab_size)
+        return dec[:, real], ref[:, real]
+
+    lm32 = LM(cfg32)
+    params32 = tree_map(lambda x: x.float(), params)
+    dec, ref = handoff(lm32, params32)
+    d32 = float((dec - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    held = [i for i, gp in enumerate(gaps) if gp > 2 * d32]
+    d_tok, r_tok = dec.argmax(-1).tolist(), ref.argmax(-1).tolist()
+    ctl32 = float(torch.sub(*handoff(lm32, params32, control=True))
+                  .abs().max())
+    del params32, lm32, dec, ref
+    d16 = float(torch.sub(*handoff(lm, params)).abs().max())
+    say(f"[phase11] cross cache handoff, fp32 copy of the weights: decode of "
+        f"token {p + 1} after a {p}-token prefill vs the {p + 1}-token "
+        f"prefill's last position: logits max |Δ| {d32:.4e} (tol "
+        f"{WHISPER_HANDOFF_TOL}); first tokens held equal on {len(held)} of "
+        f"{len(gaps)} clips (top-1/top-2 gap > 2|Δ|), smallest gap "
+        f"{min(gaps):.4f}; control (cache xk zeroed): {ctl32:.4e}; the served "
+        f"bf16 weights read {d16:.4e} (a reading, no bound); in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    if not d32 <= WHISPER_HANDOFF_TOL:
+        raise AssertionError(f"decode after prefill differs from the longer "
+                             f"prefill: {d32}")
+    if any(d_tok[i] != r_tok[i] for i in held):
+        raise AssertionError(f"first tokens differ where the bound holds "
+                             f"them equal: {d_tok} vs {r_tok}")
+    if not ctl32 > WHISPER_HANDOFF_TOL:
+        raise AssertionError(f"a decode with the cache's xk zeroed passes "
+                             f"the handoff check ({ctl32})")
+    del params, eng
+    return launches, err, bodies
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3331,7 +3651,25 @@ def main() -> int:
     for body, rec in mla_bodies.items():
         flash_bodies[body]["launches"] += rec.pop("launches")
         flash_bodies[body].update(rec)
-    say(f"[phase10] ok in {time.perf_counter() - t10:.1f} s; whole run "
+    say(f"[phase10] ok in {time.perf_counter() - t10:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 11: whisper-base encoder-decoder serving (the seventeenth
+    # slice).  Phase 10's model went with its function; its cached blocks
+    # go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase11] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
+    t11 = time.perf_counter()
+    launches["whisper"], err11, whisper_bodies = phase_whisper(dev, card)
+    errs["flash_attention"] = max(errs["flash_attention"], err11)
+    for body, rec in whisper_bodies.items():
+        flash_bodies[body]["launches"] += rec.pop("launches")
+        flash_bodies[body].update(rec)
+    say(f"[phase11] ok in {time.perf_counter() - t11:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -3348,7 +3686,8 @@ def main() -> int:
         for name in sorted(KERNELS)]}
     # The flash kernel's bodies: launches on the main paths, and ms, bound
     # and library ms at the served shape, at prefill_32k, at llama4's
-    # served prefill and at minicpm3's.
+    # served prefill, at minicpm3's and at whisper's encoder and cross
+    # shapes.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]

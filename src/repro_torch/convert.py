@@ -79,8 +79,10 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     """The port's LM parameters from the reference's ``LM.init`` tree as
     numpy arrays.
 
-    ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``);
-    the port holds one dict per period.  A bf16 array arrives as fp32 or
+    ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``)
+    and ``tree["encoder"]``, where there is one, layer-stacked (leading
+    axis ``encoder_layers``); the port holds one dict per period and per
+    encoder layer.  A bf16 array arrives as fp32 or
     as its ``uint16`` bit patterns; every leaf is cast to
     ``cfg.param_dtype`` (those named in :data:`FP32_LEAVES` to fp32, as
     the reference keeps them) and placed on ``device`` (default CUDA,
@@ -112,6 +114,9 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
             return {k: walk(v, period, k) for k, v in node.items()}
         return leaf(node if period is None else node[period], name)
 
-    out = {k: walk(v, name=k) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [walk(tree["blocks"], p) for p in range(cfg.num_periods)]
+    stacks = {"blocks": cfg.num_periods, "encoder": cfg.encoder_layers}
+    out = {k: walk(v, name=k) for k, v in tree.items() if k not in stacks}
+    for k, n in stacks.items():
+        if k in tree:
+            out[k] = [walk(tree[k], i) for i in range(n)]
     return out

@@ -1,14 +1,19 @@
-"""Attention mixers: GQA/MQA/MHA and MLA, for prefill and decode.
+"""Attention mixers: GQA/MQA/MHA, MLA and cross-attention, for prefill
+and decode.
 
-The port of the reference package's ``models/attention.py`` for the
-decoders.  The layouts are the reference's: q grouped as
-``(B, S, KV, G, dh)``, K and V as ``(B, S, KV, dh)``.
+The port of the reference package's ``models/attention.py``.  The
+layouts are the reference's: q grouped as ``(B, S, KV, G, dh)``, K and V
+as ``(B, S, KV, dh)``.
 
-Prefill (:func:`attn_forward`, :func:`mla_forward`) runs the hand-written
-flash-attention kernel off the CPU and :func:`chunked_attention`, the
-twin of the reference's XLA path, on CPU tensors.  Decode
-(:func:`attn_decode`, :func:`mla_decode`) is torch ops on both, as it is
-XLA outside any kernel in the reference.
+Prefill (:func:`attn_forward`, :func:`mla_forward`,
+:func:`cross_attn_forward`) runs the hand-written flash-attention kernel
+off the CPU and :func:`chunked_attention`, the twin of the reference's
+XLA path, on CPU tensors.  Decode (:func:`attn_decode`,
+:func:`mla_decode`, and the model's cross-attention decode) is torch ops
+on both, as it is XLA outside any kernel in the reference.
+
+Cross-attention (Whisper's decoder over the encoder output) is
+non-causal with Sq (the prompt) ≠ Sk (the frames) and takes no RoPE.
 
 MLA (multi-head latent attention, MiniCPM3) keeps the reference's layout:
 each query head is ``[rope, nope]``, K is ``[k_rope on every head,
@@ -16,9 +21,9 @@ k_nope]``, one KV head per query head, and the decode cache holds only
 the latent ``c_kv`` (before ``kv_norm``) and ``k_rope`` (after RoPE),
 expanded through ``wkv_b`` at every step.
 
-Not ported yet, each raising ``NotImplementedError``: cross-attention
-(Whisper), the int8 KV cache, the sequence-sharded decode (multi-GPU
-slice) and the VLM's ``prefix_len`` on the card.
+Not ported yet, each raising ``NotImplementedError``: the int8 KV cache,
+the sequence-sharded decode (multi-GPU slice) and the VLM's
+``prefix_len`` on the card.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ def _not_ported(what: str, where: str):
 # Parameter init
 # ---------------------------------------------------------------------------
 def attn_init(generator, cfg, dtype, cross=False):
-    if cross:
-        raise _not_ported("cross-attention", "the encoder-decoder slice")
+    """Self-attention weights; ``cross`` adds the cross-attention's
+    ``xwq``/``xwk``/``xwv``/``xwo`` after them, as the reference does."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dev = generator.device
     p = {
@@ -52,6 +57,11 @@ def attn_init(generator, cfg, dtype, cross=False):
         p["bq"] = torch.zeros(qd, dtype=dtype, device=dev)
         p["bk"] = torch.zeros(kvd, dtype=dtype, device=dev)
         p["bv"] = torch.zeros(kvd, dtype=dtype, device=dev)
+    if cross:
+        p["xwq"] = dense_init(generator, d, qd, dtype)
+        p["xwk"] = dense_init(generator, d, kvd, dtype)
+        p["xwv"] = dense_init(generator, d, kvd, dtype)
+        p["xwo"] = dense_init(generator, qd, d, dtype)
     return p
 
 
@@ -219,6 +229,37 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos):
     pr = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgcs,bskd->bckgd", pr.to(cache_v.dtype), cache_v)
     return o.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+
+
+def cross_kv(p, enc_out, cfg):
+    """The encoder output through ``xwk``/``xwv``: K and V of shape
+    (B, Se, KV, dh), no RoPE."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.head_dim)
+    return (enc_out @ p["xwk"]).reshape(shape), \
+        (enc_out @ p["xwv"]).reshape(shape)
+
+
+def cross_attn_forward(p, x, enc_out, cfg, *, kv=None):
+    """Decoder → encoder attention (Whisper).  x: (B, S, D); enc_out:
+    (B, Se, D).  Non-causal, no RoPE on q or K.  ``kv``: the
+    :func:`cross_kv` of ``enc_out`` when the caller already has it (the
+    model's prefill projects it once, for its cache too); otherwise it is
+    projected here.
+
+    Off the CPU the scores run in the flash-attention kernel; on the CPU
+    they run in :func:`chunked_attention`.
+    """
+    b, s, _ = x.shape
+    k, v = cross_kv(p, enc_out, cfg) if kv is None else kv
+    q = (x @ p["xwq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    qg = _grouped(q, cfg.num_kv_heads)
+    if x.device.type != "cpu":
+        o = fa.flash_attention(qg, k, v, causal=False)
+    else:
+        o = chunked_attention(qg, k, v, causal=False, chunk=cfg.attn_chunk,
+                              kv_block=cfg.attn_kv_block)
+    return o.reshape(b, s, cfg.q_dim) @ p["xwo"]
 
 
 # ---------------------------------------------------------------------------

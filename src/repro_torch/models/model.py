@@ -1,16 +1,19 @@
-"""The decoder LM: prefill and decode for serving.
+"""The LM: prefill and decode for serving.
 
 The port of the reference package's ``models/model.py`` for layouts of
-``("attn" | "mamba", "dense" | "moe" | "none")`` sub-layers (qwen1.5,
-codeqwen1.5, chatglm3; minicpm3's MLA; llama4 scout and maverick;
-mamba2 and the jamba hybrid).  The parameters keep the reference's tree,
-with the period stack as a Python list: ``params["blocks"][period]
-["sub0"]`` holds one layer, and the reference's ``scan`` over periods is
-a loop over that list.  The decode cache keeps the reference's stacked
-layout, one entry per sub-layer: ``cache["sub0"]["k"]`` of shape
-``(periods, B, max_len, KV, dh)`` for attention, ``"ckv"``
-``(periods, B, max_len, kv_lora_rank)`` and ``"krope"``
-``(periods, B, max_len, rope_head_dim)`` for MLA, ``"h"``
+``("attn" | "attn_cross" | "mamba", "dense" | "moe" | "none")``
+sub-layers (qwen1.5, codeqwen1.5, chatglm3; minicpm3's MLA; llama4 scout
+and maverick; mamba2 and the jamba hybrid; the Whisper encoder-decoder).
+The parameters keep the reference's tree, with its stacks as Python
+lists: ``params["blocks"][period]["sub0"]`` holds one layer, and
+``params["encoder"][layer]`` one encoder layer; the reference's ``scan``
+over each stack is a loop over the list.  The decode cache keeps the
+reference's stacked layout, one entry per sub-layer:
+``cache["sub0"]["k"]`` of shape ``(periods, B, max_len, KV, dh)`` for
+attention (a cross-attention sub-layer adds the encoder's ``"xk"``/
+``"xv"``, ``(periods, B, encoder_seq, KV, dh)``, written once by the
+prefill), ``"ckv"`` ``(periods, B, max_len, kv_lora_rank)`` and
+``"krope"`` ``(periods, B, max_len, rope_head_dim)`` for MLA, ``"h"``
 ``(periods, B, nh, hd, N)`` fp32 and the conv tails ``"conv_x"``/
 ``"conv_b"``/``"conv_c"`` ``(periods, B, W-1, C)`` for a mamba mixer.
 Decode writes each token's K/V (or MLA latents), and each mamba layer's
@@ -19,11 +22,16 @@ new state, into it in place.  A MoE sub-layer serves through
 serving drops its aux losses (``loss``, which reads them, comes with the
 training slice).
 
-Cross-attention and the encoder, the vision prefix and the int8 KV cache
-raise ``NotImplementedError`` at construction, and so does ``loss`` (the
-training slice).
+The encoder runs over the batch's ``frames`` (B, encoder_seq, D), the
+stub frame embeddings, in prefill only: non-causal self-attention with
+RoPE at positions 0..Se-1 (the config's stated adaptation).
+
+The vision prefix and the int8 KV cache raise ``NotImplementedError`` at
+construction, and so does ``loss`` (the training slice).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,15 +45,13 @@ from repro_torch.models.layers import (
 
 def _check_ported(cfg: ModelConfig) -> None:
     for what, absent, where in (
-            ("the encoder", not cfg.encoder_layers,
-             "the encoder-decoder slice"),
             ("the vision prefix", not cfg.vision_tokens, "the VLM slice"),
             ("the int8 KV cache", not cfg.kv_cache_quant,
              "the int8-KV slice")):
         if not absent:
             raise attn._not_ported(f"{cfg.arch_id}: {what}", where)
     for mixer, ffn in cfg.layout:
-        if mixer not in ("attn", "mamba") or \
+        if mixer not in ("attn", "attn_cross", "mamba") or \
                 ffn not in ("dense", "moe", "none"):
             raise attn._not_ported(f"{cfg.arch_id}: sub-layer "
                                    f"({mixer!r}, {ffn!r})", "later slices")
@@ -66,10 +72,14 @@ class LM:
         dev = generator.device
         if mixer == "mamba":
             init = ssm.ssm_init
+        elif mixer == "attn_cross":
+            init = functools.partial(attn.attn_init, cross=True)
         else:
             init = attn.mla_init if cfg.mla else attn.attn_init
         p = {"norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
              "mixer": init(generator, cfg, dt)}
+        if mixer == "attn_cross":
+            p["norm_cross"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
         if ffn != "none":
             p["norm_ffn"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
             p["ffn"] = (moe.moe_init(generator, cfg, dt) if ffn == "moe" else
@@ -91,15 +101,27 @@ class LM:
             {f"sub{i}": self._init_sublayer(generator, mixer, ffn)
              for i, (mixer, ffn) in enumerate(cfg.layout)}
             for _ in range(cfg.num_periods)]
+        if cfg.encoder_layers:
+            dev = generator.device
+            params["encoder"] = [{
+                "norm_in": torch.ones(cfg.d_model, dtype=dt, device=dev),
+                "mixer": attn.attn_init(generator, cfg, dt),
+                "norm_ffn": torch.ones(cfg.d_model, dtype=dt, device=dev),
+                "ffn": ffn_init(generator, cfg.d_model, cfg.d_ff, dt),
+            } for _ in range(cfg.encoder_layers)]
+            params["enc_final_norm"] = torch.ones(cfg.d_model, dtype=dt,
+                                                  device=dev)
         return params
 
     # ------------------------------------------------------------------
     # Shared block machinery
     # ------------------------------------------------------------------
-    def _period_fwd(self, pp, x, *, cache=None, pos=None):
+    def _period_fwd(self, pp, x, *, enc_out=None, cache=None, pos=None):
         """One period.  Prefill (``cache is None``) returns the period's new
         cache entries; decode writes into ``cache`` (this period's slices)
-        in place."""
+        in place.  ``enc_out``: the encoder's output, which a
+        cross-attention sub-layer reads in prefill (decode reads its
+        cached ``xk``/``xv``)."""
         cfg = self.cfg
         new_cache = {}
         for i, (mixer, ffn) in enumerate(cfg.layout):
@@ -130,6 +152,19 @@ class LM:
                     sp["mixer"], h, cfg, cache[key]["k"], cache[key]["v"],
                     pos)
             x = x + out
+            if mixer == "attn_cross":
+                h = rms_norm(x, sp["norm_cross"], cfg.norm_eps)
+                if cache is None:
+                    # K/V of the frames projected once, for the cache and
+                    # for the prefill's attention.
+                    ent = _cross_kv(sp["mixer"], enc_out, cfg)
+                    out = attn.cross_attn_forward(
+                        sp["mixer"], h, enc_out, cfg,
+                        kv=(ent["xk"], ent["xv"]))
+                    new_cache[key].update(ent)
+                else:
+                    out = _cross_decode(sp["mixer"], h, cache[key], cfg)
+                x = x + out
             if ffn == "none":
                 continue
             h = rms_norm(x, sp["norm_ffn"], cfg.norm_eps)
@@ -140,11 +175,30 @@ class LM:
             x = x + out
         return x, new_cache
 
-    def _embed_inputs(self, params, batch):
-        """Token embedding (the reference's vision prefix and encoder
-        output come with the VLM and encoder slices)."""
-        x = params["embed"][batch["inputs"]].to(self.adtype)
+    def _encode(self, params, frames):
+        """Whisper's encoder over the stub frame embeddings (B, Se, D),
+        which arrive in fp32 and are cast to the activation dtype first."""
+        cfg = self.cfg
+        x = frames.to(self.adtype)
+        for lp in params["encoder"]:
+            h = rms_norm(x, lp["norm_in"], cfg.norm_eps)
+            x = x + attn.attn_forward(lp["mixer"], h, cfg, causal=False)
+            h = rms_norm(x, lp["norm_ffn"], cfg.norm_eps)
+            x = x + ffn_apply(lp["ffn"], h, cfg.ffn_activation)
+        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+    def _embed_tokens(self, params, tokens):
+        x = params["embed"][tokens].to(self.adtype)
         return x * (self.cfg.d_model ** 0.5)
+
+    def _embed_inputs(self, params, batch):
+        """Token embedding and, for an encoder-decoder, the encoder's
+        output (else None).  Returns (x, enc_out); the reference's vision
+        prefix comes with the VLM slice."""
+        enc_out = None
+        if self.cfg.encoder_layers:
+            enc_out = self._encode(params, batch["frames"])
+        return self._embed_tokens(params, batch["inputs"]), enc_out
 
     def _lm_logits_chunk(self, params, h):
         """fp32 logits: the reference contracts bf16 operands with
@@ -169,7 +223,8 @@ class LM:
         """Grow the prefill's attention caches to ``max_len`` along the
         sequence axis, axis 2 of the stacked ``(periods, B, S, ...)``
         layouts (5-D K/V, 4-D MLA latents).  Padded by name, as the
-        reference does: a mamba layer's state has no sequence axis."""
+        reference does: a mamba layer's state has no sequence axis, and
+        the encoder's ``xk``/``xv`` stay at ``encoder_seq``."""
         out = {}
         for key, sub in caches.items():
             ent = {}
@@ -186,10 +241,10 @@ class LM:
     def prefill(self, params, batch, max_len):
         """Run the prompt; returns (last-position logits, cache)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        x, enc_out = self._embed_inputs(params, batch)
         per_period = []
         for pp in params["blocks"]:
-            x, ent = self._period_fwd(pp, x)
+            x, ent = self._period_fwd(pp, x, enc_out=enc_out)
             per_period.append(ent)
         caches = {key: {name: torch.stack([e[key][name]
                                            for e in per_period])
@@ -201,14 +256,17 @@ class LM:
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Zero decode cache (one entry per sub-layer, stacked over
-        periods): K/V for attention, the latents ``ckv``/``krope`` for
-        MLA, ``init_ssm_cache``'s state for a mamba mixer (``h`` fp32, the
-        conv tails in ``dtype``)."""
+        periods): K/V for attention (and the encoder's ``xk``/``xv`` for
+        cross-attention), the latents ``ckv``/``krope`` for MLA,
+        ``init_ssm_cache``'s state for a mamba mixer (``h`` fp32, the conv
+        tails in ``dtype``)."""
         cfg = self.cfg
         p = cfg.num_periods
         shape = (p, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
         dt = dtype or self.adtype
         cache = {}
+        xshape = (p, batch_size, cfg.encoder_seq, cfg.num_kv_heads,
+                  cfg.head_dim)
         for i, (mixer, _) in enumerate(cfg.layout):
             if mixer == "mamba":
                 ent = {name: torch.zeros((p,) + sh, dtype=d, device=device)
@@ -223,15 +281,19 @@ class LM:
             else:
                 ent = {"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)}
+            if mixer == "attn_cross":
+                ent["xk"] = torch.zeros(xshape, dtype=dt, device=device)
+                ent["xv"] = torch.zeros(xshape, dtype=dt, device=device)
             cache[f"sub{i}"] = ent
         return cache
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B, 1) int; pos: int (current write index).  Writes the
         token's K/V (or MLA latents), and each mamba layer's new state,
-        into ``cache`` in place and returns (logits, cache)."""
+        into ``cache`` in place and returns (logits, cache).  The encoder
+        does not run: cross-attention reads the cached ``xk``/``xv``."""
         cfg = self.cfg
-        x = self._embed_inputs(params, {"inputs": tokens})
+        x = self._embed_tokens(params, tokens)
         for p, pp in enumerate(params["blocks"]):
             layer_cache = {key: {name: t[p] for name, t in sub.items()}
                            for key, sub in cache.items()}
@@ -239,6 +301,31 @@ class LM:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
         return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention helpers (whisper)
+# ---------------------------------------------------------------------------
+def _cross_kv(p, enc_out, cfg):
+    """The cache entries of a cross-attention sub-layer: the encoder
+    output's K and V, (B, Se, KV, dh) each."""
+    k, v = attn.cross_kv(p, enc_out, cfg)
+    return {"xk": k, "xv": v}
+
+
+def _cross_decode(p, x, cache_ent, cfg):
+    """One token's cross-attention over the cached ``xk``/``xv`` (every
+    frame live).  fp32 scores from the cache's operands and softmax in
+    fp32; P is cast to ``xv``'s dtype before P·V, as the reference
+    rounds."""
+    b = x.shape[0]
+    q = (x @ p["xwq"]).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    qg = attn._grouped(q, cfg.num_kv_heads)
+    scores = attn._scores(qg, cache_ent["xk"], cfg.head_dim ** -0.5)
+    pr = torch.softmax(scores, dim=-1)
+    xv = cache_ent["xv"]
+    o = torch.einsum("bkgcs,bskd->bckgd", pr.to(xv.dtype), xv)
+    return o.reshape(b, 1, cfg.q_dim) @ p["xwo"]
 
 
 def build(cfg: ModelConfig) -> LM:

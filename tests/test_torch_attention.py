@@ -10,6 +10,7 @@ tests' own) and 1e-5 elsewhere, in fp32: the sums run in another order
 than XLA's, and softmax over a whole row (the plain version) against an
 online softmax over blocks (the reference kernel) differs by rounding.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -282,7 +283,17 @@ def test_prefix_len_off_the_cpu_raises():
 
 
 def test_unported_mixers_raise():
+    """Cross-attention, the mixer that raised here until Whisper was
+    ported, now builds: ``cross=True`` adds ``xwq``/``xwk``/``xwv``/
+    ``xwo`` of the reference's shapes after the self-attention weights."""
     g = torch.Generator().manual_seed(0)
-    cfg = reduced_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="cross"):
-        tattn.attn_init(g, cfg, torch.float32, cross=True)
+    cfg = reduced_config("whisper-base")
+    p = tattn.attn_init(g, cfg, torch.float32, cross=True)
+    want = jattn.attn_init(jax.random.key(0), j_reduced_config(
+        "whisper-base"), jnp.float32, cross=True)
+    assert list(p) == list(want)
+    assert list(p)[-4:] == ["xwq", "xwk", "xwv", "xwo"]
+    for name, ref in want.items():
+        assert tuple(p[name].shape) == ref.shape
+        assert p[name].dtype == torch.float32
+    assert "xwq" not in tattn.attn_init(g, cfg, torch.float32)

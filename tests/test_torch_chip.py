@@ -47,10 +47,11 @@ from repro_torch.serve.engine import ServeEngine
 from torch_port_util import random_coo
 
 sys.path.append(os.path.join(os.path.dirname(__file__), ".."))
-# Phase 9's control, phase 10's bound, controls and patching helper, and
-# phase 5's misaligned copy.
-from chip_smoke import (MLA_LAYER_REL, dropped_carry,  # noqa: E402
-                        nope_first, offset_copy, patched, without_kv_norm)
+# Phase 9's control, phase 10's bound, controls and patching helper,
+# phase 11's bound and control, and phase 5's misaligned copy.
+from chip_smoke import (MLA_LAYER_REL, WHISPER_LAYER_REL,  # noqa: E402
+                        causal_cross, dropped_carry, nope_first, offset_copy,
+                        patched, without_kv_norm)
 
 pytestmark = pytest.mark.cuda
 
@@ -524,6 +525,9 @@ FLASH_SHAPES = {            # b, sq, sk, kv, g, dh, dv, causal
     "dh96-dv64": (2, 130, 130, 2, 2, 96, 64, False),
     "odd-dims": (1, 45, 45, 2, 2, 20, 13, True),   # no 16-byte rows
     "mla-heads": (2, 1000, 1000, 8, 1, 96, 64, True),   # minicpm3's dims
+    # Whisper's cross-attention: no causal diagonal stops the key loop,
+    # and the last key tile is ragged.
+    "non-causal-sq-lt-sk": (1, 50, 170, 2, 2, 16, 16, False),
 }
 # The bf16 bodies against plain in norm: ||Δ|| <= FLASH_BF16_REL·||plain||
 # (chip_smoke.py's bound, which a kernel that drops one kv tile fails).
@@ -574,6 +578,10 @@ def test_flash_kernel_matches_plain(card, shape, dtype):
 # rows past Sk see every key: q and k both count from 0); each at
 # (dh, dv) = (96, 64) too, where the second q/k column box runs past the
 # tensor's 96 columns, and minicpm3's MLA heads (G = 1, 40 heads).
+# Whisper's served shapes are non-causal: the encoder over 1500 frames
+# (1500 = 11 key tiles of 128 and a ragged 92), and the cross-attention
+# of a 192-token prompt, or of the 4 start-of-transcript tokens, over
+# them.
 WGMMA_SHAPES = {
     "d64-s130": (2, 130, 130, 2, 1, 64, 64, True),
     "d128-s130": (2, 130, 130, 2, 2, 128, 128, True),
@@ -595,6 +603,9 @@ WGMMA_SHAPES = {
     "mla-sq-gt-sk": (2, 333, 200, 2, 1, 96, 64, True),
     "mla-one-row": (3, 1, 1, 2, 1, 96, 64, True),
     "mla-heads": (4, 2000, 2000, 40, 1, 96, 64, True),
+    "d64-cross": (2, 192, 1500, 8, 1, 64, 64, False),
+    "d64-cross-sot": (3, 4, 1500, 8, 1, 64, 64, False),
+    "d64-encoder": (2, 1500, 1500, 8, 1, 64, 64, False),
 }
 
 
@@ -810,6 +821,90 @@ def test_reduced_mla_lm_generate_on_the_card(card, dtype):
             return float((x[:, real] - exact).norm() / exact.norm())
 
         assert dist(got) <= 2 * dist(want), (dist(got), dist(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_whisper_generate_on_the_card(card, dtype):
+    """Reduced whisper-base (2 encoder and 2 decoder layers, dh 16) on
+    the card against the same model on the CPU.  Its prefill runs the
+    flash kernel three times a layer pair (encoder, decoder self, cross),
+    on the fma body in fp32 and the mma body in bf16.  fp32: logits
+    within 1e-4 and greedy tokens equal.  bf16: the card's logits lie no
+    farther, in norm, from an fp32 run of the same weights than twice the
+    CPU's bf16 logits do."""
+    cfg = dataclasses.replace(reduced_config("whisper-base"),
+                              param_dtype=dtype, activation_dtype=dtype)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    rng = np.random.default_rng(4)
+    batch = {"inputs": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 20))),
+        "frames": torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    gbatch = {k: t.to(card) for k, t in batch.items()}
+    body = "fma" if dtype == "float32" else "mma"
+    before = fa.flash_launches_by_body[body]
+    logits, _ = lm.prefill(on_card, gbatch, 32)
+    assert fa.flash_launches_by_body[body] - before == \
+        cfg.encoder_layers + 2 * cfg.num_layers
+    want, _ = lm.prefill(params, batch, 32)
+    got, real = logits.cpu(), slice(0, cfg.vocab_size)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        out = ServeEngine(lm, on_card, 32).generate(gbatch, 8)
+        ref = ServeEngine(lm, params, 32).generate(batch, 8)
+        assert torch.equal(out.cpu(), ref)
+    else:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        exact, _ = LM(cfg32).prefill(tree_map(lambda t: t.float(), params),
+                                     batch, 32)
+        exact = exact[:, real]
+
+        def dist(x):
+            return float((x[:, real] - exact).norm() / exact.norm())
+
+        assert dist(got) <= 2 * dist(want), (dist(got), dist(want))
+
+
+def test_full_width_whisper_layers_on_the_card_match_their_cpu_run(card):
+    """One whisper-base encoder self-attention and one cross-attention at
+    the published width (d 512, 8 heads of 64) over 1500 frames, the card
+    in bf16 (the wgmma body, non-causal) against the CPU in fp32 from the
+    same bf16 weights: ||Δ|| <= WHISPER_LAYER_REL·||cpu|| (chip_smoke.py
+    phase 11(b)), which each run causal must fail."""
+    cfg = get_config("whisper-base")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    p16 = tattn.attn_init(g, cfg, torch.bfloat16, cross=True)
+    p32 = {k: v.float() for k, v in p16.items()}
+    on16 = tree_map(lambda t: t.to(card), p16)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g)
+    frames = rms_norm(frames, torch.ones(cfg.d_model)).to(
+        torch.bfloat16).float()
+    x = torch.randn((2, 192, cfg.d_model), generator=g)
+    x = rms_norm(x, torch.ones(cfg.d_model)).to(torch.bfloat16).float()
+
+    def rel(a, b):
+        return float((a.cpu().float() - b).norm() / b.norm())
+
+    before = fa.flash_launches_by_body["wgmma"]
+    got = tattn.attn_forward(on16, frames.to(card, torch.bfloat16), cfg,
+                             causal=False)
+    want = tattn.attn_forward(p32, frames, cfg32, causal=False)
+    assert rel(got, want) <= WHISPER_LAYER_REL
+    assert rel(got, tattn.attn_forward(p32, frames, cfg32, causal=True)) > \
+        WHISPER_LAYER_REL
+    got = tattn.cross_attn_forward(on16, x.to(card, torch.bfloat16),
+                                   frames.to(card, torch.bfloat16), cfg)
+    assert fa.flash_launches_by_body["wgmma"] - before == 2
+    want = tattn.cross_attn_forward(p32, x, frames, cfg32)
+    assert rel(got, want) <= WHISPER_LAYER_REL
+    with patched(tattn, "chunked_attention", causal_cross()):
+        ctl = tattn.cross_attn_forward(p32, x, frames, cfg32)
+    assert rel(got, ctl) > WHISPER_LAYER_REL
 
 
 def test_full_width_mla_layer_on_the_card_matches_its_cpu_run(card):
