@@ -319,7 +319,7 @@ from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models.model import LM, _cross_kv  # noqa: E402
 from repro_torch.obs.profile import profiler_trace  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.spmv_service import SpMVService  # noqa: E402
@@ -1077,6 +1077,9 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # with one 64-key tile left out of the last 64 queries, a kernel that
 # skips a kv tile; it read 1.3e-2) must fail it.
 FLASH_BF16_REL = 5e-3
+# Each in-turn reading of :func:`time_flash` spans at least this many ms
+# of calls, so that a call of tens of µs is not timed on a handful.
+FLASH_READ_MS = 10.0
 # (name, b, s, kv heads, g, dh, dv, causal, dtype) of phase 5(a).
 FLASH_CASES = (
     ("qwen heads", 4, 2000, 16, 1, 64, 64, True, torch.bfloat16),
@@ -1214,8 +1217,9 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
     ``scaled_dot_product_attention`` (a yardstick the port never calls, on
     the same bf16 tensors viewed as (B, H, S, dh)) and the plain version,
     with Sk = S unless given.  All but the plain run in turns, in one
-    order and then the reverse; each reports the mean of its two
-    readings."""
+    order and then the reverse, ``iters[0]`` calls a reading or enough
+    that the fastest spans ``FLASH_READ_MS``; each reports the mean of
+    its two readings."""
     dv = dv or dh
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
                                SEED + 5, sk=sk)
@@ -1233,7 +1237,8 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
                         q.view(b, s, h, dh).transpose(1, 2),
                         k.transpose(1, 2), v.transpose(1, 2),
                         is_causal=causal, enable_gqa=g > 1)
-    out = in_turns(runs, iters[0])
+    fastest = min(time_ms(fn, 3) for fn in runs.values())
+    out = in_turns(runs, max(iters[0], int(np.ceil(FLASH_READ_MS / fastest))))
     out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
                              causal=causal), iters[1])
     return out
@@ -3248,13 +3253,15 @@ def phase_whisper(dev, card):
                           causal=False),
         attn.attn_forward(cpu["encoder layer 0"], xe_cpu, cfg32,
                           causal=True))}
+    kv_cpu = _cross_kv(cpu["decoder layer 0 cross"], eo_cpu, cfg32)
     want = attn.cross_attn_forward(cpu["decoder layer 0 cross"], xc_cpu,
-                                   eo_cpu, cfg32)
+                                   kv_cpu, cfg32)
     with patched(attn, "chunked_attention", causal_cross()):
         ctl = attn.cross_attn_forward(cpu["decoder layer 0 cross"], xc_cpu,
-                                      eo_cpu, cfg32)
+                                      kv_cpu, cfg32)
+    kv = _cross_kv(mixers["decoder layer 0 cross"], enc_out, cfg)
     runs["decoder layer 0 cross"] = (attn.cross_attn_forward(
-        mixers["decoder layer 0 cross"], xc, enc_out, cfg), want, ctl)
+        mixers["decoder layer 0 cross"], xc, kv, cfg), want, ctl)
     for name, (got, want, ctl) in runs.items():
         r, rc = rel_err(got.cpu(), want), rel_err(got.cpu(), ctl)
         say(f"[phase11] {name} on {n} clips (Sq {got.shape[1]}), card bf16 "

@@ -231,27 +231,19 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos):
     return o.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
 
 
-def cross_kv(p, enc_out, cfg):
-    """The encoder output through ``xwk``/``xwv``: K and V of shape
-    (B, Se, KV, dh), no RoPE."""
-    b, se, _ = enc_out.shape
-    shape = (b, se, cfg.num_kv_heads, cfg.head_dim)
-    return (enc_out @ p["xwk"]).reshape(shape), \
-        (enc_out @ p["xwv"]).reshape(shape)
-
-
-def cross_attn_forward(p, x, enc_out, cfg, *, kv=None):
-    """Decoder → encoder attention (Whisper).  x: (B, S, D); enc_out:
-    (B, Se, D).  Non-causal, no RoPE on q or K.  ``kv``: the
-    :func:`cross_kv` of ``enc_out`` when the caller already has it (the
-    model's prefill projects it once, for its cache too); otherwise it is
-    projected here.
+def cross_attn_forward(p, x, kv, cfg):
+    """Decoder → encoder attention (Whisper) over a whole prompt.  x:
+    (B, S, D); kv: the model's cross cache entry for this sub-layer,
+    ``{"xk", "xv"}`` of (B, Se, KV, dh) each, the encoder output through
+    ``xwk``/``xwv`` (``models.model._cross_kv``).  Non-causal, no RoPE on
+    q or K.  The reference projects the encoder output here and again for
+    its cache; the port projects it once and hands it to both.
 
     Off the CPU the scores run in the flash-attention kernel; on the CPU
     they run in :func:`chunked_attention`.
     """
     b, s, _ = x.shape
-    k, v = cross_kv(p, enc_out, cfg) if kv is None else kv
+    k, v = kv["xk"], kv["xv"]
     q = (x @ p["xwq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
     qg = _grouped(q, cfg.num_kv_heads)
     if x.device.type != "cpu":

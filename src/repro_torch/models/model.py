@@ -155,12 +155,8 @@ class LM:
             if mixer == "attn_cross":
                 h = rms_norm(x, sp["norm_cross"], cfg.norm_eps)
                 if cache is None:
-                    # K/V of the frames projected once, for the cache and
-                    # for the prefill's attention.
                     ent = _cross_kv(sp["mixer"], enc_out, cfg)
-                    out = attn.cross_attn_forward(
-                        sp["mixer"], h, enc_out, cfg,
-                        kv=(ent["xk"], ent["xv"]))
+                    out = attn.cross_attn_forward(sp["mixer"], h, ent, cfg)
                     new_cache[key].update(ent)
                 else:
                     out = _cross_decode(sp["mixer"], h, cache[key], cfg)
@@ -308,9 +304,11 @@ class LM:
 # ---------------------------------------------------------------------------
 def _cross_kv(p, enc_out, cfg):
     """The cache entries of a cross-attention sub-layer: the encoder
-    output's K and V, (B, Se, KV, dh) each."""
-    k, v = attn.cross_kv(p, enc_out, cfg)
-    return {"xk": k, "xv": v}
+    output's K and V, (B, Se, KV, dh) each, no RoPE."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.head_dim)
+    return {"xk": (enc_out @ p["xwk"]).reshape(shape),
+            "xv": (enc_out @ p["xwv"]).reshape(shape)}
 
 
 def _cross_decode(p, x, cache_ent, cfg):

@@ -282,10 +282,9 @@ def test_prefix_len_off_the_cpu_raises():
     assert out.shape == (1, 8, 64)
 
 
-def test_unported_mixers_raise():
-    """Cross-attention, the mixer that raised here until Whisper was
-    ported, now builds: ``cross=True`` adds ``xwq``/``xwk``/``xwv``/
-    ``xwo`` of the reference's shapes after the self-attention weights."""
+def test_cross_attn_init_matches_reference():
+    """``cross=True`` adds ``xwq``/``xwk``/``xwv``/``xwo`` of the
+    reference's shapes after the self-attention weights, in its order."""
     g = torch.Generator().manual_seed(0)
     cfg = reduced_config("whisper-base")
     p = tattn.attn_init(g, cfg, torch.float32, cross=True)

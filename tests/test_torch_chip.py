@@ -41,7 +41,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, _cross_kv
 from repro_torch.serve.engine import ServeEngine
 
 from torch_port_util import random_coo
@@ -897,13 +897,15 @@ def test_full_width_whisper_layers_on_the_card_match_their_cpu_run(card):
     assert rel(got, want) <= WHISPER_LAYER_REL
     assert rel(got, tattn.attn_forward(p32, frames, cfg32, causal=True)) > \
         WHISPER_LAYER_REL
-    got = tattn.cross_attn_forward(on16, x.to(card, torch.bfloat16),
-                                   frames.to(card, torch.bfloat16), cfg)
+    got = tattn.cross_attn_forward(
+        on16, x.to(card, torch.bfloat16),
+        _cross_kv(on16, frames.to(card, torch.bfloat16), cfg), cfg)
     assert fa.flash_launches_by_body["wgmma"] - before == 2
-    want = tattn.cross_attn_forward(p32, x, frames, cfg32)
+    kv32 = _cross_kv(p32, frames, cfg32)
+    want = tattn.cross_attn_forward(p32, x, kv32, cfg32)
     assert rel(got, want) <= WHISPER_LAYER_REL
     with patched(tattn, "chunked_attention", causal_cross()):
-        ctl = tattn.cross_attn_forward(p32, x, frames, cfg32)
+        ctl = tattn.cross_attn_forward(p32, x, kv32, cfg32)
     assert rel(got, ctl) > WHISPER_LAYER_REL
 
 
