@@ -405,6 +405,30 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int) -> float:
+    """Mean ms per call on the card at the card's pace: a spin kernel
+    holds the stream while the host queues all ``iters`` calls, so a
+    wrapper whose host cost nears its kernel's time (tens of µs) is not
+    timed at the host's pace (CUDA events, after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # Twice the host's queueing time at up to 2 GHz, plus 1 ms.
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def stream_on_card(plan, dev):
     """The single-shard plan's stream as card tensors, plus its geometry."""
     if plan.num_shards != 1:
@@ -504,13 +528,14 @@ def plan_record(plan) -> dict:
             "splits": plan.splits}
 
 
-def in_turns(fns: dict, iters: int) -> dict:
-    """CUDA-event ms of each function, read in turns: in the dict's order,
-    then in reverse.  Means, and the readings under ``reads``."""
+def in_turns(fns: dict, iters: int, timer=time_ms) -> dict:
+    """CUDA-event ms of each function (``timer``), read in turns: in the
+    dict's order, then in reverse.  Means, and the readings under
+    ``reads``."""
     reads = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
-            reads[name].append(time_ms(fns[name], iters))
+            reads[name].append(timer(fns[name], iters))
     return {name: float(np.mean(r)) for name, r in reads.items()} | {
         "reads": reads}
 
@@ -1218,8 +1243,9 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
     the same bf16 tensors viewed as (B, H, S, dh)) and the plain version,
     with Sk = S unless given.  All but the plain run in turns, in one
     order and then the reverse, ``iters[0]`` calls a reading or enough
-    that the fastest spans ``FLASH_READ_MS``; each reports the mean of
-    its two readings."""
+    that the fastest spans ``FLASH_READ_MS``, queued behind a spin
+    kernel (:func:`queued_ms`); each reports the mean of its two
+    readings."""
     dv = dv or dh
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
                                SEED + 5, sk=sk)
@@ -1237,8 +1263,9 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
                         q.view(b, s, h, dh).transpose(1, 2),
                         k.transpose(1, 2), v.transpose(1, 2),
                         is_causal=causal, enable_gqa=g > 1)
-    fastest = min(time_ms(fn, 3) for fn in runs.values())
-    out = in_turns(runs, max(iters[0], int(np.ceil(FLASH_READ_MS / fastest))))
+    fastest = min(queued_ms(fn, 3) for fn in runs.values())
+    out = in_turns(runs, max(iters[0], int(np.ceil(FLASH_READ_MS / fastest))),
+                   timer=queued_ms)
     out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
                              causal=causal), iters[1])
     return out
