@@ -254,15 +254,47 @@ package.  Phases:
    the last position of a 193-token prefill over the same frames: logits
    within ``WHISPER_HANDOFF_TOL``, first tokens equal outside the 2d
    band, and the same decode with the cache's ``xk`` zeroed must fail.
+12. The VLM slice (paligemma-3b: the vision prefix and its prefix-LM
+   mask).  The mma and fma bodies' ``-Xptxas=-v`` lines at 64, 128 and
+   256 columns are printed (a spill fails the run).
+   (a) The flash kernel with a prefix against its plain version: the
+   served shape (8, 320, 320, 1 KV, G 8, 256, 256) with ``prefix_len``
+   256 in bf16 on the mma body, and a ragged prefix of 200 on the wgmma
+   body at (64, 64) and (128, 128) (and the mma body on their offset
+   copies), on the mma body at 256 and on the fp32 fma body, under phase
+   5(a)'s tolerances; each beside the same call with ``prefix_len=0``,
+   which must fail them.  The mma body is timed at the served shape in
+   turns with ``scaled_dot_product_attention`` under the same boolean
+   prefix-LM mask (the backend its dispatcher picks, named) and causal
+   without the prefix, beside the plain version and the bound
+   (its bytes at 3.35 TB/s, 0.0070 ms).  ``ServeEngine`` serves 8
+   images of 256 stub patches, each with a 64-token prompt, plus 32
+   greedy tokens on paligemma-3b at its published width and depth,
+   nothing cut (18 layers, d 2048, 8 query heads of 256 over 1 KV head,
+   d_ff 16384 gated gelu, vocab 257,216 padded to 257,280, untied),
+   bf16, random weights from a seeded generator made on the card; the
+   kernels' counters are set to 0 before ``generate`` and must read 18
+   mma launches and no other body.  Prefill ms, decode ms a step, peak
+   memory and a ``torch.profiler`` breakdown are printed.  (b) Layer 0's
+   attention on 2 images of the served batch's embedded prefix, the card
+   in bf16 against the CPU in fp32 from the same weights: ``||Δ|| <=
+   PALI_LAYER_REL·||cpu||``, which the same layer run with
+   ``prefix_len=0`` must fail.  (c) In fp32 (a copy of the served
+   weights, all 18 layers), the decode of text token 65 after a
+   256 + 64-position prefill against the last position of the 256 +
+   65-position prefill of the same images: logits within
+   ``PALI_HANDOFF_TOL``, and the same decode after a prefill whose
+   ``vis_proj`` is zeroed must fail.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record, whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-the six timed shapes (``bodies``: phase 5's served prefill and
-prefill_32k, llama4's served prefill, minicpm3's, and whisper's encoder
-and cross shapes, these three with their plain time), whose spmm entry
+the seven timed shapes (``bodies``: phase 5's served prefill and
+prefill_32k, llama4's served prefill, minicpm3's, whisper's encoder and
+cross shapes and paligemma's prefix-LM prefill, these four with their
+plain time), whose spmm entry
 lists each vector width's main-path launches (``bodies``) and, at each
 served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
@@ -483,27 +515,34 @@ def compare_spmv(what, idx, val, seg, x, geo, tpc: int,
                  f"must ({msg.split(': ', 1)[1].split(';')[0]})")
 
 
-def spmv_build_report() -> str:
-    """The stream pass's ``-Xptxas=-v`` lines (registers, spills), fp32 and
-    bf16 values; raises on a spill."""
-    log = BUILD_LOGS.get("serpens_spmv", "")
+def ptxas_report(stem: str, pattern: str, label, want) -> str:
+    """The ``-Xptxas=-v`` lines (registers, spills) of every entry function
+    in ``stem``'s build whose name matches ``pattern``, each as
+    ``label(match): ...``; raises on a spill, or unless the labels are
+    ``want`` (each once)."""
+    log = BUILD_LOGS.get(stem, "")
     if not log:
         return "no nvcc log (the library was already built)"
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
-        m = re.search(r"spmv_kernelI(f|13__nv_bfloat16)E", line)
-        if m is None or "Compiling entry function" not in line:
+        hit = re.search(pattern, line)
+        if hit is None or "Compiling entry function" not in line:
             continue
-        name = "fp32" if m[1] == "f" else "bf16"
+        name = label(hit)
         props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
                          else x.strip() for x in lines[i + 2:i + 4])
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
-            raise AssertionError(f"spmv {name} spills: {props}")
-        out.append(f"{name}: {props}")
-    if len(out) != 2:
-        raise AssertionError(f"no ptxas report for every spmv build: {out}")
-    return "; ".join(out)
+            raise AssertionError(f"{stem} {name} spills: {props}")
+        out.append((name, props))
+    if sorted(n for n, _ in out) != sorted(want):
+        raise AssertionError(f"no ptxas report for every {stem} build in "
+                             f"{sorted(want)}: {out}")
+    return "; ".join(f"{n}: {x}" for n, x in out)
+
+
+def value_type(hit) -> str:
+    return "fp32" if hit[1] == "f" else "bf16"
 
 
 def ran_plan(fn, seen: set):
@@ -684,30 +723,6 @@ def check_spmm(what, idx, val, seg, x, geo, tpc) -> tuple[float, str]:
         f"N={x.shape[1]} v{plan.vec}, {len(plan.windows)} pass(es): err "
         f"{err:.3e}; control without tile {first} fails as it must "
         f"({msg.split(': ', 1)[1].split(';')[0]})")
-
-
-def spmm_build_report() -> str:
-    """The ``spmm`` instantiations' ``-Xptxas=-v`` lines (registers,
-    spills); raises on a spill."""
-    log = BUILD_LOGS.get("serpens_spmv", "")
-    if not log:
-        return "no nvcc log (the library was already built)"
-    lines = log.splitlines()
-    out = []
-    for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or \
-                "spmm_kernel" not in line:
-            continue
-        m = re.search(r"spmm_kernelI(f|13__nv_bfloat16)Li(\d)E", line)
-        name = f"{'fp32' if m[1] == 'f' else 'bf16'} v{m[2]}"
-        props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
-                         else x.strip() for x in lines[i + 2:i + 4])
-        if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
-            raise AssertionError(f"spmm {name} spills: {props}")
-        out.append(f"{name}: {props}")
-    if len(out) != 6:
-        raise AssertionError(f"no ptxas report for every spmm build: {out}")
-    return "; ".join(out)
 
 
 def time_spmm(idx, val, seg, x, geo, tpc, csr, k) -> dict:
@@ -1218,15 +1233,19 @@ def last_mixer_output(attention=None):
         yield outs
 
 
-def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2, sk=None):
+def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2, sk=None,
+                prefix=0):
     """Least time of one call: q, k, v read once and o written once over
     the memory rate, or the flops of the unmasked (q, k) pairs (2·dh for
     the score, 2·dv for P·V) over the bf16 tensor-core rate.  Sk = S
-    unless given (non-causal only)."""
+    unless given (non-causal only); under causal row r sees
+    max(r + 1, ``prefix``) keys."""
     sk = sk or s
     if causal and sk != s:
         raise ValueError("a causal bound is counted at Sq = Sk")
-    pairs = b * kvh * g * (s * (s + 1) // 2 if causal else s * sk)
+    seen = (np.minimum(s, np.maximum(np.arange(1, s + 1), prefix)).sum()
+            if causal else s * sk)
+    pairs = b * kvh * g * int(seen)
     nbytes = dtype_bytes * b * kvh * (s * g * (dh + dv) + sk * (dh + dv))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * (dh + dv) * pairs / BF16_FLOPS_PER_S * 1e3
@@ -1234,18 +1253,29 @@ def flash_bound(b, s, kvh, g, dh, dv, causal, dtype_bytes=2, sk=None):
                                  else "operations")
 
 
+def sdpa_backend(call) -> str:
+    """The backend that ``call`` (a ``functools.partial`` of
+    ``scaled_dot_product_attention``) runs on, as its dispatcher chooses
+    it (``torch._fused_sdp_choice``), e.g. ``cudnn_attention``."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(*call.args,
+                                              **call.keywords)).name.lower()
+
+
 def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
-               sk=None) -> dict:
+               sk=None, prefix=0) -> dict:
     """CUDA-event ms of the flash bodies that take these head dims (the
     body ``flash_body`` names for the tensors, and when that is the wgmma
     body also the mma body on an offset copy of the same tensors),
     ``scaled_dot_product_attention`` (a yardstick the port never calls, on
-    the same bf16 tensors viewed as (B, H, S, dh)) and the plain version,
-    with Sk = S unless given.  All but the plain run in turns, in one
-    order and then the reverse, ``iters[0]`` calls a reading or enough
-    that the fastest spans ``FLASH_READ_MS``, queued behind a spin
-    kernel (:func:`queued_ms`); each reports the mean of its two
-    readings."""
+    the same bf16 tensors viewed as (B, H, S, dh); with a ``prefix`` it
+    takes the same prefix-LM mask as a boolean ``attn_mask``, and is also
+    timed causal without the prefix as ``"library causal"``) and the plain
+    version, with Sk = S unless given.  All but the plain run in turns, in
+    one order and then the reverse, ``iters[0]`` calls a reading or enough
+    that the fastest spans ``FLASH_READ_MS``, queued behind a spin kernel
+    (:func:`queued_ms`); each reports the mean of its two readings.
+    ``"backend"`` names the library's backend (:func:`sdpa_backend`)."""
     dv = dv or dh
     q, k, v = attention_inputs(b, s, kvh, g, dh, dv, torch.bfloat16, dev,
                                SEED + 5, sk=sk)
@@ -1255,19 +1285,27 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
     if any(fa.flash_body(*t) != body for body, t in inputs.items()):
         raise AssertionError("the timed tensors do not reach the bodies "
                              f"{list(inputs)}")
-    h = kvh * g
     p = functools.partial
-    runs = {body: p(fa.flash_attention, *t, causal=causal)
+    runs = {body: p(fa.flash_attention, *t, causal=causal, prefix_len=prefix)
             for body, t in inputs.items()}
-    runs["library"] = p(torch.nn.functional.scaled_dot_product_attention,
-                        q.view(b, s, h, dh).transpose(1, 2),
-                        k.transpose(1, 2), v.transpose(1, 2),
-                        is_causal=causal, enable_gqa=g > 1)
+    sdpa = p(torch.nn.functional.scaled_dot_product_attention,
+             q.view(b, s, kvh * g, dh).transpose(1, 2), k.transpose(1, 2),
+             v.transpose(1, 2), enable_gqa=g > 1)
+    if prefix and causal:
+        kpos = torch.arange(k.shape[1], device=dev)
+        mask = (kpos[None, :] <= torch.arange(s, device=dev)[:, None]) | \
+            (kpos[None, :] < prefix)
+        runs["library"] = p(sdpa, attn_mask=mask)
+        runs["library causal"] = p(sdpa, is_causal=True)
+    else:
+        runs["library"] = p(sdpa, is_causal=causal)
+    backend = sdpa_backend(runs["library"])
     fastest = min(queued_ms(fn, 3) for fn in runs.values())
     out = in_turns(runs, max(iters[0], int(np.ceil(FLASH_READ_MS / fastest))),
                    timer=queued_ms)
     out["plain"] = time_ms(p(fa.flash_attention_plain, q, k, v,
-                             causal=causal), iters[1])
+                             causal=causal, prefix_len=prefix), iters[1])
+    out["backend"] = backend
     return out
 
 
@@ -1281,6 +1319,7 @@ def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
     from torch.profiler import ProfilerActivity, profile
 
     n = min(64, batch["inputs"].shape[1])
+    pos0 = eng.lm.cfg.vision_tokens + n   # a VLM's image comes first
     _, cache = eng.prefill(dict(batch, inputs=batch["inputs"][:, :n]))
     torch.cuda.synchronize()
     for name, prefill in (("prefill", True), ("decode", False)):
@@ -1293,7 +1332,7 @@ def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
                 eng.prefill(batch)
             else:
                 for i in range(steps):
-                    eng.decode_step(cache, out[:, i:i + 1], n + i)
+                    eng.decode_step(cache, out[:, i:i + 1], pos0 + i)
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t) * 1e3
         kernels = [e for e in prof.key_averages()
@@ -1323,11 +1362,11 @@ def offset_copy(x):
     return y
 
 
-def launch_body(q, k, v, causal):
+def launch_body(q, k, v, causal, prefix=0):
     """The kernel's output on (q, k, v) and the body that ran, read from
     the per-body counters; the body must be the one the shape rule names."""
     before = dict(fa.flash_launches_by_body)
-    got = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
     torch.cuda.synchronize()
     ran = [n for n, c in fa.flash_launches_by_body.items() if c != before[n]]
     if ran != [fa.flash_body(q, k, v)]:
@@ -1336,55 +1375,33 @@ def launch_body(q, k, v, causal):
     return got, ran[0]
 
 
-def wgmma_build_report() -> str:
-    """The wgmma body's ``-Xptxas=-v`` lines (registers, spills) at each
-    (dh, dv) pair and its dynamic shared memory; raises on a spill."""
-    log = BUILD_LOGS.get("flash_attention", "")
-    if not log:
-        return "no nvcc log (the library was already built)"
-    lines = log.splitlines()
-    out, built = [], set()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or \
-                "flash_fwd_wgmma_kernel" not in line:
-            continue
-        dh, dv = map(int, re.search(
-            r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)E", line).groups())
-        props = " ".join(x.split(":", 1)[-1].strip() if "ptxas" in x
-                         else x.strip() for x in lines[i + 2:i + 4])
-        if any(int(n) for n in re.findall(r"(\d+) bytes spill", props)):
-            raise AssertionError(f"the wgmma body spills at (dh, dv) = "
-                                 f"({dh}, {dv}): {props}")
-        built.add((dh, dv))
-        out.append(f"(dh, dv) = ({dh}, {dv}): {props}, "
-                   f"{fa.wgmma_smem_bytes(dh, dv)} bytes dynamic shared "
-                   f"memory")
-    if sorted(built) != sorted(fa.WGMMA_HEAD_DIMS) or \
-            len(out) != len(built):
-        raise AssertionError(f"no ptxas report for every wgmma build: {out}")
-    return "; ".join(out)
-
-
-def check_flash_case(case, dev, tag, sk=None):
-    """One ``FLASH_CASES`` entry, with Sk = S unless given: the kernel
-    against its plain version on card tensors (in bf16, every case a
-    served head, the wgmma body on the tensors and the mma body on an
-    offset copy).  Returns the largest error and (q, k, v, plain)."""
+def check_flash_case(case, dev, tag, sk=None, prefix=0):
+    """One ``FLASH_CASES`` entry, with Sk = S unless given and
+    ``prefix_len=prefix``: the kernel against its plain version on card
+    tensors.  A bf16 case runs on the wgmma body at its head dims (else
+    the mma body), and the wgmma body's cases on the mma body too, on an
+    offset copy.  With a prefix each call is made again with
+    ``prefix_len=0`` (the control), which must fail the check.  Returns
+    the largest error and (q, k, v, plain)."""
     name, b, s, kvh, g, dh, dv, causal, dt = case
-    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + s,
-                               sk=sk)
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev,
+                               SEED + s + prefix, sk=sk)
     runs = [(q, k, v)]
     if dt == torch.bfloat16:
-        if fa.flash_body(q, k, v) != "wgmma":
-            raise AssertionError(f"bf16 case {name} is not on the wgmma "
+        body = "wgmma" if (dh, dv) in fa.WGMMA_HEAD_DIMS else "mma"
+        if fa.flash_body(q, k, v) != body:
+            raise AssertionError(f"bf16 case {name} is not on the {body} "
                                  f"body")
-        runs.append(tuple(map(offset_copy, (q, k, v))))
-    want = fa.flash_attention_plain(q, k, v, causal=causal)
+        if body == "wgmma":
+            runs.append(tuple(map(offset_copy, (q, k, v))))
+    want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                    prefix_len=prefix)
+    tol = FLASH_TOL[dt]
     err = 0.0
     for qq, kk, vv in runs:
-        got, body = launch_body(qq, kk, vv, causal)
+        got, body = launch_body(qq, kk, vv, causal, prefix)
         e = check_allclose(f"flash {name} {dt} {body} vs plain", got, want,
-                           FLASH_TOL[dt])
+                           tol)
         err = max(err, e)
         rel = ""
         if dt == torch.bfloat16:
@@ -1393,10 +1410,22 @@ def check_flash_case(case, dev, tag, sk=None):
             if not r <= FLASH_BF16_REL:
                 raise AssertionError(f"flash {name} bf16 {body} vs plain: "
                                      f"||Δ||/||plain|| {r}")
+        if prefix:
+            ctl, _ = launch_body(qq, kk, vv, causal)
+            rc = rel_err(ctl, want)
+            out = int(((ctl.float() - want.float()).abs()
+                       > tol + tol * want.float().abs()).sum())
+            if not (rc > FLASH_BF16_REL if dt == torch.bfloat16 else out):
+                raise AssertionError(f"the prefix_len=0 control passes the "
+                                     f"{name} {body} check ({rc}, {out})")
+            rel += (f"; control (prefix_len=0): ||Δ||/||plain|| {rc:.3e}, "
+                    f"{out} elements out of tolerance")
+            del ctl
         say(f"[{tag}] flash {body} body vs plain, {name} (B={b}, S={s}, "
             f"Sk={k.shape[1]}, KV={kvh}, G={g}, dh={dh}, dv={dv}, "
-            f"causal={causal}, {dt}): "
-            f"max err {e:.3e} (tol {FLASH_TOL[dt]}){rel}")
+            f"causal={causal}, " + (f"prefix_len={prefix}, " if prefix
+                                    else "") +
+            f"{dt}): max err {e:.3e} (tol {tol}){rel}")
         del got
     return err, (q, k, v, want)
 
@@ -1404,7 +1433,13 @@ def check_flash_case(case, dev, tag, sk=None):
 def phase_lm(dev, card):
     """Phase 5; returns (launches, max error, timings, bound, per-body
     record) of the flash kernel at the served shape."""
-    say(f"[phase5] flash wgmma body, ptxas: {wgmma_build_report()}")
+    pairs = sorted(fa.WGMMA_HEAD_DIMS)
+    say("[phase5] flash wgmma body, ptxas: " + ptxas_report(
+        "flash_attention", r"flash_fwd_wgmma_kernelILi(\d+)ELi(\d+)E",
+        lambda hit: f"(dh, dv) = ({hit[1]}, {hit[2]})",
+        [f"(dh, dv) = {pair}" for pair in pairs]) + "; dynamic shared "
+        "memory: " + ", ".join(f"{pair} {fa.wgmma_smem_bytes(*pair)} bytes"
+                               for pair in pairs))
     # (a) the kernel against its plain version on card tensors; in bf16
     # the wgmma body on the tensors and the mma body on an offset copy.
     t = time.perf_counter()
@@ -1495,13 +1530,13 @@ def phase_lm(dev, card):
     del cache, logits
     plain = fa.flash_attention_plain
 
-    def non_causal(q, k, v, *, causal=True):
+    def non_causal(q, k, v, *, causal=True, prefix_len=0):
         return plain(q, k, v, causal=False)
 
     zeroed = []
 
-    def layer0_zeroed(q, k, v, *, causal=True):
-        o = plain(q, k, v, causal=causal)
+    def layer0_zeroed(q, k, v, *, causal=True, prefix_len=0):
+        o = plain(q, k, v, causal=causal, prefix_len=prefix_len)
         if not zeroed:
             zeroed.append(True)
             o = torch.zeros_like(o)
@@ -3352,6 +3387,259 @@ def phase_whisper(dev, card):
     return launches, err, bodies
 
 
+# -- phase 12: paligemma-3b VLM serving ---------------------------------------
+PALI_ARCH = "paligemma-3b"
+# 8 images of 256 stub patches, each with a 64-token prompt (an
+# instruction or a question), then 32 greedy tokens: captioning and visual
+# question answering, one image, a short instruction, a short answer.
+PALI_BATCH, PALI_PROMPT, PALI_DECODE = 8, 64, 32
+# The flash kernel with a prefix (FLASH_CASES' layout): the served
+# prefill's shape, whose first 256 positions (the image) every row sees;
+# and a ragged prefix of 200, which straddles a key tile of every body, on
+# the wgmma body at (64, 64) and (128, 128) (and the mma body on their
+# offset copies), the mma body at 256 and the fp32 fma body at 256.
+PALI_FLASH = ("paligemma heads", PALI_BATCH, 256 + PALI_PROMPT, 1, 8, 256,
+              256, True, torch.bfloat16)
+PALI_RAGGED = 200
+PALI_RAGGED_CASES = (
+    ("qwen heads", 2, 320, 4, 1, 64, 64, True, torch.bfloat16),
+    ("chatglm3 heads", 2, 320, 1, 4, 128, 128, True, torch.bfloat16),
+    ("paligemma heads", 2, 320, 1, 8, 256, 256, True, torch.bfloat16),
+    ("paligemma heads", 2, 320, 1, 8, 256, 256, True, torch.float32))
+# Phase 12(b): layer 0's attention on PALI_CHECK_IMAGES images of the
+# served prefill's input, the card in bf16 against the CPU in fp32 from
+# the same bf16 weights: ||Δ|| <= PALI_LAYER_REL·||cpu||, the bound
+# phases 8-11 hold their layers to.  The card's layer run with
+# prefix_len=0 (the control) must fail it.
+PALI_CHECK_IMAGES = 2
+PALI_LAYER_REL = 2e-2
+# Phase 12(c): decode of text token P + 1 after a prefill of the image and
+# P tokens, in fp32 (a copy of the served bf16 weights, all 18 layers),
+# against the last position of the prefill of the image and P + 1 tokens:
+# logits within PALI_HANDOFF_TOL, phase 10(c)'s bound.  The same decode
+# after a prefill with vis_proj zeroed (another image in the cache: the
+# control) must fail it.
+PALI_HANDOFF_TOL = 2e-4
+
+
+def pali_flash(dev, card):
+    """Phase 12(a): the kernel with the prefix at the served shape and a
+    ragged one on every body, each beside its control, and the mma body
+    timed at the served shape; returns (max error, per-body record)."""
+    t = time.perf_counter()
+    say("[phase12] flash mma and fma bodies, ptxas: " + ptxas_report(
+        "flash_attention", r"flash_fwd_(mma_)?kernelILi(\d+)E",
+        lambda hit: f"{'mma' if hit[1] else 'fma'} at {hit[2]} columns",
+        [f"{b} at {w} columns" for b in ("mma", "fma")
+         for w in (64, 128, 256)]))
+    name, b, s, kvh, g, dh, dv, causal, _ = PALI_FLASH
+    prefix = get_config(PALI_ARCH).vision_tokens
+    err = check_flash_case(PALI_FLASH, dev, "phase12", prefix=prefix)[0]
+    for case in PALI_RAGGED_CASES:
+        err = max(err, check_flash_case(case, dev, "phase12",
+                                        prefix=PALI_RAGGED)[0])
+    tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3), dv=dv,
+                    prefix=prefix)
+    bd, by = flash_bound(b, s, kvh, g, dh, dv, causal, prefix=prefix)
+    mma, lib, lib_causal = tm["mma"], tm["library"], tm["library causal"]
+    reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                      for n, r in tm["reads"].items())
+    say(f"[phase12] flash {name} (B={b}, S={s}, KV={kvh}, G={g}, dh={dh}, "
+        f"dv={dv}, bf16, causal, prefix_len={prefix}): mma body {mma:.4f} ms"
+        f" ({bd / mma:.3f} of the bound), scaled_dot_product_attention with "
+        f"the prefix-LM mask {lib:.4f} ms (backend {tm['backend']}; the mma "
+        f"body at {lib / mma:.2f}x its speed), causal without the prefix "
+        f"{lib_causal:.4f} ms ({lib_causal / mma:.2f}x); plain "
+        f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}); readings in "
+        f"turns: {reads}  [{card}]")
+    say(f"[phase12] flash checks and timings in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    return err, {"mma": {"paligemma": {
+        "ms": mma, "bound_ms": bd, "plain_ms": tm["plain"],
+        "library_ms": lib, "library": tm["backend"],
+        "sdpa_causal_ms": lib_causal}}}
+
+
+def phase_vlm(dev, card):
+    """Phase 12; returns (launches, max error, per-body flash record at
+    paligemma's served prefill)."""
+    err, rec = pali_flash(dev, card)
+
+    # (serve) paligemma-3b at its published width and depth.
+    t = time.perf_counter()
+    cfg = get_config(PALI_ARCH)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    resident = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    say(f"[phase12] {PALI_ARCH}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim} (KV {cfg.num_kv_heads}), "
+        f"d_ff {cfg.d_ff} ({cfg.ffn_activation}), vocab {cfg.vocab_padded} "
+        f"(untied), {cfg.vision_tokens} vision tokens of "
+        f"{cfg.vision_embed_dim} through vis_proj; {n_params} parameters, "
+        f"{resident / 1e9:.3f} GB made on the card in "
+        f"{time.perf_counter() - t:.1f} s; nothing cut  [{card}]")
+    vis = cfg.vision_tokens
+    max_len = vis + PALI_PROMPT + PALI_DECODE + 8
+    eng = ServeEngine(lm, params, max_len=max_len)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PALI_BATCH, PALI_PROMPT + 1))).to(dev)
+    patches = torch.from_numpy(rng.standard_normal(
+        (PALI_BATCH, vis, cfg.vision_embed_dim)).astype(np.float32)).to(dev)
+    batch = {"inputs": prompts[:, :PALI_PROMPT], "patches": patches}
+    eng.generate(dict(batch, inputs=prompts[:, :16]), 2)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, PALI_DECODE)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    want_bodies = {name: cfg.num_layers if name == "mma" else 0
+                   for name in by_body}
+    if launches["flash_attention"] != cfg.num_layers or \
+            by_body != want_bodies:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve ({by_body}), not the mma body once a "
+                             f"layer ({cfg.num_layers}) and no other")
+    if tuple(out.shape) != (PALI_BATCH, PALI_DECODE) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             f"range [{int(out.min())}, {int(out.max())}]")
+    bodies = {name: dict(rec.get(name, {}), launches=by_body[name])
+              for name in by_body}
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
+        raise AssertionError("non-finite prefill logits")
+    kv_bytes = sum(x.numel() * x.element_size()
+                   for x in cache["sub0"].values())
+    shapes = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
+    tok = out[:, :1]
+    steps = PALI_DECODE - 1
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        _, cache = eng.decode_step(cache, tok, vis + PALI_PROMPT + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / steps
+    del logits, cache
+    say(f"[phase12] serve {PALI_BATCH} images x {vis} patches with "
+        f"{PALI_PROMPT}-token prompts + {PALI_DECODE} greedy tokens: "
+        f"generate {gen_s:.3f} s, launches {launches}, flash by body "
+        f"{by_body}; prefill {prefill_ms:.2f} ms "
+        f"({PALI_BATCH * (vis + PALI_PROMPT) / prefill_ms:.1f} positions/"
+        f"ms), decode {decode_ms:.3f} ms per step "
+        f"({PALI_BATCH * 1e3 / decode_ms:.1f} tokens/s); K/V cache {shapes}"
+        f" = {kv_bytes / 1e9:.4f} GB at max_len {max_len}; peak memory "
+        f"{peak / 1e9:.3f} GB (max_memory_allocated), "
+        f"{(peak - base) / 1e9:.3f} GB over the {base / 1e9:.3f} GB held "
+        f"before the serve  [{card}]")
+    say(f"[phase12] request 0's tokens: {out[0].tolist()}")
+    profile_serve(eng, batch, out, card,
+                  {"prefill": prefill_ms, "decode": decode_ms},
+                  tag="phase12")
+
+    # (b) layer 0's attention on PALI_CHECK_IMAGES images of the served
+    # prefill's input: card bf16 against CPU fp32 from the same weights,
+    # beside the card's run without the prefix.
+    t = time.perf_counter()
+    seen = []
+    with patched(attn, "attn_forward", first_input(attn.attn_forward, seen)):
+        eng.prefill(batch)
+    h0 = seen[0][:PALI_CHECK_IMAGES]
+    mixer0 = params["blocks"][0]["sub0"]["mixer"]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    got = attn.attn_forward(mixer0, h0, cfg, prefix_len=vis).cpu()
+    ctl = attn.attn_forward(mixer0, h0, cfg, prefix_len=0).cpu()
+    cpu = {name: w.cpu().float() for name, w in mixer0.items()}
+    want = attn.attn_forward(cpu, h0.cpu().float(), cfg32, prefix_len=vis)
+    r, rc = rel_err(got, want), rel_err(ctl, want)
+    say(f"[phase12] layer 0's attention on {PALI_CHECK_IMAGES} images "
+        f"({vis} + {PALI_PROMPT} positions, prefix_len {vis}), card bf16 vs "
+        f"CPU fp32: ||Δ||/||cpu|| {r:.3e} (tol {PALI_LAYER_REL}); control "
+        f"(the card's layer with prefix_len=0) {rc:.3e}; in "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    if not r <= PALI_LAYER_REL:
+        raise AssertionError(f"the card's layer 0 differs from the CPU's: "
+                             f"{r}")
+    if not rc > PALI_LAYER_REL:
+        raise AssertionError(f"the prefix_len=0 control passes the layer "
+                             f"check ({rc})")
+    del seen, h0, got, ctl, cpu, want
+
+    # (c) the handoff after the image: decode text token P + 1 after a
+    # prefill of the image and P tokens, against the last position of the
+    # prefill of the image and P + 1 tokens.
+    t = time.perf_counter()
+    p = PALI_PROMPT
+    nxt = prompts[:, p:p + 1]
+    real = slice(0, cfg.vocab_size)
+
+    def handoff(model, weights, control=False):
+        """(decode logits, the longer prefill's) over the real vocabulary;
+        ``control`` makes the cache from a prefill with ``vis_proj``
+        zeroed."""
+        ref, _ = model.prefill(weights, dict(batch, inputs=prompts[:, :p + 1]),
+                               vis + p + 2)
+        image = weights
+        if control:
+            image = dict(weights, vis_proj=torch.zeros_like(
+                weights["vis_proj"]))
+        _, lc = model.prefill(image, batch, vis + p + 2)
+        dec, _ = model.decode_step(weights, lc, nxt, vis + p)
+        return dec[:, real], ref[:, real]
+
+    lm32 = LM(cfg32)
+    params32 = tree_map(lambda x: x.float(), params)
+    dec, ref = handoff(lm32, params32)
+    d32 = float((dec - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    held = [i for i, gp in enumerate(gaps) if gp > 2 * d32]
+    d_tok, r_tok = dec.argmax(-1).tolist(), ref.argmax(-1).tolist()
+    ctl32 = float(torch.sub(*handoff(lm32, params32, control=True))
+                  .abs().max())
+    del params32, lm32, dec, ref
+    d16 = float(torch.sub(*handoff(lm, params)).abs().max())
+    say(f"[phase12] handoff after the image, fp32 copy of the weights (all "
+        f"{cfg.num_layers} layers): decode of text token {p + 1} after a "
+        f"{vis} + {p}-position prefill vs the {vis} + {p + 1}-position "
+        f"prefill's last position: logits max |Δ| {d32:.4e} (tol "
+        f"{PALI_HANDOFF_TOL}); first tokens held equal on {len(held)} of "
+        f"{len(gaps)} prompts (top-1/top-2 gap > 2|Δ|), smallest gap "
+        f"{min(gaps):.4f}; control (the cache's image through a zeroed "
+        f"vis_proj): {ctl32:.4e}; the served bf16 weights read {d16:.4e} "
+        f"(a reading, no bound); in {time.perf_counter() - t:.1f} s  "
+        f"[{card}]")
+    if not d32 <= PALI_HANDOFF_TOL:
+        raise AssertionError(f"decode after prefill differs from the longer "
+                             f"prefill: {d32}")
+    if any(d_tok[i] != r_tok[i] for i in held):
+        raise AssertionError(f"first tokens differ where the bound holds "
+                             f"them equal: {d_tok} vs {r_tok}")
+    if not ctl32 > PALI_HANDOFF_TOL:
+        raise AssertionError(f"a decode after a zeroed-vis_proj prefill "
+                             f"passes the handoff check ({ctl32})")
+    del params, eng, mixer0
+    return launches, err, bodies
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3405,7 +3693,9 @@ def main() -> int:
     x1 = ops.pad_x(torch.from_numpy(
         rng.standard_normal(k).astype(np.float32)).to(dev),
         plan.num_segments_local, plan.config.segment_width)
-    say(f"[phase1] spmv stream pass, ptxas: {spmv_build_report()}")
+    say("[phase1] spmv stream pass, ptxas: " + ptxas_report(
+        "serpens_spmv", r"spmv_kernelI(f|13__nv_bfloat16)E", value_type,
+        ("fp32", "bf16")))
     lanes = plan.config.lanes
     # A plan forced to two row windows of 8 lanes, 4 splits.
     multi = ks.spmv_plan_of(lanes, geo["num_rows_padded"], 8, 2, 4)
@@ -3414,7 +3704,10 @@ def main() -> int:
         e, line = compare_spmv(label, idx, val, seg, x1, geo, tpc, forced)
         errs["spmv"] = max(errs["spmv"], e)
         say(f"[phase1] {line}")
-    say(f"[phase1] spmm instantiations, ptxas: {spmm_build_report()}")
+    say("[phase1] spmm instantiations, ptxas: " + ptxas_report(
+        "serpens_spmv", r"spmm_kernelI(f|13__nv_bfloat16)Li(\d)E",
+        lambda hit: f"{value_type(hit)} v{hit[2]}",
+        [f"{t} v{n}" for t in ("fp32", "bf16") for n in (1, 2, 4)]))
 
     def spmm_cases(label, sidx, sval, sseg, sgeo, stpc, skp, sk, ns):
         """Every vector width (N = 16 or 64: v4 in row windows; 2: v2;
@@ -3703,7 +3996,24 @@ def main() -> int:
     for body, rec in whisper_bodies.items():
         flash_bodies[body]["launches"] += rec.pop("launches")
         flash_bodies[body].update(rec)
-    say(f"[phase11] ok in {time.perf_counter() - t11:.1f} s; whole run "
+    say(f"[phase11] ok in {time.perf_counter() - t11:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 12: paligemma-3b VLM serving (the eighteenth slice).  Phase
+    # 11's model went with its function; its cached blocks go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase12] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
+    t12 = time.perf_counter()
+    launches["vlm"], err12, vlm_bodies = phase_vlm(dev, card)
+    errs["flash_attention"] = max(errs["flash_attention"], err12)
+    for body, rec in vlm_bodies.items():
+        flash_bodies[body]["launches"] += rec.pop("launches")
+        flash_bodies[body].update(rec)
+    say(f"[phase12] ok in {time.perf_counter() - t12:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -3720,8 +4030,8 @@ def main() -> int:
         for name in sorted(KERNELS)]}
     # The flash kernel's bodies: launches on the main paths, and ms, bound
     # and library ms at the served shape, at prefill_32k, at llama4's
-    # served prefill, at minicpm3's and at whisper's encoder and cross
-    # shapes.
+    # served prefill, at minicpm3's, at whisper's encoder and cross
+    # shapes and at paligemma's prefix-LM prefill.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]

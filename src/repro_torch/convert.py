@@ -82,11 +82,13 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
     ``tree["blocks"]`` is period-stacked (leading axis ``num_periods``)
     and ``tree["encoder"]``, where there is one, layer-stacked (leading
     axis ``encoder_layers``); the port holds one dict per period and per
-    encoder layer.  A bf16 array arrives as fp32 or
-    as its ``uint16`` bit patterns; every leaf is cast to
-    ``cfg.param_dtype`` (those named in :data:`FP32_LEAVES` to fp32, as
-    the reference keeps them) and placed on ``device`` (default CUDA,
-    which raises without a card; pass ``device="cpu"`` for the CPU).
+    encoder layer.  The other top-level leaves (``embed``, ``lm_head``,
+    the norms, a VLM's ``vis_proj``) come across as they are.  A bf16
+    array arrives as fp32 or as its ``uint16`` bit patterns; every leaf
+    is cast to ``cfg.param_dtype`` (those named in :data:`FP32_LEAVES` to
+    fp32, as the reference keeps them) and placed on ``device`` (default
+    CUDA, which raises without a card; pass ``device="cpu"`` for the
+    CPU).
     """
     import torch
 

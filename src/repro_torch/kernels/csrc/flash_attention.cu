@@ -6,7 +6,10 @@
 //   q (B, Sq, KV, G, dh), k (B, Sk, KV, dh), v (B, Sk, KV, dv)
 //   -> o (B, Sq, KV, G, dv) in q's dtype,
 // with fp32 running max m, normaliser l and accumulator acc, keys past Sk
-// masked, GQA by grouping and dv != dh allowed.
+// masked, GQA by grouping, dv != dh and head dims up to 256 allowed.
+// Under causal, keys before prefix_len are seen by every row (prefix-LM,
+// a VLM's image tokens): the mask of the reference's chunked_attention,
+// which its model serves prefix-LM through.
 //
 // What bounds it on an H100: at the served shapes (Sq = Sk >= 2000,
 // dh = 64 or 128) the work is 4·Sq·Sk·dh flops per head (halved when
@@ -28,11 +31,13 @@
 //     scale·log2(e) folded in, and masks only tiles that straddle the
 //     diagonal or Sk.
 //   * flash_fwd_mma_kernel, every other bf16 shape (odd or mixed head
-//     dims, misaligned views): mma.sync m16n8k16 with tiles staged by all
-//     threads, no pipelining.
+//     dims, misaligned views, heads of 256): mma.sync m16n8k16 with tiles
+//     staged by all threads, no pipelining.
 //   * flash_fwd_kernel, fp32: fp32 FMAs on the CUDA cores (tensor cores
 //     would round the inputs to TF32), so the fp32 results keep fp32
 //     products.
+// The mma and fp32 bodies are built at 64, 128 and 256 columns; the widest
+// head dim picks one.
 // All three keep the traffic at the floor:
 //   * One block per (head, q tile); a loop inside the block walks the kv
 //     tiles (the TPU's sequential kv grid axis), so nothing carries between
@@ -42,9 +47,10 @@
 //     registers; O is written once.
 //   * GQA indexes kv head h / G instead of repeating K and V (the TPU
 //     wrapper's jnp.repeat), so K and V are read once per group.
-//   * Under causal masking the loop stops at the diagonal: kv tiles wholly
-//     above it are never loaded.  Heads run on grid x and q tiles, longest
-//     first, on grid y, so the long rows of every head start first.
+//   * Under causal masking the loop stops at the diagonal, or at the
+//     prefix's end if that is later: kv tiles wholly above both are never
+//     loaded.  Heads run on grid x and q tiles, longest first, on grid y,
+//     so the long rows of every head start first.
 //   * In bf16, P is rounded to bf16 before P·V, which accumulates in fp32
 //     (the reference's p.astype(v.dtype) with preferred_element_type f32).
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda at link time
@@ -59,6 +65,21 @@ constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // keys per kv tile
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr float kNegInf = -1e30f;
+
+// The mask, the reference's chunked_attention's: keys past Sk are never
+// seen; under causal a row sees the keys up to itself and, prefix-LM, every
+// key before prefix_len (0: none).  q and k both count from position 0.
+__device__ __forceinline__ bool visible(int key, int row, int sk, int causal,
+                                        int prefix_len) {
+  return key < sk && (!causal || key <= row || key < prefix_len);
+}
+
+// One past the last key a block of q rows ending before `row_end` reads:
+// under causal the keys past its last row are masked, save the prefix's.
+__device__ __forceinline__ int kv_end_of(int row_end, int sk, int causal,
+                                         int prefix_len) {
+  return causal ? max(min(sk, row_end), min(sk, prefix_len)) : sk;
+}
 
 // Shared memory, in floats: Q [kBQ][D+4], K [kBK][D+4] (aliased by
 // P [kBQ][kBK+4] once the scores are taken), V [kBK][D].
@@ -91,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int sq,
                      int sk, int kvh, int g, int dh, int dv, int causal,
-                     float scale) {
+                     int prefix_len, float scale) {
   constexpr int QS = D + 4;    // q / k row stride (floats)
   constexpr int PS = kBK + 4;  // p row stride
   constexpr int NC = D / 32;   // acc column chunks of 32 (4 per thread)
@@ -133,8 +154,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.f;
   }
 
-  // Keys past the last row of this tile are all masked under causal.
-  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int kv_end = kv_end_of(q0 + kBQ, sk, causal, prefix_len);
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -178,8 +198,8 @@ __global__ void __launch_bounds__(kThreads)
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + cg + 8 * j;
-        const bool ok = kpos < sk && (!causal || kpos <= qpos);
+        const bool ok =
+            visible(k0 + cg + 8 * j, qpos, sk, causal, prefix_len);
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -191,8 +211,8 @@ __global__ void __launch_bounds__(kThreads)
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + cg + 8 * j;
-        const bool ok = kpos < sk && (!causal || kpos <= qpos);
+        const bool ok =
+            visible(k0 + cg + 8 * j, qpos, sk, causal, prefix_len);
         const float p = ok ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
         s[i][j] = p;
@@ -265,7 +285,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int sq, int sk, int kvh, int g, int dh, int dv,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, int prefix_len, float scale,
+                   cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -275,7 +296,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, kvh, g,
-      dh, dv, causal, scale);
+      dh, dv, causal, prefix_len, scale);
   return cudaGetLastError();
 }
 
@@ -380,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
                          int sq, int sk, int kvh, int g, int dh, int dv,
-                         int causal, float scale, int vec) {
+                         int causal, int prefix_len, float scale, int vec) {
   constexpr int QS = D + 8;    // Q / K row stride (elements)
   constexpr int VS = kBK + 8;  // Vt row stride
   constexpr int KD = D / 16;   // 16-wide steps over the head dim
@@ -412,15 +433,12 @@ __global__ void __launch_bounds__(kThreads)
 
   stage_rows<D, QS>(Qs, qh, q_row, q0, sq, dh, vec);
   __syncthreads();
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const bf16* qp = Qs + (warp * 16 + gr) * QS + kk * 16 + 2 * tq;
-    qf[kk][0] = ld32(qp);
-    qf[kk][1] = ld32(qp + 8 * QS);
-    qf[kk][2] = ld32(qp + 8);
-    qf[kk][3] = ld32(qp + 8 * QS + 8);
-  }
+  // This warp's Q fragments are read again from Qs (which no tile
+  // overwrites) at each step kk of 16 columns.  Holding them across the
+  // loop takes D / 4 registers a thread: at 256 they do not fit beside
+  // acc, and at 128 they cost a block an SM and the body ran slower; at 64
+  // they gained a few percent (variant "Q held" of tools/flash_variants.py
+  // --body mma; PERF.md section 6).
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[NV][4];
@@ -429,7 +447,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int kv_end = kv_end_of(q0 + kBQ, sk, causal, prefix_len);
   const int n_tiles = (kv_end + kBK - 1) / kBK;
   const int warp_last_row = q0 + warp * 16 + 15;
 
@@ -439,8 +457,9 @@ __global__ void __launch_bounds__(kThreads)
     stage_rows<D, QS>(Ks, kh, k_row, k0, sk, dh, vec);
     stage_cols<D, VS>(Vt, vh, v_row, k0, sk, dv, vec);
     __syncthreads();
-    // A tile wholly above this warp's rows changes nothing: skip it.
-    if (causal && k0 > warp_last_row) continue;
+    // A tile wholly above this warp's rows and past the prefix changes
+    // nothing: skip it.
+    if (causal && k0 > warp_last_row && k0 >= prefix_len) continue;
 
     float s[8][4];
 #pragma unroll
@@ -448,12 +467,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      const bf16* qp = Qs + (warp * 16 + gr) * QS + kk * 16 + 2 * tq;
+      const uint32_t a[4] = {ld32(qp), ld32(qp + 8 * QS), ld32(qp + 8),
+                             ld32(qp + 8 * QS + 8)};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const bf16* kp = Ks + (j * 8 + gr) * QS + kk * 16 + 2 * tq;
-        mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+        mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
       }
+    }
 
     // Mask and online softmax; element e of n-tile j is row row0 + 8*(e/2),
     // key k0 + 8j + 2tq + (e & 1).
@@ -464,7 +487,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * tq + (e & 1);
         const int row = row0 + 8 * (e >> 1);
-        const bool ok = key < sk && (!causal || key <= row);
+        const bool ok = visible(key, row, sk, causal, prefix_len);
         s[j][e] = ok ? s[j][e] * scale : kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -482,7 +505,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * tq + (e & 1);
         const int row = row0 + 8 * (e >> 1);
-        const bool ok = key < sk && (!causal || key <= row);
+        const bool ok = visible(key, row, sk, causal, prefix_len);
         const float p = ok ? expf(s[j][e] - m_new[e >> 1]) : 0.f;
         sum[e >> 1] += p;
         s[j][e] = p;
@@ -540,7 +563,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int b, int sq, int sk, int kvh, int g, int dh, int dv,
-                       int causal, float scale, int vec, cudaStream_t stream) {
+                       int causal, int prefix_len, float scale, int vec,
+                       cudaStream_t stream) {
   const int smem = mma_smem_bytes<D>();
   auto kern = flash_fwd_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -550,7 +574,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), sq, sk, kvh, g, dh,
-      dv, causal, scale, vec);
+      dv, causal, prefix_len, scale, vec);
   return cudaGetLastError();
 }
 
@@ -843,8 +867,9 @@ template <int NS>
 __device__ __forceinline__ void softmax_step(float (&sc)[NS], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              bool mask, int k0, int sk,
-                                             int causal, int my_row,
-                                             int lane, float scale_log2) {
+                                             int causal, int prefix_len,
+                                             int my_row, int lane,
+                                             float scale_log2) {
   if (mask) {
 #pragma unroll
     for (int j = 0; j < NS / 4; ++j)
@@ -852,7 +877,8 @@ __device__ __forceinline__ void softmax_step(float (&sc)[NS], float (&m)[2],
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
         const int row = my_row + 8 * (e >> 1);
-        if (key >= sk || (causal && key > row)) sc[4 * j + e] = -INFINITY;
+        if (!visible(key, row, sk, causal, prefix_len))
+          sc[4 * j + e] = -INFINITY;
       }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -903,7 +929,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                            __grid_constant__ const CUtensorMap tv,
                            __grid_constant__ const CUtensorMap to, int sq,
                            int sk, int heads, int g, int causal,
-                           float scale_log2) {
+                           int prefix_len, float scale_log2) {
   using C = WgCfg<DH, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -918,8 +944,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int b = blockIdx.x / heads;
   const int kv = hq / g;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;
-  // Keys past the tile's last row are all masked under causal.
-  const int kv_end = causal ? min(sk, q0 + kWgBQ) : sk;
+  const int kv_end = kv_end_of(q0 + kWgBQ, sk, causal, prefix_len);
   const int n_tiles = (kv_end + C::BK - 1) / C::BK;
   const int wg = threadIdx.x / 128;
   const int tw = threadIdx.x % 128;
@@ -975,8 +1000,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int row0 = q0 + kQBoxRows * cw;            // this consumer's rows:
   const int my_row = row0 + 16 * warp + lane / 4;  // this thread's, and + 8
   const uint32_t sQw = sQ + kQBoxRows * cw * kRowBytes;
-  // The block's kv tiles end at its last row, and a 128-key tile reaches
-  // both consumers' rows: each consumer computes every tile.
+  // Each consumer computes every tile the block loads: a tile starts at or
+  // before q0 (a 128-key tile and q tiles of 128 rows), so both consumers'
+  // rows see its first key, or it starts inside the prefix, whose keys
+  // every row sees.
   static_assert(C::BK == kWgBQ, "a tile wholly above a consumer's rows");
   auto stage = [&](int t) { return sKV + (t % C::STAGES) * C::STAGE_BYTES; };
   auto wait_full = [&](int t) {
@@ -986,9 +1013,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * (t % C::STAGES));
   };
-  // Only tiles that straddle the diagonal or Sk are masked.
+  // Only tiles that straddle Sk, or under causal the diagonal and the
+  // prefix's end, are masked: a tile is whole when its last key is at or
+  // before this consumer's first row, or before prefix_len.
   auto edge = [&](int t) {
-    return (t + 1) * C::BK > sk || (causal && (t + 1) * C::BK - 1 > row0);
+    const int end = (t + 1) * C::BK;
+    return end > sk || (causal && end - 1 > row0 && end > prefix_len);
   };
 
   float o[NO];
@@ -1007,8 +1037,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_commit();
     wgmma_wait<0>();
     pin(sc);
-    softmax_step(sc, m, l, corr, edge(t), t * C::BK, sk, causal, my_row,
-                 lane, scale_log2);
+    softmax_step(sc, m, l, corr, edge(t), t * C::BK, sk, causal, prefix_len,
+                 my_row, lane, scale_log2);
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
     uint32_t pa[C::BK / 16][4];
@@ -1085,7 +1115,8 @@ template <int DH, int DV>
 int launch_wgmma(const void* const ptrs[4], const long long* dims,
                  const long long* strides, const int* boxes, int qk_boxes,
                  int vo_boxes, int b, int sq, int sk, int heads, int g,
-                 int causal, float scale, cudaStream_t stream) {
+                 int causal, int prefix_len, float scale,
+                 cudaStream_t stream) {
   using C = WgCfg<DH, DV>;
   // The maps' geometry comes from the caller; the boxes must be the tiles
   // this build was compiled for, and the column dims its head dims: q, k
@@ -1124,44 +1155,51 @@ int launch_wgmma(const void* const ptrs[4], const long long* dims,
   const dim3 grid((unsigned)(b * heads), (unsigned)((sq + kWgBQ - 1) / kWgBQ));
   kern<<<grid, kWgThreads, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], maps[3], sq, sk, heads, g, causal,
-      scale * 1.4426950408889634f);
+      prefix_len, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous, in the layouts above, all fp32 or all bf16.
-// dh, dv <= 128; the caller validates shapes.  Returns the CUDA status.
+// dh, dv <= 256: the widest of them picks the build (64, 128 or 256
+// columns).  prefix_len >= 0 (ignored unless causal); the caller
+// validates shapes.  Returns the CUDA status.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int sq,
                                    int sk, int kvh, int g, int dh, int dv,
-                                   int causal, int is_bf16, float scale,
-                                   void* stream) {
-  if (dh < 1 || dv < 1 || dh > 128 || dv > 128 || sq < 1 || sk < 1)
+                                   int causal, int prefix_len, int is_bf16,
+                                   float scale, void* stream) {
+  if (dh < 1 || dv < 1 || dh > 256 || dv > 256 || sq < 1 || sk < 1 ||
+      prefix_len < 0)
     return (int)cudaErrorInvalidValue;
-  const bool wide = dh > 64 || dv > 64;
+  const int width = max(dh, dv);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (is_bf16) {
-    const bool vec =
+    const int vec =
         dh % 8 == 0 && dv % 8 == 0 &&
         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
           reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    err = wide ? launch_mma<128>(q, k, v, o, b, sq, sk, kvh, g, dh, dv,
-                                 causal, scale, vec, s)
-               : launch_mma<64>(q, k, v, o, b, sq, sk, kvh, g, dh, dv,
-                                causal, scale, vec, s);
-  } else {
-    err = wide ? launch<128>(q, k, v, o, b, sq, sk, kvh, g, dh, dv, causal,
-                             scale, s)
-               : launch<64>(q, k, v, o, b, sq, sk, kvh, g, dh, dv, causal,
-                            scale, s);
+    auto run = [&](auto kern) {
+      return kern(q, k, v, o, b, sq, sk, kvh, g, dh, dv, causal, prefix_len,
+                  scale, vec, s);
+    };
+    return (int)(width > 128 ? run(launch_mma<256>)
+                 : width > 64 ? run(launch_mma<128>)
+                              : run(launch_mma<64>));
   }
-  return (int)err;
+  auto run = [&](auto kern) {
+    return kern(q, k, v, o, b, sq, sk, kvh, g, dh, dv, causal, prefix_len,
+                scale, s);
+  };
+  return (int)(width > 128 ? run(launch<256>)
+               : width > 64 ? run(launch<128>)
+                            : run(launch<64>));
 }
 
 // The Hopper bf16 body: q, k, v, o contiguous bf16 in the layouts above,
-// (dh, dv) in {(64, 64), (128, 128), (96, 64)}, 16-byte-aligned bases.
+// (dh, dv) in {(64, 64), (128, 128), (96, 64)}, 16-byte-aligned bases;
+// prefix_len >= 0 as flash_attention_fwd's.
 // dims, strides and boxes describe the rank-4 maps of q, k, v and o in
 // that order (4 dims innermost first, the byte strides of dims 1-3, 4 box
 // dims each); qk_boxes and vo_boxes are the 64-column boxes across dh and
@@ -1174,24 +1212,25 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const int* boxes, int qk_boxes,
                                          int vo_boxes, int b, int sq, int sk,
                                          int heads, int g, int dh, int dv,
-                                         int causal, float scale,
-                                         void* stream) {
-  if (sq < 1 || sk < 1 || b < 1 || heads < 1 || g < 1 || heads % g != 0)
+                                         int causal, int prefix_len,
+                                         float scale, void* stream) {
+  if (sq < 1 || sk < 1 || b < 1 || heads < 1 || g < 1 || heads % g != 0 ||
+      prefix_len < 0)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   auto s = static_cast<cudaStream_t>(stream);
   if (dh == 64 && dv == 64)
     return launch_wgmma<64, 64>(ptrs, dims, strides, boxes, qk_boxes,
-                                vo_boxes, b, sq, sk, heads, g, causal, scale,
-                                s);
+                                vo_boxes, b, sq, sk, heads, g, causal,
+                                prefix_len, scale, s);
   if (dh == 128 && dv == 128)
     return launch_wgmma<128, 128>(ptrs, dims, strides, boxes, qk_boxes,
                                   vo_boxes, b, sq, sk, heads, g, causal,
-                                  scale, s);
+                                  prefix_len, scale, s);
   if (dh == 96 && dv == 64)
     return launch_wgmma<96, 64>(ptrs, dims, strides, boxes, qk_boxes,
-                                vo_boxes, b, sq, sk, heads, g, causal, scale,
-                                s);
+                                vo_boxes, b, sq, sk, heads, g, causal,
+                                prefix_len, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

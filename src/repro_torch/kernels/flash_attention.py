@@ -11,8 +11,13 @@ inputs' dtype, head dims and alignment alone:
   16-byte-aligned bases (the served heads).  TMA brings K/V tiles into a
   ring of shared-memory stages and ``wgmma`` runs both products; its
   rank-4 tensor maps are described by :func:`tma_geometry`.
-* ``"mma"``: every other bf16 shape, on ``mma.sync`` tensor cores.
+* ``"mma"``: every other bf16 shape (heads of 256 among them), on
+  ``mma.sync`` tensor cores.
 * ``"fma"``: fp32, on CUDA-core FMAs (fp32 products, as the reference's).
+
+Head dims go up to :data:`MAX_HEAD_DIM` (256).  Under ``causal`` a
+``prefix_len`` makes the keys before it visible to every row (prefix-LM:
+a VLM's image tokens), the mask of the reference's ``chunked_attention``.
 
 The choice is no fallback: a body that fails to build or launch raises.
 The source is compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
@@ -28,6 +33,7 @@ runs the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import operator
 from typing import NamedTuple
 
 import torch
@@ -40,9 +46,10 @@ flash_launches = 0
 flash_launches_by_body = {"wgmma": 0, "mma": 0, "fma": 0}
 
 NEG_INF = -1e30
-# The kernel keeps a 64-row tile of q, K and V in shared memory and acc in
-# registers: head dims up to 128.
-MAX_HEAD_DIM = 128
+# The mma and fma bodies keep a 64-row tile of q, K and V in shared memory
+# and acc in registers, built at 64, 128 and 256 columns: head dims up to
+# 256.
+MAX_HEAD_DIM = 256
 _Q_TILE = 64
 _MAX_GRID_Y = 65535
 # Rows of q per step of the plain version: bounds its fp32 score tensor.
@@ -70,13 +77,13 @@ def build():
 def _declare(lib) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
-                                        i32, i32, i32, i32, ctypes.c_float,
-                                        p]
+                                        i32, i32, i32, i32, i32,
+                                        ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i32
     i64s, i32s = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i32)
     lib.flash_attention_fwd_wgmma.argtypes = [
         p, p, p, p, i64s, i64s, i32s, i32, i32, i32, i32, i32, i32, i32,
-        i32, i32, i32, ctypes.c_float, p]
+        i32, i32, i32, i32, ctypes.c_float, p]
     lib.flash_attention_fwd_wgmma.restype = i32
     lib.flash_attention_wgmma_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_wgmma_smem_bytes.restype = i32
@@ -157,11 +164,19 @@ def _check(q, k, v) -> tuple[int, ...]:
     return b, sq, sk, kvh, g, dh, dv
 
 
-def flash_attention_plain(q, k, v, *, causal=True):
+def _check_prefix(prefix_len) -> int:
+    prefix_len = operator.index(prefix_len)
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    return prefix_len
+
+
+def flash_attention_plain(q, k, v, *, causal=True, prefix_len=0):
     """The kernel's function in torch ops: fp32 scores and softmax over
     whole rows, P rounded to v's dtype before P·V in fp32, output in q's
     dtype.  q runs in chunks of rows to bound the score tensor."""
     b, sq, sk, kvh, g, dh, dv = _check(q, k, v)
+    prefix_len = _check_prefix(prefix_len)
     scale = dh ** -0.5
     kf, vf = k.float(), v.float()
     out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=q.device)
@@ -171,7 +186,8 @@ def flash_attention_plain(q, k, v, *, causal=True):
         s = torch.einsum("bckgd,bskd->bkgcs", qc, kf) * scale
         if causal:
             qpos = torch.arange(c0, c0 + qc.shape[1], device=q.device)
-            ok = kpos[None, :] <= qpos[:, None]
+            ok = (kpos[None, :] <= qpos[:, None]) | \
+                (kpos[None, :] < prefix_len)
             s = s.masked_fill(~ok, NEG_INF)
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         if causal:
@@ -182,17 +198,20 @@ def flash_attention_plain(q, k, v, *, causal=True):
     return out
 
 
-def flash_attention(q, k, v, *, causal=True):
+def flash_attention(q, k, v, *, causal=True, prefix_len=0):
     """q: (B, Sq, KV, G, dh); k: (B, Sk, KV, dh); v: (B, Sk, KV, dv).
 
     Returns (B, Sq, KV, G, dv) in q's dtype: attention of each q row over
-    the keys (``kpos <= qpos`` when causal, q and k both from position 0),
-    head ``(kv, g)`` reading kv head ``kv``.
+    the keys (``kpos <= qpos or kpos < prefix_len`` when causal, q and k
+    both from position 0; ``prefix_len`` is ignored otherwise), head
+    ``(kv, g)`` reading kv head ``kv``.
     """
     b, sq, sk, kvh, g, dh, dv = _check(q, k, v)
+    prefix_len = _check_prefix(prefix_len)
     dev = q.device
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     prefix_len=prefix_len)
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {dev}")
     if max(dh, dv) > MAX_HEAD_DIM:
@@ -209,6 +228,9 @@ def flash_attention(q, k, v, *, causal=True):
     out = torch.empty((b, sq, kvh, g, dv), dtype=q.dtype, device=dev)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # Keys past Sk are never seen, so a longer prefix is Sk's (and fits the
+    # kernel's int).
+    prefix = min(prefix_len, sk)
     if body == "wgmma":
         geo = tma_geometry(b, sq, sk, kvh, g, dh, dv)
         maps = [geo[n] for n in ("q", "k", "v", "o")]
@@ -220,10 +242,10 @@ def flash_attention(q, k, v, *, causal=True):
         status = lib.flash_attention_fwd_wgmma(
             *ptrs, dims, strides, boxes, geo["qk_col_boxes"],
             geo["vo_col_boxes"], b, sq, sk, kvh * g, g, dh, dv, int(causal),
-            dh ** -0.5, stream)
+            prefix, dh ** -0.5, stream)
     else:
         status = lib.flash_attention_fwd(
-            *ptrs, b, sq, sk, kvh, g, dh, dv, int(causal),
+            *ptrs, b, sq, sk, kvh, g, dh, dv, int(causal), prefix,
             int(body == "mma"), dh ** -0.5, stream)
     if status < 0:
         raise RuntimeError(f"flash_attention ({body}): cuTensorMapEncodeTiled"

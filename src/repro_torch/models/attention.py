@@ -21,9 +21,12 @@ k_nope]``, one KV head per query head, and the decode cache holds only
 the latent ``c_kv`` (before ``kv_norm``) and ``k_rope`` (after RoPE),
 expanded through ``wkv_b`` at every step.
 
-Not ported yet, each raising ``NotImplementedError``: the int8 KV cache,
-the sequence-sharded decode (multi-GPU slice) and the VLM's
-``prefix_len`` on the card.
+A VLM's prefix-LM mask (``prefix_len``: the image tokens, seen by every
+row) runs in the flash kernel on the card, and in
+:func:`chunked_attention` on the CPU.
+
+Not ported yet, each raising ``NotImplementedError``: the int8 KV cache
+and the sequence-sharded decode (multi-GPU slice).
 """
 from __future__ import annotations
 
@@ -183,22 +186,21 @@ def _project_qkv(p, x, cfg, positions=None):
 
 def attn_forward(p, x, cfg, *, causal=True, prefix_len=0, positions=None,
                  return_kv=False):
-    """Full-sequence attention.  x: (B, S, D).
+    """Full-sequence attention.  x: (B, S, D).  ``prefix_len``: under
+    ``causal``, the positions every row sees (prefix-LM).
 
     Off the CPU the scores run in the flash-attention kernel; on the CPU
     they run in :func:`chunked_attention`.
     """
     b, s, _ = x.shape
     on_card = x.device.type != "cpu"
-    if on_card and prefix_len:
-        raise _not_ported("a prefix-LM mask (prefix_len > 0) in the "
-                          "flash-attention kernel", "the VLM slice")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions=positions)
     qg = _grouped(q, cfg.num_kv_heads)
     if on_card:
-        o = fa.flash_attention(qg, k, v, causal=causal)
+        o = fa.flash_attention(qg, k, v, causal=causal,
+                               prefix_len=prefix_len)
     else:
         o = chunked_attention(qg, k, v, causal=causal,
                               prefix_len=prefix_len, chunk=cfg.attn_chunk,

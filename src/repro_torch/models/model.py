@@ -3,7 +3,8 @@
 The port of the reference package's ``models/model.py`` for layouts of
 ``("attn" | "attn_cross" | "mamba", "dense" | "moe" | "none")``
 sub-layers (qwen1.5, codeqwen1.5, chatglm3; minicpm3's MLA; llama4 scout
-and maverick; mamba2 and the jamba hybrid; the Whisper encoder-decoder).
+and maverick; mamba2 and the jamba hybrid; the Whisper encoder-decoder;
+the PaliGemma VLM).
 The parameters keep the reference's tree, with its stacks as Python
 lists: ``params["blocks"][period]["sub0"]`` holds one layer, and
 ``params["encoder"][layer]`` one encoder layer; the reference's ``scan``
@@ -26,8 +27,16 @@ The encoder runs over the batch's ``frames`` (B, encoder_seq, D), the
 stub frame embeddings, in prefill only: non-causal self-attention with
 RoPE at positions 0..Se-1 (the config's stated adaptation).
 
-The vision prefix and the int8 KV cache raise ``NotImplementedError`` at
-construction, and so does ``loss`` (the training slice).
+A VLM's batch carries ``patches`` (B, vision_tokens, vision_embed_dim),
+the stub image embeddings: the prefill projects them through
+``params["vis_proj"]`` (unscaled; the tokens' embeddings are scaled by
+√d) and prepends them to the tokens, and every self-attention of the
+prefill runs under the prefix-LM mask with ``prefix_len`` =
+``vision_tokens``.  Decode needs no mask: one new text token sees every
+cached position.
+
+The int8 KV cache raises ``NotImplementedError`` at construction, and
+``loss`` (the training slice) when called.
 """
 from __future__ import annotations
 
@@ -44,12 +53,9 @@ from repro_torch.models.layers import (
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    for what, absent, where in (
-            ("the vision prefix", not cfg.vision_tokens, "the VLM slice"),
-            ("the int8 KV cache", not cfg.kv_cache_quant,
-             "the int8-KV slice")):
-        if not absent:
-            raise attn._not_ported(f"{cfg.arch_id}: {what}", where)
+    if cfg.kv_cache_quant:
+        raise attn._not_ported(f"{cfg.arch_id}: the int8 KV cache",
+                               "the int8-KV slice")
     for mixer, ffn in cfg.layout:
         if mixer not in ("attn", "attn_cross", "mamba") or \
                 ffn not in ("dense", "moe", "none"):
@@ -111,17 +117,22 @@ class LM:
             } for _ in range(cfg.encoder_layers)]
             params["enc_final_norm"] = torch.ones(cfg.d_model, dtype=dt,
                                                   device=dev)
+        if cfg.vision_tokens:
+            params["vis_proj"] = dense_init(generator, cfg.vision_embed_dim,
+                                            cfg.d_model, dt)
         return params
 
     # ------------------------------------------------------------------
     # Shared block machinery
     # ------------------------------------------------------------------
-    def _period_fwd(self, pp, x, *, enc_out=None, cache=None, pos=None):
+    def _period_fwd(self, pp, x, *, enc_out=None, prefix_len=0, cache=None,
+                    pos=None):
         """One period.  Prefill (``cache is None``) returns the period's new
         cache entries; decode writes into ``cache`` (this period's slices)
         in place.  ``enc_out``: the encoder's output, which a
         cross-attention sub-layer reads in prefill (decode reads its
-        cached ``xk``/``xv``)."""
+        cached ``xk``/``xv``).  ``prefix_len``: the prefill's prefix-LM
+        positions (the vision tokens), handed to every self-attention."""
         cfg = self.cfg
         new_cache = {}
         for i, (mixer, ffn) in enumerate(cfg.layout):
@@ -145,7 +156,8 @@ class LM:
                     cache[key]["krope"], pos)
             elif cache is None:
                 out, (k, v) = attn.attn_forward(
-                    sp["mixer"], h, cfg, causal=cfg.causal, return_kv=True)
+                    sp["mixer"], h, cfg, causal=cfg.causal,
+                    prefix_len=prefix_len, return_kv=True)
                 new_cache[key] = {"k": k, "v": v}
             else:
                 out, _, _ = attn.attn_decode(
@@ -188,13 +200,20 @@ class LM:
         return x * (self.cfg.d_model ** 0.5)
 
     def _embed_inputs(self, params, batch):
-        """Token embedding and, for an encoder-decoder, the encoder's
-        output (else None).  Returns (x, enc_out); the reference's vision
-        prefix comes with the VLM slice."""
+        """Token embedding, after a VLM's projected ``patches`` (its
+        vision prefix), and, for an encoder-decoder, the encoder's output
+        (else None).  Returns (x, prefix_len, enc_out)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["inputs"])
+        prefix_len = 0
         enc_out = None
-        if self.cfg.encoder_layers:
+        if cfg.vision_tokens:
+            vis = batch["patches"].to(self.adtype) @ params["vis_proj"]
+            x = torch.cat([vis, x], dim=1)
+            prefix_len = cfg.vision_tokens
+        if cfg.encoder_layers:
             enc_out = self._encode(params, batch["frames"])
-        return self._embed_tokens(params, batch["inputs"]), enc_out
+        return x, prefix_len, enc_out
 
     def _lm_logits_chunk(self, params, h):
         """fp32 logits: the reference contracts bf16 operands with
@@ -237,10 +256,11 @@ class LM:
     def prefill(self, params, batch, max_len):
         """Run the prompt; returns (last-position logits, cache)."""
         cfg = self.cfg
-        x, enc_out = self._embed_inputs(params, batch)
+        x, prefix_len, enc_out = self._embed_inputs(params, batch)
         per_period = []
         for pp in params["blocks"]:
-            x, ent = self._period_fwd(pp, x, enc_out=enc_out)
+            x, ent = self._period_fwd(pp, x, enc_out=enc_out,
+                                      prefix_len=prefix_len)
             per_period.append(ent)
         caches = {key: {name: torch.stack([e[key][name]
                                            for e in per_period])

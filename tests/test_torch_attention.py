@@ -270,12 +270,15 @@ def test_attn_decode_matches_reference(arch):
 
 
 def test_prefix_len_off_the_cpu_raises():
-    """The kernel has no prefix-LM mask: a prefix off the CPU raises."""
+    """Off the CPU a prefix goes to the flash kernel's wrapper, which has
+    no kernel for the ``meta`` device and raises there: the prefix itself
+    is no longer refused."""
     cfg = reduced_config("qwen1.5-0.5b")
     _, tp = mixer_params(cfg, 15)
     meta = {n: t.to("meta") for n, t in tp.items()}
     x = torch.empty((1, 8, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="VLM"):
+    with pytest.raises(ValueError, match="no flash-attention kernel for "
+                                         "device meta"):
         tattn.attn_forward(meta, x, cfg, prefix_len=4)
     # On the CPU the model's own path takes the prefix.
     out = tattn.attn_forward(tp, torch.zeros(1, 8, 64), cfg, prefix_len=4)

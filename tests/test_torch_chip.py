@@ -642,6 +642,97 @@ def test_flash_mma_body_at_the_mla_pair(card, shape):
     check_bf16_flash(got, fa.flash_attention_plain(q, k, v, causal=causal))
 
 
+# The prefix-LM mask (prefix_len: keys before it seen by every row) on
+# every body: body -> (dtype, dh, dv, offset copy).  The mma body takes
+# paligemma's heads of 256 and, one element into its storage, the served
+# heads; the fma body fp32 at 64 and 256.
+PREFIX_BODIES = {
+    "wgmma-d64": (torch.bfloat16, 64, 64, False),
+    "wgmma-d128": (torch.bfloat16, 128, 128, False),
+    "wgmma-mla": (torch.bfloat16, 96, 64, False),
+    "mma-d64": (torch.bfloat16, 64, 64, True),
+    "mma-d256": (torch.bfloat16, 256, 256, False),
+    "fma-d64": (torch.float32, 64, 64, False),
+    "fma-d256": (torch.float32, 256, 256, False),
+}
+# b, sq, sk, kv, g, prefix: aligned to the wgmma body's 128-key tile (and
+# two of the others' 64), ragged (200 straddles a tile of every body), a
+# prefix at and past Sq (every key seen: non-causal), Sq < Sk and Sq > Sk
+# (q and k positions both from 0, as the causal mask counts them).
+PREFIX_SHAPES = {
+    "aligned": (2, 300, 300, 1, 4, 128),
+    "ragged": (2, 300, 300, 2, 2, 200),
+    "at-sq": (1, 150, 150, 2, 1, 150),
+    "past-sq": (2, 130, 130, 1, 2, 1000),
+    "sq-lt-sk": (2, 200, 333, 2, 1, 250),
+    "sq-gt-sk": (1, 333, 200, 1, 2, 64),
+    "paligemma-g8": (2, 320, 320, 1, 8, 256),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PREFIX_SHAPES))
+@pytest.mark.parametrize("body", sorted(PREFIX_BODIES))
+def test_flash_prefix_mask_matches_plain(card, body, shape):
+    """Each body against ``flash_attention_plain`` with the same prefix;
+    the same call with ``prefix_len=0`` (the control) must fail it."""
+    dtype, dh, dv, offset = PREFIX_BODIES[body]
+    b, sq, sk, kv, g, prefix = PREFIX_SHAPES[shape]
+    q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv,
+                           sq + sk + dh + prefix)
+    want = fa.flash_attention_plain(q, k, v, prefix_len=prefix)
+    if offset:
+        q, k, v = map(offset_copy, (q, k, v))
+    before = dict(fa.flash_launches_by_body)
+    got = fa.flash_attention(q, k, v, prefix_len=prefix)
+    ctl = fa.flash_attention(q, k, v, prefix_len=0)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in fa.flash_launches_by_body.items()}
+    assert ran == {n: 2 * (n == body.split("-")[0]) for n in ran}
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(ctl, want, rtol=2e-5, atol=2e-5)
+    else:
+        check_bf16_flash(got, want)
+        with pytest.raises(AssertionError):
+            check_bf16_flash(ctl, want)
+
+
+# Heads of 256 (and others above 128) on the mma and fma bodies:
+# b, sq, sk, kv, g, dh, dv, causal.
+D256_SHAPES = {
+    "d256-causal": (2, 200, 200, 1, 8, 256, 256, True),
+    "d256-non-causal": (2, 130, 170, 1, 2, 256, 256, False),
+    "d256-sq-lt-sk": (1, 77, 260, 2, 1, 256, 256, True),
+    "d256-dv128": (1, 100, 100, 2, 1, 256, 128, True),
+    "d136-dv200": (1, 70, 70, 1, 2, 136, 200, False),
+    "d250-odd": (1, 45, 45, 1, 2, 250, 250, True),
+}
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(D256_SHAPES))
+def test_flash_wide_heads_match_plain(card, shape, dtype, offset):
+    """Head dims past 128 build the 256-column mma (bf16) and fma (fp32)
+    bodies; ``offset`` gives them copies one element into their storage,
+    where no 16-byte load may be taken."""
+    b, sq, sk, kv, g, dh, dv, causal = D256_SHAPES[shape]
+    q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv,
+                           sq + sk + dh)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    if offset:
+        q, k, v = map(offset_copy, (q, k, v))
+        assert q.data_ptr() % 16 != 0
+    got, body = run_flash(q, k, v, causal)
+    assert body == ("fma" if dtype == torch.float32 else "mma")
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        check_bf16_flash(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_flash_kernel_on_misaligned_inputs(card, dtype):
@@ -674,19 +765,15 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(card):
                            k, v)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="up to 128"):
-        fa.flash_attention(torch.randn((1, 16, 2, 2, 160), device=card),
-                           torch.randn((1, 16, 2, 160), device=card), v)
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention(torch.randn((1, 16, 2, 2, 264), device=card),
+                           torch.randn((1, 16, 2, 264), device=card), v)
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention(q, k, torch.randn((1, 16, 2, 272), device=card))
     with pytest.raises(ValueError, match="cpu"):
         fa.flash_attention(q, k.cpu(), v)
-    with pytest.raises(TypeError):
-        fa.flash_attention(q, k, v, prefix_len=4)
-    cfg = reduced_config("qwen1.5-0.5b")
-    p = tattn.attn_init(torch.Generator(device=card).manual_seed(0), cfg,
-                        torch.float32)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        tattn.attn_forward(p, torch.randn((1, 8, 64), device=card), cfg,
-                           prefix_len=4)
+    with pytest.raises(ValueError, match="prefix_len"):
+        fa.flash_attention(q, k, v, prefix_len=-1)
 
 
 def test_reduced_lm_generate_on_the_card(card):
@@ -860,6 +947,52 @@ def test_reduced_whisper_generate_on_the_card(card, dtype):
                                     activation_dtype="float32")
         exact, _ = LM(cfg32).prefill(tree_map(lambda t: t.float(), params),
                                      batch, 32)
+        exact = exact[:, real]
+
+        def dist(x):
+            return float((x[:, real] - exact).norm() / exact.norm())
+
+        assert dist(got) <= 2 * dist(want), (dist(got), dist(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_paligemma_generate_on_the_card(card, dtype):
+    """Reduced paligemma-3b (8 vision tokens, 2 layers, heads of 16 over
+    1 KV head) on the card against the same model on the CPU.  Its
+    prefill runs the flash kernel once a layer with the prefix, on the
+    fma body in fp32 and the mma body in bf16.  fp32: logits within 1e-4
+    and greedy tokens equal.  bf16: the card's logits lie no farther, in
+    norm, from an fp32 run of the same weights than twice the CPU's bf16
+    logits do."""
+    cfg = dataclasses.replace(reduced_config("paligemma-3b"),
+                              param_dtype=dtype, activation_dtype=dtype)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    on_card = tree_map(lambda t: t.to(card), params)
+    rng = np.random.default_rng(5)
+    batch = {"inputs": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 40))),
+        "patches": torch.from_numpy(rng.standard_normal(
+            (2, cfg.vision_tokens, cfg.vision_embed_dim)).astype(
+                np.float32))}
+    gbatch = {k: t.to(card) for k, t in batch.items()}
+    max_len = cfg.vision_tokens + 40 + 8
+    body = "fma" if dtype == "float32" else "mma"
+    before = fa.flash_launches_by_body[body]
+    logits, _ = lm.prefill(on_card, gbatch, max_len)
+    assert fa.flash_launches_by_body[body] - before == cfg.num_layers
+    want, _ = lm.prefill(params, batch, max_len)
+    got, real = logits.cpu(), slice(0, cfg.vocab_size)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        out = ServeEngine(lm, on_card, max_len).generate(gbatch, 8)
+        ref = ServeEngine(lm, params, max_len).generate(batch, 8)
+        assert torch.equal(out.cpu(), ref)
+    else:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activation_dtype="float32")
+        exact, _ = LM(cfg32).prefill(tree_map(lambda t: t.float(), params),
+                                     batch, max_len)
         exact = exact[:, real]
 
         def dist(x):

@@ -41,6 +41,8 @@ def qkv(b, sq, sk, kv, g, dh, dv, dtype=torch.bfloat16, offset=0):
     (torch.bfloat16, 96, 96, 0, "mma"),        # a head dim it is not built for
     (torch.bfloat16, 32, 32, 0, "mma"),
     (torch.bfloat16, 20, 13, 0, "mma"),        # odd dims
+    (torch.bfloat16, 256, 256, 0, "mma"),      # paligemma's heads
+    (torch.bfloat16, 256, 128, 0, "mma"),
     (torch.float32, 64, 64, 0, "fma"),
     (torch.float32, 128, 128, 0, "fma"),
     (torch.float32, 64, 64, 1, "fma"),

@@ -491,12 +491,6 @@ def test_random_init_from_a_generator():
     assert a["embed"].shape == (cfg.vocab_padded, cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b"])
-def test_unported_families_raise_at_construction(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LM(tconfigs.reduced_config(arch))
-
-
 def test_unported_options_raise():
     cfg = tconfigs.reduced_config("chatglm3-6b")
     with pytest.raises(NotImplementedError, match="int8"):

@@ -395,8 +395,9 @@ def test_the_card_path_runs_the_kernel_three_times_a_layer():
     _, _, tlm, tparams, cfg = models()
     calls = []
 
-    def record(q, k, v, *, causal=True):
+    def record(q, k, v, *, causal=True, prefix_len=0):
         assert q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+        assert prefix_len == 0
         calls.append((q.shape[1], k.shape[1], causal))
         b, sq, kvh, g, _ = q.shape
         return torch.empty((b, sq, kvh, g, v.shape[-1]), dtype=q.dtype,
@@ -427,11 +428,6 @@ def test_modality_stub_frames_match_reference():
     assert tuple(got["frames"].shape) == (3, cfg.encoder_seq, cfg.d_model)
     np.testing.assert_array_equal(got["frames"].numpy(),
                                   np.asarray(want["frames"]))
-
-
-def test_the_vision_prefix_still_raises():
-    with pytest.raises(NotImplementedError, match="vision prefix"):
-        LM(tconfigs.reduced_config("paligemma-3b"))
 
 
 def test_serve_launcher_on_the_cpu():
