@@ -69,11 +69,12 @@ package.  Phases:
    at scale 0.25 and says so; the G7 PageRank never shrinks.
 5. LM serving (the third slice's path) through the flash-attention
    kernel, whose bf16 served heads run its Hopper body (``wgmma``: TMA
-   K/V ring, wgmma, a producer warpgroup); ``flash_body`` picks the body
-   from dtype, head dims and alignment, and the per-body counters show
-   which ran.  The wgmma body's ``-Xptxas=-v`` lines are printed (a spill
-   fails the run).  (a) The kernel against its plain version on card
-   tensors at qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32),
+   K/V ring, wgmma, a producer warpgroup up to 128 columns);
+   ``flash_body`` picks the body from dtype, head dims and alignment, and
+   the per-body counters show which ran.  The wgmma body's
+   ``-Xptxas=-v`` lines are printed (a spill, or wgmma that ptxas
+   serialised, fails the run).  (a) The kernel against its plain version
+   on card tensors at qwen1.5-0.5b heads (B = 4, S = 2000, bf16 and fp32),
    chatglm3-6b heads (KV = 2, G = 16, dh = 128, S = 4096, bf16), one
    non-causal case, one with dv ≠ dh in fp32 and minicpm3-4b's MLA heads
    (B = 4, S = 2000, 40 heads, dh = 96, dv = 64, bf16); each bf16 case
@@ -256,25 +257,27 @@ package.  Phases:
    band, and the same decode with the cache's ``xk`` zeroed must fail.
 12. The VLM slice (paligemma-3b: the vision prefix and its prefix-LM
    mask).  The mma and fma bodies' ``-Xptxas=-v`` lines at 64, 128 and
-   256 columns are printed (a spill fails the run).
+   256 columns and the wgmma body's at (256, 256), with its shared
+   memory, are printed (a spill fails the run).
    (a) The flash kernel with a prefix against its plain version: the
    served shape (8, 320, 320, 1 KV, G 8, 256, 256) with ``prefix_len``
-   256 in bf16 on the mma body, and a ragged prefix of 200 on the wgmma
-   body at (64, 64) and (128, 128) (and the mma body on their offset
-   copies), on the mma body at 256 and on the fp32 fma body, under phase
-   5(a)'s tolerances; each beside the same call with ``prefix_len=0``,
-   which must fail them.  The mma body is timed at the served shape in
-   turns with ``scaled_dot_product_attention`` under the same boolean
-   prefix-LM mask (the backend its dispatcher picks, named) and causal
-   without the prefix, beside the plain version and the bound
-   (its bytes at 3.35 TB/s, 0.0070 ms).  ``ServeEngine`` serves 8
+   256 in bf16, and a ragged prefix of 200 at (64, 64), (128, 128) and
+   (256, 256), each on the wgmma body and on the mma body (an offset
+   copy), and on the fp32 fma body at 256, under phase 5(a)'s
+   tolerances; each beside the same call with ``prefix_len=0``, which
+   must fail them.  The wgmma body and the mma body (offset copy) are
+   timed at the served shape in turns with
+   ``scaled_dot_product_attention`` under the same boolean prefix-LM
+   mask (the backend its dispatcher picks, named) and causal without
+   the prefix, beside the plain version and the bound (its bytes at
+   3.35 TB/s, 0.0070 ms).  ``ServeEngine`` serves 8
    images of 256 stub patches, each with a 64-token prompt, plus 32
    greedy tokens on paligemma-3b at its published width and depth,
    nothing cut (18 layers, d 2048, 8 query heads of 256 over 1 KV head,
    d_ff 16384 gated gelu, vocab 257,216 padded to 257,280, untied),
    bf16, random weights from a seeded generator made on the card; the
    kernels' counters are set to 0 before ``generate`` and must read 18
-   mma launches and no other body.  Prefill ms, decode ms a step, peak
+   wgmma launches and no other body.  Prefill ms, decode ms a step, peak
    memory and a ``torch.profiler`` breakdown are printed.  (b) Layer 0's
    attention on 2 images of the served batch's embedded prefix, the card
    in bf16 against the CPU in fp32 from the same weights: ``||Δ|| <=
@@ -518,7 +521,8 @@ def compare_spmv(what, idx, val, seg, x, geo, tpc: int,
 def ptxas_report(stem: str, pattern: str, label, want) -> str:
     """The ``-Xptxas=-v`` lines (registers, spills) of every entry function
     in ``stem``'s build whose name matches ``pattern``, each as
-    ``label(match): ...``; raises on a spill, or unless the labels are
+    ``label(match): ...``; raises on a spill, on wgmma that ptxas
+    serialised ("Potential Performance Loss"), or unless the labels are
     ``want`` (each once)."""
     log = BUILD_LOGS.get(stem, "")
     if not log:
@@ -527,6 +531,8 @@ def ptxas_report(stem: str, pattern: str, label, want) -> str:
     out = []
     for i, line in enumerate(lines):
         hit = re.search(pattern, line)
+        if hit is not None and "Performance Loss" in line:
+            raise AssertionError(f"{stem} {label(hit)}: {line.strip()}")
         if hit is None or "Compiling entry function" not in line:
             continue
         name = label(hit)
@@ -3396,8 +3402,8 @@ PALI_BATCH, PALI_PROMPT, PALI_DECODE = 8, 64, 32
 # The flash kernel with a prefix (FLASH_CASES' layout): the served
 # prefill's shape, whose first 256 positions (the image) every row sees;
 # and a ragged prefix of 200, which straddles a key tile of every body, on
-# the wgmma body at (64, 64) and (128, 128) (and the mma body on their
-# offset copies), the mma body at 256 and the fp32 fma body at 256.
+# the wgmma body at (64, 64), (128, 128) and (256, 256) (and the mma body
+# on their offset copies) and the fp32 fma body at 256.
 PALI_FLASH = ("paligemma heads", PALI_BATCH, 256 + PALI_PROMPT, 1, 8, 256,
               256, True, torch.bfloat16)
 PALI_RAGGED = 200
@@ -3424,14 +3430,20 @@ PALI_HANDOFF_TOL = 2e-4
 
 def pali_flash(dev, card):
     """Phase 12(a): the kernel with the prefix at the served shape and a
-    ragged one on every body, each beside its control, and the mma body
-    timed at the served shape; returns (max error, per-body record)."""
+    ragged one on every body, each beside its control, and the wgmma body
+    and the mma body (on an offset copy) timed at the served shape;
+    returns (max error, per-body record)."""
     t = time.perf_counter()
+    pair = PALI_FLASH[5:7]
     say("[phase12] flash mma and fma bodies, ptxas: " + ptxas_report(
         "flash_attention", r"flash_fwd_(mma_)?kernelILi(\d+)E",
         lambda hit: f"{'mma' if hit[1] else 'fma'} at {hit[2]} columns",
         [f"{b} at {w} columns" for b in ("mma", "fma")
-         for w in (64, 128, 256)]))
+         for w in (64, 128, 256)]) + "; wgmma body: " + ptxas_report(
+        "flash_attention", r"flash_fwd_wgmma_kernelILi(256)ELi(256)E",
+        lambda hit: f"(dh, dv) = ({hit[1]}, {hit[2]})",
+        [f"(dh, dv) = {pair}"]) + f", dynamic shared memory "
+        f"{fa.wgmma_smem_bytes(*pair)} bytes")
     name, b, s, kvh, g, dh, dv, causal, _ = PALI_FLASH
     prefix = get_config(PALI_ARCH).vision_tokens
     err = check_flash_case(PALI_FLASH, dev, "phase12", prefix=prefix)[0]
@@ -3441,23 +3453,25 @@ def pali_flash(dev, card):
     tm = time_flash(b, s, kvh, g, dh, causal, dev, (20, 3), dv=dv,
                     prefix=prefix)
     bd, by = flash_bound(b, s, kvh, g, dh, dv, causal, prefix=prefix)
-    mma, lib, lib_causal = tm["mma"], tm["library"], tm["library causal"]
+    wg, mma = tm["wgmma"], tm["mma"]
+    lib, lib_causal = tm["library"], tm["library causal"]
     reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
                       for n, r in tm["reads"].items())
     say(f"[phase12] flash {name} (B={b}, S={s}, KV={kvh}, G={g}, dh={dh}, "
-        f"dv={dv}, bf16, causal, prefix_len={prefix}): mma body {mma:.4f} ms"
-        f" ({bd / mma:.3f} of the bound), scaled_dot_product_attention with "
-        f"the prefix-LM mask {lib:.4f} ms (backend {tm['backend']}; the mma "
-        f"body at {lib / mma:.2f}x its speed), causal without the prefix "
-        f"{lib_causal:.4f} ms ({lib_causal / mma:.2f}x); plain "
-        f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}); readings in "
-        f"turns: {reads}  [{card}]")
+        f"dv={dv}, bf16, causal, prefix_len={prefix}): wgmma body "
+        f"{wg:.4f} ms ({bd / wg:.3f} of the bound, {wg / lib:.2f}x SDPA's "
+        f"time), mma body (offset copy) {mma:.4f} ms ({bd / mma:.3f}, "
+        f"{mma / lib:.2f}x; wgmma at {mma / wg:.2f}x its speed), "
+        f"scaled_dot_product_attention with the prefix-LM mask {lib:.4f} ms "
+        f"({bd / lib:.3f}; backend {tm['backend']}), causal without the "
+        f"prefix {lib_causal:.4f} ms; plain {tm['plain']:.4f} ms; bound "
+        f"{bd:.4f} ms ({by}); readings in turns: {reads}  [{card}]")
     say(f"[phase12] flash checks and timings in "
         f"{time.perf_counter() - t:.1f} s  [{card}]")
-    return err, {"mma": {"paligemma": {
-        "ms": mma, "bound_ms": bd, "plain_ms": tm["plain"],
+    return err, {body: {"paligemma": {
+        "ms": tm[body], "bound_ms": bd, "plain_ms": tm["plain"],
         "library_ms": lib, "library": tm["backend"],
-        "sdpa_causal_ms": lib_causal}}}
+        "sdpa_causal_ms": lib_causal}} for body in ("wgmma", "mma")}
 
 
 def phase_vlm(dev, card):
@@ -3503,13 +3517,13 @@ def phase_vlm(dev, card):
     launches = read_launches()
     by_body = dict(fa.flash_launches_by_body)
     peak = torch.cuda.max_memory_allocated()
-    want_bodies = {name: cfg.num_layers if name == "mma" else 0
+    want_bodies = {name: cfg.num_layers if name == "wgmma" else 0
                    for name in by_body}
     if launches["flash_attention"] != cfg.num_layers or \
             by_body != want_bodies:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the mma body once a "
+                             f"serve ({by_body}), not the wgmma body once a "
                              f"layer ({cfg.num_layers}) and no other")
     if tuple(out.shape) != (PALI_BATCH, PALI_DECODE) or \
             int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:

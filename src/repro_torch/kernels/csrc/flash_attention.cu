@@ -19,20 +19,20 @@
 // (kernels/flash_attention.py, flash_body) picks one from dtype, head dims
 // and alignment alone:
 //   * flash_fwd_wgmma_kernel, bf16 with (dh, dv) in {(64, 64), (128, 128),
-//     (96, 64)} and 16-byte aligned bases (the served heads; (96, 64) is
-//     multi-head latent attention's rope 32 + nope 64 against v 64): built
-//     for that rate.  A producer
-//     warpgroup keeps a ring of K/V tiles in flight with TMA (128-byte
-//     swizzle, rows past S zero-filled on load and clipped on store), so
-//     loads overlap the math; two consumer warpgroups of 64 q rows each
-//     run Q·K^T and P·V on wgmma (operands by shared-memory descriptor, V
+//     (96, 64), (256, 256)} and 16-byte aligned bases (the served heads;
+//     (96, 64) is multi-head latent attention's rope 32 + nope 64 against
+//     v 64; (256, 256) a VLM's, on 64-key tiles): built for that rate.
+//     A ring of K/V tiles is kept in flight with TMA (128-byte swizzle,
+//     rows past S zero-filled on load and clipped on store), so loads
+//     overlap the math; two warpgroups of 64 q rows each run Q·K^T and
+//     P·V on wgmma (operands by shared-memory descriptor, V
 //     read through the transpose bit, P from registers), so no thread
 //     stages or transposes a tile.  The softmax runs in exp2 with
 //     scale·log2(e) folded in, and masks only tiles that straddle the
 //     diagonal or Sk.
 //   * flash_fwd_mma_kernel, every other bf16 shape (odd or mixed head
-//     dims, misaligned views, heads of 256): mma.sync m16n8k16 with tiles
-//     staged by all threads, no pipelining.
+//     dims such as (256, 128), misaligned views): mma.sync m16n8k16 with
+//     tiles staged by all threads, no pipelining.
 //   * flash_fwd_kernel, fp32: fp32 FMAs on the CUDA cores (tensor cores
 //     would round the inputs to TF32), so the fp32 results keep fp32
 //     products.
@@ -580,38 +580,63 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
 
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper: a TMA-fed K/V ring, wgmma, a warp-specialised producer
+// bf16 on Hopper: a TMA-fed K/V ring and wgmma
 // ---------------------------------------------------------------------------
-// One block per (head, 128-row q tile), 3 warpgroups.  Warpgroup 0 is the
-// producer: one thread loads the q tile once and then keeps a ring of
-// (K tile, V tile) stages full with TMA, each stage guarded by a `full`
-// mbarrier (TMA's byte count) and an `empty` one (the consumers' release).
-// Warpgroups 1 and 2 consume, 64 q rows each: S = Q K^T on wgmma with both
-// operands read from shared memory by descriptor, online softmax on S in
-// registers, then O += P V on wgmma with P (bf16) taken from registers in
-// the accumulator's own layout and V read as TMA left it (keys x dv, dv
-// contiguous: the descriptor's transpose bit).  Every tile lands with
-// 128-byte swizzle in boxes of 64 columns (128 bytes); a head dim of 128
-// is two boxes side by side, each its own [rows][64] block in shared
-// memory.  Rows past S are zero on load and clipped on store by TMA.
+// One block per (head, 128-row q tile): two consumer warpgroups of 64 q
+// rows each.  The q tile and a ring of (K tile, V tile) stages come in by
+// TMA, each stage counted on a `full` mbarrier (TMA's byte count) and
+// released by every consumer warp after its last read of it.  Who refills
+// a stage is the pair's `WgCfg::PRODUCER`:
+//   * up to 128 columns, a producer warpgroup ahead of the consumers: one
+//     of its threads waits on each stage's `empty` mbarrier and issues the
+//     copies, and `setmaxnreg` gives the consumers its registers;
+//   * at DV = 256, no producer: each warp adds one to the stage's release
+//     count, and the warp that completes it issues the copies of the tile
+//     the stage takes next.  ptxas compiles a kernel under one register
+//     budget, that of the SM sub-partition holding the most of the
+//     block's warps (`setmaxnreg` moves registers at run time, but ptxas
+//     allocates the consumers' code within the launch bound all the
+//     same): 12 warps, or 9, leave 168 registers a thread, under which
+//     O (128 registers at 256 columns), S and P spilled and ptxas
+//     serialised the wgmma; 8 warps leave 255.  The pairs up to 128
+//     columns fit 168, and without the producer they ran 2-11% slower
+//     (tools/flash_variants.py).
+// Each consumer skips the products of a tile none of its rows sees (and
+// every tile, if its rows all lie past Sq), still waiting on and
+// releasing it: S = Q K^T on wgmma with both operands read from shared
+// memory by descriptor, online softmax on S in registers, then O += P V
+// on wgmma with P (bf16) taken from registers in the accumulator's own
+// layout and V read as TMA left it (keys x dv, dv contiguous: the
+// descriptor's transpose bit).  Every
+// tile lands with 128-byte swizzle in boxes of 64 columns (128 bytes); a
+// head dim of 128 is two boxes side by side, each its own [rows][64]
+// block in shared memory.  Rows past S are zero on load and clipped on
+// store by TMA.
 // The Q·K side (q, k: DH columns) and the P·V side (v, o: DV columns)
 // have their own boxes.  A DH that is no multiple of 64 (MLA's 96) takes
 // whole boxes too: the last box runs past the map's DH columns, TMA fills
 // the rest with zeros (and counts the whole box's bytes on the barrier),
 // and Q·K's DH/16 steps never read them.
 constexpr int kWgBQ = 128;       // q rows per block: 64 per consumer
-constexpr int kWgThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kWgWarps = 8;      // the consumers' warps: 2 warpgroups
 constexpr int kBoxCols = 64;     // bf16 per 128-byte swizzled box row
 constexpr int kRowBytes = 128;
 constexpr int kQBoxRows = 64;    // q and o boxes: one consumer's rows
 constexpr int kMaxSmem = 232448;  // a block's opt-in shared memory
 
 template <int DH, int DV> struct WgCfg {
-  static constexpr int BK = 128;                  // keys per kv tile
-  // Ring depth.  Three stages of the widest pair, (128, 128), are what
-  // fits; (96, 64) would take four (230,528 bytes), which a source
-  // variant times (tools/flash_variants.py).
-  static constexpr int STAGES = 3;
+  // Keys per kv tile and ring depth.  A consumer thread holds O (DV/2
+  // floats), S (BK/2) and P (BK/4 words) at once: at DV = 256 O alone is
+  // 128 registers, so its tiles are 64 keys, and a stage of K and V at
+  // 256 columns (64 KB) leaves room for two beside the 64 KB q tile.  The
+  // other pairs take 128 keys and three stages, what (128, 128) fits;
+  // (96, 64) would take four (230,528 bytes), which a source variant
+  // times (tools/flash_variants.py).
+  static constexpr int BK = DV == 256 ? 64 : 128;
+  static constexpr int STAGES = DV == 256 ? 2 : 3;
+  // A producer warpgroup refills the ring (above).
+  static constexpr bool PRODUCER = DV <= 128;
+  static constexpr int THREADS = 32 * kWgWarps + 128 * PRODUCER;
   static constexpr int CBK = (DH + kBoxCols - 1) / kBoxCols;  // q, k boxes
   static constexpr int CBV = DV / kBoxCols;                   // v, o boxes
   static constexpr int Q_BYTES = kWgBQ * CBK * kRowBytes;
@@ -619,7 +644,8 @@ template <int DH, int DV> struct WgCfg {
   static constexpr int V_BYTES = BK * CBV * kRowBytes;  // one V tile
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr int DATA_BYTES = Q_BYTES + STAGES * STAGE_BYTES;
-  // + the mbarriers (q, full[STAGES], empty[STAGES]) and room to align
+  // + the mbarriers (q, full[STAGES]), each stage's release (an `empty`
+  // mbarrier or a count; 8 bytes) and room to align
   // the base to the 1024 bytes the swizzle pattern repeats over.
   static constexpr int SMEM_BYTES = 1024 + DATA_BYTES + 128;
   static_assert(DH % 16 == 0 && DV % kBoxCols == 0,
@@ -771,6 +797,34 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, fp32) = A (64 x 16, smem) B^T (64 x 16, smem, K-major)
+// (+ D when scale_d).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
 // D (64 x 64, fp32) += A (64 x 16, registers) B (16 x 64, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
@@ -821,12 +875,61 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 256, fp32) += A (64 x 16, registers) B (16 x 256, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121,"
+      "%122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
 }
 
 // S = Q K^T for one consumer: 64 q rows x BK keys, DH/16 steps of 16
@@ -835,20 +938,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 template <int DH, int BK>
 __device__ __forceinline__ void qk_issue(float (&sc)[BK / 2], uint32_t sQw,
                                          uint32_t ks) {
-  static_assert(BK == 128, "S is one m64n128k16 product per 16 columns");
+  static_assert(BK == 64 || BK == 128,
+                "S is one m64n64k16 or m64n128k16 product per 16 columns");
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const int c = kk / 4;                // column box
     const uint32_t off = (kk % 4) * 32;  // 16 columns in it
-    wgmma_ss_n128(sc,
-                  smem_desc(sQw + c * kWgBQ * kRowBytes + off, 16, 1024),
-                  smem_desc(ks + c * BK * kRowBytes + off, 16, 1024), kk > 0);
+    wgmma_ss<BK>(sc, smem_desc(sQw + c * kWgBQ * kRowBytes + off, 16, 1024),
+                 smem_desc(ks + c * BK * kRowBytes + off, 16, 1024), kk > 0);
   }
 }
 
 // O += P V for one consumer: BK/16 steps of 16 keys (16 rows of the V
 // tile, 2048 bytes); V is keys x dv with dv contiguous (MN-major, the
-// transpose bit), column boxes BK rows apart (the leading byte offset).
+// transpose bit), column boxes BK rows apart (the leading byte offset),
+// one product across all DV columns (m64n256k16 at 256).
 template <int DV, int BK>
 __device__ __forceinline__ void pv_issue(float (&o)[DV / 2],
                                          const uint32_t (&pa)[BK / 16][4],
@@ -923,7 +1027,7 @@ __device__ __forceinline__ void to_bf16(const float (&sc)[NS],
 // causal rows first).  scale_log2 = scale·log2(e): p = 2^(dot·scale_log2 -
 // m) with m the running row max of dot·scale_log2.
 template <int DH, int DV>
-__global__ void __launch_bounds__(kWgThreads, 1)
+__global__ void __launch_bounds__(WgCfg<DH, DV>::THREADS, 1)
     flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                            __grid_constant__ const CUtensorMap tk,
                            __grid_constant__ const CUtensorMap tv,
@@ -938,7 +1042,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t sKV = base + C::Q_BYTES;
   const uint32_t q_bar = base + C::DATA_BYTES;
   const uint32_t full_bar = q_bar + 8;
-  const uint32_t empty_bar = full_bar + 8 * C::STAGES;
+  // Stage s's release: an `empty` mbarrier with a producer, a count of
+  // released warps without.
+  const uint32_t release_at = full_bar + 8 * C::STAGES;
 
   const int hq = blockIdx.x % heads;  // q head in the flattened KV·G axis
   const int b = blockIdx.x / heads;
@@ -946,72 +1052,101 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;
   const int kv_end = kv_end_of(q0 + kWgBQ, sk, causal, prefix_len);
   const int n_tiles = (kv_end + C::BK - 1) / C::BK;
-  const int wg = threadIdx.x / 128;
+  const int wg = threadIdx.x / 128;  // (the producer), then the consumers
   const int tw = threadIdx.x % 128;
 
+  // The q tile; tile t's K and V into its stage.  One thread issues every
+  // copy, counted on the tile's barrier.
+  auto load_q = [&]() {
+    mbar_expect_tx(q_bar, C::Q_BYTES);
+    for (int w = 0; w < 2; ++w)
+      for (int c = 0; c < C::CBK; ++c)
+        tma_load(sQ + (c * kWgBQ + kQBoxRows * w) * kRowBytes, &tq, q_bar,
+                 c * kBoxCols, hq, q0 + kQBoxRows * w, b);
+  };
+  auto load = [&](int t) {
+    const int s = t % C::STAGES;
+    const uint32_t ks = sKV + s * C::STAGE_BYTES;
+    mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
+    for (int c = 0; c < C::CBK; ++c)
+      tma_load(ks + c * C::BK * kRowBytes, &tk, full_bar + 8 * s,
+               c * kBoxCols, kv, t * C::BK, b);
+    for (int c = 0; c < C::CBV; ++c)
+      tma_load(ks + C::K_BYTES + c * C::BK * kRowBytes, &tv,
+               full_bar + 8 * s, c * kBoxCols, kv, t * C::BK, b);
+  };
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);
-      mbar_init(empty_bar + 8 * s, 8);  // one arrival per consumer warp
+      if constexpr (C::PRODUCER)
+        mbar_init(release_at + 8 * s, kWgWarps);  // one arrival a warp
+      else
+        asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(release_at + 8 * s)
+                     : "memory");
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {
-    // The producer: one thread issues every copy.  The block holds
-    // 384 x 168 registers; the producer gives back 128 x (168 - 40), which
-    // is what the consumers take (256 x (232 - 168)).
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tw == 0) {
-      mbar_expect_tx(q_bar, C::Q_BYTES);
-      for (int w = 0; w < 2; ++w)
-        for (int c = 0; c < C::CBK; ++c)
-          tma_load(sQ + (c * kWgBQ + kQBoxRows * w) * kRowBytes, &tq, q_bar,
-                   c * kBoxCols, hq, q0 + kQBoxRows * w, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % C::STAGES;
-        // A fresh barrier passes the wait on parity 1: the first lap of
-        // the ring finds every stage free.
-        mbar_wait(empty_bar + 8 * s, ((t / C::STAGES) & 1) ^ 1);
-        mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
-        const uint32_t ks = sKV + s * C::STAGE_BYTES;
-        for (int c = 0; c < C::CBK; ++c)
-          tma_load(ks + c * C::BK * kRowBytes, &tk, full_bar + 8 * s,
-                   c * kBoxCols, kv, t * C::BK, b);
-        for (int c = 0; c < C::CBV; ++c)
-          tma_load(ks + C::K_BYTES + c * C::BK * kRowBytes, &tv,
-                   full_bar + 8 * s, c * kBoxCols, kv, t * C::BK, b);
+  if constexpr (C::PRODUCER) {
+    if (wg == 0) {
+      // The producer: one thread issues every copy.  The block holds
+      // 384 x 168 registers; the producer gives back 128 x (168 - 40),
+      // which is what the consumers take (256 x (232 - 168)).
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      if (tw == 0) {
+        load_q();
+        for (int t = 0; t < n_tiles; ++t) {
+          // A fresh barrier passes the wait on parity 1: the first lap of
+          // the ring finds every stage free.
+          mbar_wait(release_at + 8 * (t % C::STAGES),
+                    ((t / C::STAGES) & 1) ^ 1);
+          load(t);
+        }
       }
+      return;
     }
-    return;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  } else if (threadIdx.x == 0) {
+    load_q();
+    for (int t = 0; t < min(C::STAGES, n_tiles); ++t) load(t);
   }
 
   // A consumer: 64 q rows; warp w of it holds rows 16w + lane/4 (+ 8).
   // Each consumer runs S = Q K^T, the softmax and O += P V of a tile in
   // turn; the two consumers overlap each other's softmax with their
   // products on the tensor cores.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   constexpr int NS = C::BK / 2;  // S: BK/8 n-tiles of 4 floats
   constexpr int NO = DV / 2;     // O: DV/8 n-tiles of 4 floats
-  const int cw = wg - 1;
+  const int cw = wg - C::PRODUCER;
   const int warp = tw / 32, lane = tw % 32;
   const int row0 = q0 + kQBoxRows * cw;            // this consumer's rows:
   const int my_row = row0 + 16 * warp + lane / 4;  // this thread's, and + 8
   const uint32_t sQw = sQ + kQBoxRows * cw * kRowBytes;
-  // Each consumer computes every tile the block loads: a tile starts at or
-  // before q0 (a 128-key tile and q tiles of 128 rows), so both consumers'
-  // rows see its first key, or it starts inside the prefix, whose keys
-  // every row sees.
-  static_assert(C::BK == kWgBQ, "a tile wholly above a consumer's rows");
   auto stage = [&](int t) { return sKV + (t % C::STAGES) * C::STAGE_BYTES; };
   auto wait_full = [&](int t) {
     mbar_wait(full_bar + 8 * (t % C::STAGES), (t / C::STAGES) & 1);
   };
+  // Each consumer warp releases a stage after its last read of it.
+  // Without a producer, the last of the block's warps to count itself out
+  // refills the stage with tile t + STAGES (the count only grows: every
+  // lap adds one a warp).
   auto release = [&](int t) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * (t % C::STAGES));
+    if (lane != 0) return;
+    const uint32_t at = release_at + 8 * (t % C::STAGES);
+    if constexpr (C::PRODUCER) {
+      mbar_arrive(at);
+    } else {
+      uint32_t n;
+      asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                   : "=r"(n)
+                   : "r"(at)
+                   : "memory");
+      if (n % kWgWarps == kWgWarps - 1 && t + C::STAGES < n_tiles)
+        load(t + C::STAGES);
+    }
   };
   // Only tiles that straddle Sk, or under causal the diagonal and the
   // prefix's end, are masked: a tile is whole when its last key is at or
@@ -1019,6 +1154,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   auto edge = [&](int t) {
     const int end = (t + 1) * C::BK;
     return end > sk || (causal && end - 1 > row0 && end > prefix_len);
+  };
+  // A tile holds a key this consumer's rows see unless they all lie at or
+  // past Sq, or (causal) its first key lies past their last row and at or
+  // past prefix_len.  Tiles the block loads for the other consumer only
+  // come with 64-key tiles (the second consumer's diagonal) and with rows
+  // past Sq; their products are skipped, the tile still waited on and
+  // released.
+  auto seen = [&](int t) {
+    const int k0 = t * C::BK;
+    return row0 < sq &&
+           !(causal && k0 > row0 + kQBoxRows - 1 && k0 >= prefix_len);
   };
 
   float o[NO];
@@ -1031,27 +1177,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   mbar_wait(q_bar, 0);
   for (int t = 0; t < n_tiles; ++t) {
     wait_full(t);
-    float sc[NS], corr[2];
-    wgmma_fence();
-    qk_issue<DH, C::BK>(sc, sQw, stage(t));
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(sc);
-    softmax_step(sc, m, l, corr, edge(t), t * C::BK, sk, causal, prefix_len,
-                 my_row, lane, scale_log2);
+    if (seen(t)) {
+      float sc[NS], corr[2];
+      wgmma_fence();
+      qk_issue<DH, C::BK>(sc, sQw, stage(t));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      softmax_step(sc, m, l, corr, edge(t), t * C::BK, sk, causal,
+                   prefix_len, my_row, lane, scale_log2);
 #pragma unroll
-    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
-    uint32_t pa[C::BK / 16][4];
-    to_bf16(sc, pa);
-    pin(o);
-    pin(pa);
-    wgmma_fence();
-    pv_issue<DV, C::BK>(o, pa, stage(t) + C::K_BYTES);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(o);
+      for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+      uint32_t pa[C::BK / 16][4];
+      to_bf16(sc, pa);
+      pin(o);
+      pin(pa);
+      wgmma_fence();
+      pv_issue<DV, C::BK>(o, pa, stage(t) + C::K_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o);
+    }
     release(t);
   }
+  if (row0 >= sq) return;  // rows all past Sq: nothing to store
 
   // O = acc / l in bf16, staged in this consumer's (now dead) q rows with
   // the map's swizzle, then one TMA store per column box.
@@ -1076,7 +1225,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-  if (tw == 0 && row0 < sq) {
+  if (tw == 0) {
     for (int c = 0; c < C::CBV; ++c)
       tma_store(&to, sQw + c * kWgBQ * kRowBytes, c * kBoxCols, hq, row0, b);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -1153,7 +1302,7 @@ int launch_wgmma(const void* const ptrs[4], const long long* dims,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(b * heads), (unsigned)((sq + kWgBQ - 1) / kWgBQ));
-  kern<<<grid, kWgThreads, C::SMEM_BYTES, stream>>>(
+  kern<<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       maps[0], maps[1], maps[2], maps[3], sq, sk, heads, g, causal,
       prefix_len, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -1198,13 +1347,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The Hopper bf16 body: q, k, v, o contiguous bf16 in the layouts above,
-// (dh, dv) in {(64, 64), (128, 128), (96, 64)}, 16-byte-aligned bases;
-// prefix_len >= 0 as flash_attention_fwd's.
+// (dh, dv) in {(64, 64), (128, 128), (96, 64), (256, 256)},
+// 16-byte-aligned bases; prefix_len >= 0 as flash_attention_fwd's.
 // dims, strides and boxes describe the rank-4 maps of q, k, v and o in
 // that order (4 dims innermost first, the byte strides of dims 1-3, 4 box
-// dims each); qk_boxes and vo_boxes are the 64-column boxes across dh and
-// across dv.  Returns the CUDA status, or minus the CUresult if a map
-// cannot be encoded.
+// dims each; k and v boxes span the pair's key tile, WgCfg::BK rows);
+// qk_boxes and vo_boxes are the 64-column boxes across dh and across dv.
+// Returns the CUDA status, or minus the CUresult if a map cannot be
+// encoded.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
                                          const void* v, void* o,
                                          const long long* dims,
@@ -1231,6 +1381,10 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
     return launch_wgmma<96, 64>(ptrs, dims, strides, boxes, qk_boxes,
                                 vo_boxes, b, sq, sk, heads, g, causal,
                                 prefix_len, scale, s);
+  if (dh == 256 && dv == 256)
+    return launch_wgmma<256, 256>(ptrs, dims, strides, boxes, qk_boxes,
+                                  vo_boxes, b, sq, sk, heads, g, causal,
+                                  prefix_len, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1240,5 +1394,6 @@ extern "C" int flash_attention_wgmma_smem_bytes(int dh, int dv) {
   return dh == 64 && dv == 64     ? WgCfg<64, 64>::SMEM_BYTES
          : dh == 128 && dv == 128 ? WgCfg<128, 128>::SMEM_BYTES
          : dh == 96 && dv == 64   ? WgCfg<96, 64>::SMEM_BYTES
+         : dh == 256 && dv == 256 ? WgCfg<256, 256>::SMEM_BYTES
                                   : 0;
 }

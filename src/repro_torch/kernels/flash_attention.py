@@ -8,11 +8,12 @@ once.  It has three bodies, and :func:`flash_body` picks one from the
 inputs' dtype, head dims and alignment alone:
 
 * ``"wgmma"``: bf16 with ``(dh, dv)`` in :data:`WGMMA_HEAD_DIMS` and
-  16-byte-aligned bases (the served heads).  TMA brings K/V tiles into a
-  ring of shared-memory stages and ``wgmma`` runs both products; its
-  rank-4 tensor maps are described by :func:`tma_geometry`.
-* ``"mma"``: every other bf16 shape (heads of 256 among them), on
-  ``mma.sync`` tensor cores.
+  16-byte-aligned bases (the served heads, heads of 256 among them).  TMA
+  brings K/V tiles into a ring of shared-memory stages and ``wgmma`` runs
+  both products; its rank-4 tensor maps are described by
+  :func:`tma_geometry`.
+* ``"mma"``: every other bf16 shape (misaligned views, pairs such as
+  (256, 128)), on ``mma.sync`` tensor cores.
 * ``"fma"``: fp32, on CUDA-core FMAs (fp32 products, as the reference's).
 
 Head dims go up to :data:`MAX_HEAD_DIM` (256).  Under ``causal`` a
@@ -56,15 +57,19 @@ _MAX_GRID_Y = 65535
 _PLAIN_CHUNK = 512
 
 # The wgmma body: the (dh, dv) pairs it is built for (the served heads:
-# qwen1.5's, chatglm3's and llama4's, and minicpm3's multi-head latent
-# attention, rope 32 + nope 64 against v 64); q rows per TMA box (one
-# consumer warpgroup's rows; a block takes two) and keys per kv tile,
-# both compiled into the kernel; 64 bf16 columns per box, the most a
-# 128-byte swizzle takes, so a head of 128 is two boxes side by side and
-# one of 96 two boxes whose second TMA fills past column 96 with zeros.
-WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
+# qwen1.5's, chatglm3's and llama4's, minicpm3's multi-head latent
+# attention, rope 32 + nope 64 against v 64, and paligemma's heads of
+# 256); q rows per TMA box (one consumer warpgroup's rows; a block takes
+# two) and each pair's keys per kv tile, both compiled into the kernel
+# (``WgCfg``: 64 keys at 256 columns, where O alone takes half a consumer
+# thread's registers; 128 elsewhere); 64 bf16 columns per box, the most a
+# 128-byte swizzle takes, so a head of 128 is two boxes side by side, one
+# of 256 four, and one of 96 two boxes whose second TMA fills past column
+# 96 with zeros.
+_WG_KV_TILE = {(64, 64): 128, (128, 128): 128, (96, 64): 128,
+               (256, 256): 64}
+WGMMA_HEAD_DIMS = tuple(_WG_KV_TILE)
 _WG_Q_BOX_ROWS = 64
-_WG_KV_TILE = 128
 _BOX_COLS = 64
 _BF16_BYTES = 2
 
@@ -100,17 +105,19 @@ class TensorMap(NamedTuple):
 def tma_geometry(b, sq, sk, kvh, g, dh, dv) -> dict:
     """The wgmma body's maps of q, k (``dh`` columns), v and o (``dv``
     columns), each the reference layout read as (d, heads, S, B) with no
-    reshaping copy: a box spans one head and rows along S, so a tile never
-    crosses a batch.  Also ``"qk_col_boxes"`` and ``"vo_col_boxes"``, the
-    boxes side by side across ``dh`` and across ``dv``."""
+    reshaping copy: a box spans one head and rows along S (k and v: the
+    pair's key tile), so a tile never crosses a batch.  Also
+    ``"qk_col_boxes"`` and ``"vo_col_boxes"``, the boxes side by side
+    across ``dh`` and across ``dv``."""
     def tmap(d, rows, heads, box_rows):
         row = heads * d * _BF16_BYTES
         return TensorMap((d, heads, rows, b), (d * _BF16_BYTES, row,
                                                 rows * row),
                          (_BOX_COLS, 1, box_rows, 1))
+    kv_tile = _WG_KV_TILE[dh, dv]
     return {"q": tmap(dh, sq, kvh * g, _WG_Q_BOX_ROWS),
-            "k": tmap(dh, sk, kvh, _WG_KV_TILE),
-            "v": tmap(dv, sk, kvh, _WG_KV_TILE),
+            "k": tmap(dh, sk, kvh, kv_tile),
+            "v": tmap(dv, sk, kvh, kv_tile),
             "o": tmap(dv, sq, kvh * g, _WG_Q_BOX_ROWS),
             "qk_col_boxes": -(-dh // _BOX_COLS),
             "vo_col_boxes": -(-dv // _BOX_COLS)}

@@ -269,7 +269,7 @@ def test_attn_decode_matches_reference(arch):
     close(tcv, jcv)
 
 
-def test_prefix_len_off_the_cpu_raises():
+def test_prefix_len_reaches_the_kernel_wrapper_off_the_cpu():
     """Off the CPU a prefix goes to the flash kernel's wrapper, which has
     no kernel for the ``meta`` device and raises there: the prefix itself
     is no longer refused."""

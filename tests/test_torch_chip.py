@@ -562,7 +562,8 @@ def test_flash_kernel_matches_plain(card, shape, dtype):
     q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv, sq + dh)
     got, body = run_flash(q, k, v, causal)
     # bf16 runs the wgmma body only at (dh, dv) in {(64, 64), (128, 128),
-    # (96, 64)}; odd dims and the other head dims take the mma body.
+    # (96, 64), (256, 256)}; odd dims and the other head dims take the mma
+    # body.
     assert body == ("fma" if dtype == torch.float32 else
                     "wgmma" if shape in ("dh128-gqa", "dh96-dv64",
                                          "mla-heads") else "mma")
@@ -606,6 +607,10 @@ WGMMA_SHAPES = {
     "d64-cross": (2, 192, 1500, 8, 1, 64, 64, False),
     "d64-cross-sot": (3, 4, 1500, 8, 1, 64, 64, False),
     "d64-encoder": (2, 1500, 1500, 8, 1, 64, 64, False),
+    # paligemma's heads at its served Sq = 320: 64-key tiles, the first
+    # consumer skipping the second's diagonal tile, and the third q tile's
+    # second consumer all padding (rows 320-383).
+    "d256-s320": (2, 320, 320, 1, 8, 256, 256, True),
 }
 
 
@@ -643,15 +648,17 @@ def test_flash_mma_body_at_the_mla_pair(card, shape):
 
 
 # The prefix-LM mask (prefix_len: keys before it seen by every row) on
-# every body: body -> (dtype, dh, dv, offset copy).  The mma body takes
-# paligemma's heads of 256 and, one element into its storage, the served
-# heads; the fma body fp32 at 64 and 256.
+# every body: body -> (dtype, dh, dv, offset copy).  The wgmma body takes
+# the served heads, paligemma's 256 on 64-key tiles among them; the mma
+# body the same heads one element into their storage; the fma body fp32
+# at 64 and 256.
 PREFIX_BODIES = {
     "wgmma-d64": (torch.bfloat16, 64, 64, False),
     "wgmma-d128": (torch.bfloat16, 128, 128, False),
     "wgmma-mla": (torch.bfloat16, 96, 64, False),
+    "wgmma-d256": (torch.bfloat16, 256, 256, False),
     "mma-d64": (torch.bfloat16, 64, 64, True),
-    "mma-d256": (torch.bfloat16, 256, 256, False),
+    "mma-d256": (torch.bfloat16, 256, 256, True),
     "fma-d64": (torch.float32, 64, 64, False),
     "fma-d256": (torch.float32, 256, 256, False),
 }
@@ -698,8 +705,9 @@ def test_flash_prefix_mask_matches_plain(card, body, shape):
             check_bf16_flash(ctl, want)
 
 
-# Heads of 256 (and others above 128) on the mma and fma bodies:
-# b, sq, sk, kv, g, dh, dv, causal.
+# Heads of 256 (and others above 128): (256, 256) on the wgmma body when
+# aligned, every other bf16 pair and every offset copy on the mma body,
+# fp32 on the fma body: b, sq, sk, kv, g, dh, dv, causal.
 D256_SHAPES = {
     "d256-causal": (2, 200, 200, 1, 8, 256, 256, True),
     "d256-non-causal": (2, 130, 170, 1, 2, 256, 256, False),
@@ -715,9 +723,11 @@ D256_SHAPES = {
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", sorted(D256_SHAPES))
 def test_flash_wide_heads_match_plain(card, shape, dtype, offset):
-    """Head dims past 128 build the 256-column mma (bf16) and fma (fp32)
-    bodies; ``offset`` gives them copies one element into their storage,
-    where no 16-byte load may be taken."""
+    """Head dims past 128: the wgmma body at (256, 256) in bf16 on
+    aligned tensors, the 256-column mma (other bf16) and fma (fp32) bodies
+    otherwise; ``offset`` gives them copies one element into their
+    storage, where no 16-byte load may be taken (the mma body's
+    (256, 256))."""
     b, sq, sk, kv, g, dh, dv, causal = D256_SHAPES[shape]
     q, k, v = flash_inputs(card, dtype, b, sq, sk, kv, g, dh, dv,
                            sq + sk + dh)
@@ -726,7 +736,9 @@ def test_flash_wide_heads_match_plain(card, shape, dtype, offset):
         q, k, v = map(offset_copy, (q, k, v))
         assert q.data_ptr() % 16 != 0
     got, body = run_flash(q, k, v, causal)
-    assert body == ("fma" if dtype == torch.float32 else "mma")
+    assert body == ("fma" if dtype == torch.float32 else
+                    "wgmma" if (dh, dv) == (256, 256) and not offset
+                    else "mma")
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:

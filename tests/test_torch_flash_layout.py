@@ -41,7 +41,8 @@ def qkv(b, sq, sk, kv, g, dh, dv, dtype=torch.bfloat16, offset=0):
     (torch.bfloat16, 96, 96, 0, "mma"),        # a head dim it is not built for
     (torch.bfloat16, 32, 32, 0, "mma"),
     (torch.bfloat16, 20, 13, 0, "mma"),        # odd dims
-    (torch.bfloat16, 256, 256, 0, "mma"),      # paligemma's heads
+    (torch.bfloat16, 256, 256, 0, "wgmma"),    # paligemma's heads
+    (torch.bfloat16, 256, 256, 1, "mma"),      # misaligned paligemma view
     (torch.bfloat16, 256, 128, 0, "mma"),
     (torch.float32, 64, 64, 0, "fma"),
     (torch.float32, 128, 128, 0, "fma"),
@@ -72,7 +73,7 @@ def served_heads(cfg):
 
 SERVED = {arch: served_heads(get_config(arch)) for arch in (
     "qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b", "llama4-scout-17b-a16e",
-    "minicpm3-4b")}
+    "minicpm3-4b", "paligemma-3b")}
 
 
 def test_minicpm3_heads_are_the_mla_pair():
@@ -84,6 +85,20 @@ def test_minicpm3_heads_are_the_mla_pair():
     assert geo["qk_col_boxes"] == 2
     assert geo["v"].dims[0] == geo["o"].dims[0] == 64
     assert geo["vo_col_boxes"] == 1
+
+
+def test_paligemma_heads_take_64_key_tiles():
+    assert SERVED["paligemma-3b"] == (1, 8, 256, 256)
+    geo = fa.tma_geometry(8, 320, 320, 1, 8, 256, 256)
+    # Four 64-column boxes on each side; k and v boxes of 64 keys (the
+    # pair's tile), q and o boxes of one consumer's 64 rows.
+    assert geo["qk_col_boxes"] == geo["vo_col_boxes"] == 4
+    assert geo["k"].box == geo["v"].box == (64, 1, 64, 1)
+    assert geo["q"].box == geo["o"].box == (64, 1, 64, 1)
+    # Every other pair keeps 128-key tiles.
+    assert {pair: fa.tma_geometry(1, 8, 8, 1, 1, *pair)["k"].box[2]
+            for pair in fa.WGMMA_HEAD_DIMS} == {
+        (64, 64): 128, (128, 128): 128, (96, 64): 128, (256, 256): 64}
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
@@ -149,6 +164,9 @@ def test_tma_geometry_addresses_every_element(dh, dv):
             ("o", sq, kvh * g, dv, "vo_col_boxes")):
         m = geo[name]
         assert m.dims[0] == d and all(s % 16 == 0 for s in m.strides)
+        # k and v boxes span the pair's key tile, q and o one consumer's
+        # 64 rows.
+        assert m.box[2] == (fa._WG_KV_TILE[dh, dv] if name in "kv" else 64)
         ref = torch.arange(b * rows * heads * d).view(b, rows, heads, d)
         for _ in range(50):
             bi, si, hi, ci = (int(rng.integers(n)) for n in
@@ -158,9 +176,9 @@ def test_tma_geometry_addresses_every_element(dh, dv):
             assert off % 2 == 0
             assert int(ref[bi, si, hi, ci]) == off // 2
         # Box coordinates: column box j starts 64 columns in, so a head
-        # of 128 reads columns [0, 64) and [64, 128) as two boxes, and one
-        # of 96 reads [0, 64) and [64, 96) with the rest of its second box
-        # zero.
+        # of 128 reads columns [0, 64) and [64, 128) as two boxes, one of
+        # 256 four, and one of 96 reads [0, 64) and [64, 96) with the rest
+        # of its second box zero.
         assert [j * m.box[0] for j in range(geo[boxes])] == \
             list(range(0, d, 64))
 

@@ -36,7 +36,8 @@ def variant_source(source, edits) -> str:
 def nvcc_build(stem: str, source: str, pattern: str, label=lambda hit: hit[0]):
     """nvcc of ``source`` into ``build/variants/<stem>.so``; returns (the
     loaded library, the ptxas lines of each entry function whose name
-    matches ``pattern``, as ``label(match): registers, spills``)."""
+    matches ``pattern``, as ``label(match): registers, spills``, and one
+    more for each whose wgmma ptxas serialised)."""
     os.makedirs(OUT, exist_ok=True)
     stem = re.sub(r"\W+", "_", stem)
     cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
@@ -50,6 +51,8 @@ def nvcc_build(stem: str, source: str, pattern: str, label=lambda hit: hit[0]):
     report = []
     for i, line in enumerate(lines):
         hit = re.search(pattern, line)
+        if hit and "Performance Loss" in line:
+            report.append(f"{label(hit)}: wgmma serialised by ptxas")
         if hit and "Compiling entry function" in line:
             report.append(f"{label(hit)}: " + " ".join(
                 x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4]))
