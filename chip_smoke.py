@@ -288,11 +288,47 @@ package.  Phases:
    65-position prefill of the same images: logits within
    ``PALI_HANDOFF_TOL``, and the same decode after a prefill whose
    ``vis_proj`` is zeroed must fail.
+13. Training qwen1.5-0.5b (the twentieth slice: ``LM.loss``, the
+   flash-attention backward kernel in the autograd Function
+   ``FlashAttention``, AdamW, checkpoint/restart, the launcher), after
+   phase 12's model is released.  The backward's ``-Xptxas=-v`` lines
+   (bf16 builds at 64, 128 and 256 columns; a spill fails the run) are
+   printed.  (a) ``flash_attention_bwd`` against its
+   plain version on card tensors at the training shape (8, 2048, 16 KV,
+   G 1, 64, 64) causal, llama4's GQA (8 KV, G 5, 128), minicpm3's MLA
+   pair (96, 64), whisper's non-causal cross shape (Sq 192, Sk 1500),
+   paligemma's heads of 256 with ``prefix_len`` 256, and one fp32 shape:
+   dq, dk and dv each within ``BWD_REL`` of plain in norm, beside a
+   control that must fail (the diagonal shifted by one, the prefix
+   ignored, or the non-causal call run causal).  (b) At the training
+   shape, queued behind a spin kernel and in turns: the kernel and the
+   backward of ``scaled_dot_product_attention`` through autograd (a
+   yardstick the port never calls; its backend named), beside the plain
+   version and the bound (2.5x the forward's unmasked-pair flops at 989
+   TFLOP/s, or its bytes at 3.35 TB/s).  (c) ``repro_torch.launch.train``
+   trains qwen1.5-0.5b at its published width and depth (24 layers, d
+   1024, 16 heads of 64, vocab 151,936, tied, bf16 weights, fp32 AdamW
+   moments, remat), 4 steps of 8 x 2048 tokens from the synthetic
+   pipeline; the counters are set to 0 before and read after: the losses
+   must be finite and fall, each step must launch the backward kernel 24
+   times and the forward's wgmma body 48 (remat runs each period's
+   forward twice).  ms a step, tokens/s and the peak allocation beside
+   the state's bytes are printed, then a ``torch.profiler`` breakdown of
+   one more step.  The trained weights' bf16 loss and layer 0's wq
+   gradient on one (1, 256) batch are held against the CPU's fp32 run of
+   the same weights (``TRAIN_LOSS_REL``, ``TRAIN_GRAD_REL``), and the
+   backward with its mask off (the control) must fail.  (d)
+   Checkpoint/restart at the full width and 2 layers: 4 steps
+   uninterrupted against 2 steps, a checkpoint under ``build/``, a fresh
+   ``Trainer`` that restores it and 2 more: losses within
+   ``TRAIN_RESTART_TOL``.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
 last line.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it is the kernels' JSON record, whose flash entry also lists each
+before it is the kernels' JSON record (the backward's entry from phase
+13: its launches in (c), its times and bound at the training shape and
+SDPA-backward's time as its library time), whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
 the seven timed shapes (``bodies``: phase 5's served prefill and
 prefill_32k, llama4's served prefill, minicpm3's, whisper's encoder and
@@ -382,6 +418,12 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:80"},
+    # No Pallas backward: the reference trains through jax autodiff of its
+    # plain chunked_attention.
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:70"},
 }
 # nvcc's output per kernel source (the -Xptxas=-v report), by stem.
 BUILD_LOGS: dict[str, str] = {}
@@ -934,7 +976,7 @@ def zero_launches() -> None:
     ks.spmv_launches = ks.spmm_launches = ks.spmv_fused_launches = 0
     for vec in ks.spmm_launches_by_width:
         ks.spmm_launches_by_width[vec] = 0
-    fa.flash_launches = 0
+    fa.flash_launches = fa.flash_bwd_launches = 0
     for body in fa.flash_launches_by_body:
         fa.flash_launches_by_body[body] = 0
 
@@ -942,7 +984,8 @@ def zero_launches() -> None:
 def read_launches() -> dict:
     return {"spmv": ks.spmv_launches, "spmm": ks.spmm_launches,
             "spmv_fused": ks.spmv_fused_launches,
-            "flash_attention": fa.flash_launches}
+            "flash_attention": fa.flash_launches,
+            "flash_attention_bwd": fa.flash_bwd_launches}
 
 
 def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
@@ -3654,6 +3697,402 @@ def phase_vlm(dev, card):
     return launches, err, bodies
 
 
+# -- phase 13: training qwen1.5-0.5b (the twentieth slice) ------------------
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 4
+# (name, b, sq, sk, kv heads, g, dh, dv, causal, prefix_len, dtype) of
+# phase 13(a): the training shape, llama4's GQA heads, minicpm3's MLA
+# pair, whisper's non-causal cross shape, paligemma's prefix-LM heads of
+# 256, and one fp32 shape.
+BWD_CASES = (
+    ("qwen training", 8, 2048, 2048, 16, 1, 64, 64, True, 0, torch.bfloat16),
+    ("llama4 GQA", 4, 2000, 2000, 8, 5, 128, 128, True, 0, torch.bfloat16),
+    ("minicpm3 MLA", 4, 2000, 2000, 40, 1, 96, 64, True, 0, torch.bfloat16),
+    ("whisper cross", 16, 192, 1500, 8, 1, 64, 64, False, 0,
+     torch.bfloat16),
+    ("paligemma prefix", 8, 320, 320, 1, 8, 256, 256, True, 256,
+     torch.bfloat16),
+    ("qwen heads fp32", 2, 1000, 1000, 16, 1, 64, 64, True, 0,
+     torch.float32),
+)
+# The kernel's dq, dk and dv against the plain version's, each in norm:
+# ||Δ|| <= BWD_REL·||plain||.  Both sum in fp32 and round P and dS to the
+# inputs' dtype at the same points; they differ in sum order and expf, so
+# bf16 may round a P or dS the other way (the first H100 run read
+# 1.6e-4-2.8e-4 in bf16, 6.2e-7 in fp32).  A control (the mask's diagonal
+# shifted by one, the prefix ignored, or a non-causal call run causal)
+# must fail.
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# Phase 13(c): the card's bf16 loss and layer 0's wq gradient on one
+# TRAIN_CHECK batch, against the CPU's fp32 run of the same weights: the
+# loss within TRAIN_LOSS_REL relative and the gradient within
+# TRAIN_GRAD_REL in norm (bf16 rounds every activation through 24 layers
+# and their backward; the first H100 run read 9.9e-5 and 3.4e-2).  The
+# backward with its mask off (the control; it read 1.0) must fail the
+# gradient's bound.
+TRAIN_CHECK = (1, 256)
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL = 1e-1
+# Phase 13(d): checkpoint/restart at the full width and TRAIN_RESTART_LAYERS
+# layers (the full depth's 4.6 GB of params, m and v stay off the disk):
+# steps 3 and 4 after a restart at step 2 against the uninterrupted run's,
+# |Δ| <= TRAIN_RESTART_TOL·loss.  The state comes back bit for bit; what
+# may differ is the card's order of sums in the atomics of a few torch ops
+# (the embedding's gradient).
+TRAIN_RESTART_LAYERS = 2
+TRAIN_RESTART_TOL = 1e-3
+
+
+def bwd_inputs(case, dev, seed):
+    """Seeded q, k, v and dO of a ``BWD_CASES`` entry on the card, and o
+    from the forward kernel."""
+    _, b, sq, sk, kvh, g, dh, dv, causal, prefix, dt = case
+    q, k, v = attention_inputs(b, sq, kvh, g, dh, dv, dt, dev, seed, sk=sk)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn((b, sq, kvh, g, dv), generator=gen, device=dev).to(dt)
+    o = fa.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    return q, k, v, o, do
+
+
+def shifted_diagonal_bwd(q, k, v, do):
+    """The plain gradient of causal attention whose diagonal is shifted by
+    one (row r sees keys up to r + 1): the plain function on q with one
+    row of zeros in front, which moves every row's position up by one, and
+    a zero cotangent for that row."""
+    pad = torch.zeros_like(q[:, :1])
+    qs = torch.cat([pad, q], 1)
+    dos = torch.cat([torch.zeros_like(do[:, :1]), do], 1)
+    os_ = fa.flash_attention_plain(qs, k, v)
+    dq, dk, dv = fa.flash_attention_bwd_plain(qs, k, v, os_, dos)
+    return dq[:, 1:], dk, dv
+
+
+def bwd_rel(got, want) -> float:
+    return max(float((a.float() - w.float()).norm() / w.float().norm())
+               for a, w in zip(got, want))
+
+
+def check_bwd_case(case, dev, seed) -> float:
+    """Phase 13(a) for one case: the kernel against its plain version and
+    the control; returns the largest absolute error."""
+    name, b, sq, sk, kvh, g, dh, dv, causal, prefix, dt = case
+    q, k, v, o, do = bwd_inputs(case, dev, seed)
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                 prefix_len=prefix)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        prefix_len=prefix)
+    if any(not bool(torch.isfinite(t).all()) for t in got):
+        raise AssertionError(f"flash backward {name}: non-finite values")
+    rel = bwd_rel(got, want)
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    if not rel <= BWD_REL[dt]:
+        raise AssertionError(f"flash backward {name} vs plain: "
+                             f"||Δ||/||plain|| {rel} > {BWD_REL[dt]}")
+    if prefix:
+        what = "prefix_len ignored"
+        rc = bwd_rel(fa.flash_attention_bwd(q, k, v, o, do, causal=causal),
+                     want)
+    elif causal:
+        what = "against the plain gradient with the diagonal shifted by one"
+        rc = bwd_rel(got, shifted_diagonal_bwd(q, k, v, do))
+    else:
+        what = "run causal"
+        rc = bwd_rel(fa.flash_attention_bwd(q, k, v, o, do, causal=True),
+                     want)
+    if not rc > BWD_REL[dt]:
+        raise AssertionError(f"the control ({what}) passes the {name} "
+                             f"backward check ({rc})")
+    say(f"[phase13] flash backward vs plain, {name} (B={b}, Sq={sq}, "
+        f"Sk={sk}, KV={kvh}, G={g}, dh={dh}, dv={dv}, causal={causal}, "
+        f"prefix_len={prefix}, {dt}): ||Δ||/||plain|| {rel:.3e} (bound "
+        f"{BWD_REL[dt]}), max |Δ| {err:.3e}; control ({what}) {rc:.3e}")
+    return err
+
+
+def bwd_bound(b, s, kvh, g, dh, dv, dtype_bytes=2) -> tuple[float, str]:
+    """Least time of one causal backward at Sq = Sk = s: 2.5x the
+    forward's flops on the unmasked (q, k) pairs (2·dh for the score,
+    2·dv for P·V) over the bf16 tensor-core rate, or its bytes (q, k, v,
+    o and dO read once, dq, dk and dv written once) over the memory
+    rate."""
+    pairs = b * kvh * g * s * (s + 1) // 2
+    t_ops = 2.5 * 2 * (dh + dv) * pairs / BF16_FLOPS_PER_S * 1e3
+    nbytes = dtype_bytes * b * s * kvh * (2 * g * dh + 2 * g * dv
+                                          + 2 * dh + 2 * dv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_bwd(case, dev, iters) -> dict:
+    """Phase 13(b): the backward kernel and the backward of
+    ``scaled_dot_product_attention`` through autograd (a yardstick the
+    port never calls, on the same tensors viewed as (B, H, S, d); the
+    backend its dispatcher picks named) in turns, queued behind a spin
+    kernel (:func:`queued_ms`), and the plain version."""
+    name, b, sq, sk, kvh, g, dh, dv, causal, prefix, dt = case
+    q, k, v, o, do = bwd_inputs(case, dev, SEED + 31)
+    p = functools.partial
+    h = kvh * g
+    qs = q.view(b, sq, h, dh).transpose(1, 2).detach().requires_grad_()
+    ks_ = k.transpose(1, 2).detach().requires_grad_()
+    vs = v.transpose(1, 2).detach().requires_grad_()
+    sdpa = p(torch.nn.functional.scaled_dot_product_attention, qs, ks_, vs,
+             is_causal=causal, enable_gqa=g > 1)
+    out = sdpa()
+    dos = do.view(b, sq, h, dv).transpose(1, 2)
+    runs = {"kernel": p(fa.flash_attention_bwd, q, k, v, o, do,
+                        causal=causal, prefix_len=prefix),
+            "library": p(torch.autograd.grad, out, (qs, ks_, vs), dos,
+                         retain_graph=True)}
+    tm = in_turns(runs, iters, timer=queued_ms)
+    tm["plain"] = time_ms(p(fa.flash_attention_bwd_plain, q, k, v, o, do,
+                            causal=causal, prefix_len=prefix), 2)
+    tm["backend"] = sdpa_backend(sdpa)
+    return tm
+
+
+def train_profile(tr, step_ms, card) -> None:
+    """``torch.profiler`` over one more training step: the card's busy ms
+    (kernel time summed), its share of the unprofiled step's host ms, the
+    kernel launches the profiler counted and the kernels that take the
+    most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("ignore", UserWarning)
+        t = time.perf_counter()
+        tr.run(steps=tr.step + 1)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    total = sum(busy.values())
+    count = sum(e.count for e in kernels
+                if not e.key.startswith(("Memcpy", "Memset")))
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    say(f"[phase13] profile of one training step: card busy {total:.3f} ms,"
+        f" {total / step_ms:.2f} of the unprofiled {step_ms:.3f} ms "
+        f"(profiled host {prof_ms:.3f} ms), {count} kernel launches; top "
+        f"kernels: " + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top)
+        + f"  [{card}]")
+
+
+def loss_and_grad(lm, params, batch, leaf):
+    """``lm.loss`` and its gradient with respect to one leaf (fp32, on the
+    host)."""
+    loss, _ = lm.loss(params, batch)
+    (grad,) = torch.autograd.grad(loss, [leaf])
+    return float(loss.detach()), grad.float().cpu()
+
+
+def check_train_against_cpu(tr, dev, card) -> None:
+    """Phase 13(c)'s parity: the trained weights' bf16 loss and layer 0's
+    wq gradient on the card against the CPU's fp32 run of the same
+    weights, on one TRAIN_CHECK batch, beside the mask-off control."""
+    from repro_torch.data.pipeline import SyntheticLM
+    t = time.perf_counter()
+    cfg = tr.lm.cfg
+    b, s = TRAIN_CHECK
+    batch = SyntheticLM(cfg.vocab_size, s, b, seed=SEED + 13).batch_at(0)
+    card_batch = {n: x.to(dev) for n, x in batch.items()}
+    wq = tr.params["blocks"][0]["sub0"]["mixer"]["wq"]
+    loss, grad = loss_and_grad(tr.lm, tr.params, card_batch, wq)
+
+    bwd = fa.flash_attention_bwd
+
+    def mask_off(q, k, v, o, do, *, causal=True, prefix_len=0):
+        return bwd(q, k, v, o, do, causal=False, prefix_len=prefix_len)
+
+    with patched(fa, "flash_attention_bwd", mask_off):
+        _, ctl = loss_and_grad(tr.lm, tr.params, card_batch, wq)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32", remat=False)
+    host = tree_map(lambda x: x.detach().float().cpu(), tr.params)
+    hwq = host["blocks"][0]["sub0"]["mixer"]["wq"].requires_grad_()
+    want, wgrad = loss_and_grad(LM(cfg32), host, batch, hwq)
+    dl = abs(loss - want) / abs(want)
+    dg = float((grad - wgrad).norm() / wgrad.norm())
+    dc = float((ctl - wgrad).norm() / wgrad.norm())
+    say(f"[phase13] B={b}, S={s} on the trained weights: card bf16 loss "
+        f"{loss:.5f} vs CPU fp32 {want:.5f} (|Δ|/loss {dl:.3e}, bound "
+        f"{TRAIN_LOSS_REL}); layer 0's wq gradient ||Δ||/||cpu|| {dg:.3e} "
+        f"(bound {TRAIN_GRAD_REL}); control (the backward's mask off) "
+        f"{dc:.3e}; {time.perf_counter() - t:.1f} s  [{card}]")
+    if not (dl <= TRAIN_LOSS_REL and dg <= TRAIN_GRAD_REL):
+        raise AssertionError(f"card training step vs CPU: loss {dl}, wq "
+                             f"gradient {dg}")
+    if not dc > TRAIN_GRAD_REL:
+        raise AssertionError(f"the mask-off backward passes the gradient "
+                             f"check ({dc})")
+
+
+def check_restart(dev, card) -> None:
+    """Phase 13(d): TRAIN_STEPS steps uninterrupted against 2 steps, a
+    checkpoint, a fresh Trainer that restores it and 2 more, at the full
+    width and TRAIN_RESTART_LAYERS layers."""
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_RESTART_LAYERS)
+    lm = LM(cfg)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    # The launcher's optimizer for TRAIN_STEPS steps.
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=TRAIN_STEPS,
+                          total_steps=TRAIN_STEPS)
+    ckpt = os.path.join(ROOT, "build", "phase13_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def trainer(steps, ckpt_dir=None):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return Trainer(lm, data.batch_at, TrainConfig(
+            steps=steps, ckpt_dir=ckpt_dir, ckpt_every=2, opt=opt),
+            generator=gen)
+
+    def losses(tr, out):
+        tr.run(on_step=lambda t: out.append(float(t.metrics["loss"])))
+        return out
+
+    whole = losses(trainer(TRAIN_STEPS), [])
+    parts = losses(trainer(2, ckpt), [])
+    size = os.path.getsize(os.path.join(ckpt, "step_00000002.npz"))
+    t1 = time.perf_counter()
+    resumed = trainer(TRAIN_STEPS, ckpt)
+    restore_s = time.perf_counter() - t1
+    if resumed.step != 2:
+        raise AssertionError(f"the restarted trainer is at step "
+                             f"{resumed.step}, not 2")
+    parts = losses(resumed, parts)
+    shutil.rmtree(ckpt)
+    worst = max(abs(a - b) / a for a, b in zip(whole, parts))
+    say(f"[phase13] restart at {TRAIN_RESTART_LAYERS} of "
+        f"{get_config(TRAIN_ARCH).num_layers} layers, full width (the full "
+        f"depth's state stays off the disk): losses uninterrupted "
+        f"{[round(x, 6) for x in whole]}, restarted at step 2 "
+        f"{[round(x, 6) for x in parts]}; max |Δ|/loss {worst:.3e} (bound "
+        f"{TRAIN_RESTART_TOL}); checkpoint {size / 1e9:.3f} GB, a fresh "
+        f"Trainer restored it in {restore_s:.1f} s; "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    if len(parts) != TRAIN_STEPS or not worst <= TRAIN_RESTART_TOL:
+        raise AssertionError(f"restart: {whole} vs {parts}")
+
+
+def phase_train(dev, card, t_run):
+    """Phase 13; returns (launches, max error, timings, bound, the forward
+    kernel's launches by body) of the training run."""
+    from repro_torch.launch import train as tlaunch
+
+    widths = (64, 128, 256)
+    say("[phase13] flash backward (bf16 builds), ptxas: " + ptxas_report(
+        "flash_attention_bwd",
+        r"flash_bwd_(stats|dkdv|dq)_kernelI13__nv_bfloat16Li(\d+)E",
+        lambda hit: f"{hit[1]} at {hit[2]} columns",
+        [f"{k} at {w} columns" for k in ("stats", "dkdv", "dq")
+         for w in widths]))
+    # (a) the backward kernel against its plain version, with controls.
+    t = time.perf_counter()
+    err = 0.0
+    for i, case in enumerate(BWD_CASES):
+        err = max(err, check_bwd_case(case, dev, SEED + 13 + i))
+    say(f"[phase13] backward checks in {time.perf_counter() - t:.1f} s")
+
+    # (b) times at the training shape.
+    t = time.perf_counter()
+    case = BWD_CASES[0]
+    _, b, s, _, kvh, g, dh, dv = case[:8]
+    iters = 10 if time.perf_counter() - t_run < SLOW_RUN_S else 5
+    tm = time_bwd(case, dev, iters)
+    bd, by = bwd_bound(b, s, kvh, g, dh, dv)
+    reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                      for n, r in tm["reads"].items())
+    say(f"[phase13] flash backward at the training shape (B={b}, S={s}, "
+        f"KV={kvh}, G={g}, dh={dh}, dv={dv}, bf16, causal): kernel "
+        f"{tm['kernel']:.4f} ms ({bd / tm['kernel']:.3f} of the bound, "
+        f"{tm['kernel'] / tm['library']:.2f}x SDPA-backward's time), "
+        f"scaled_dot_product_attention's backward {tm['library']:.4f} ms "
+        f"({bd / tm['library']:.3f}; backend {tm['backend']}), plain "
+        f"{tm['plain']:.4f} ms; bound {bd:.4f} ms ({by}); readings in "
+        f"turns: {reads}; {time.perf_counter() - t:.1f} s  [{card}]")
+
+    # (c) train qwen1.5-0.5b at full width and depth through the launcher.
+    cfg = get_config(TRAIN_ARCH)
+    marks = []
+
+    def on_step(tr):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), float(tr.metrics["loss"]),
+                      fa.flash_launches, fa.flash_bwd_launches,
+                      dict(fa.flash_launches_by_body)))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    tr = tlaunch.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                       "--seq", str(TRAIN_SEQ), "--global-batch",
+                       str(TRAIN_BATCH)], on_step=on_step)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [m[1] for m in marks]
+    step_ms = [(b2[0] - b1[0]) * 1e3 for b1, b2 in zip(marks, marks[1:])]
+    first_ms = (marks[0][0] - t) * 1e3
+    fwd_per = [b2[2] - b1[2] for b1, b2 in zip([(0, 0, 0, 0)] + marks,
+                                                marks)]
+    bwd_per = [b2[3] - b1[3] for b1, b2 in zip([(0, 0, 0, 0)] + marks,
+                                                marks)]
+    n = sum(x.numel() for x in tree_leaves(tr.params))
+    state = {"params": 2 * n, "grads": 2 * n, "m": 4 * n, "v": 4 * n,
+             "checkpointed activations": (cfg.num_layers + 1) * TRAIN_BATCH
+             * TRAIN_SEQ * cfg.d_model * 2}
+    mean_ms = float(np.mean(step_ms))
+    say(f"[phase13] {TRAIN_ARCH} trained through repro_torch.launch.train "
+        f"({cfg.num_layers} layers, d={cfg.d_model}, {n / 1e6:.1f} M params "
+        f"in bf16, AdamW fp32 moments, remat), {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{[round(x, 5) for x in losses]}; step 1 (weights made on the card "
+        f"and first calls) {first_ms:.1f} ms, steps 2-{TRAIN_STEPS} "
+        f"{[round(x, 1) for x in step_ms]} ms, mean {mean_ms:.1f} ms = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / mean_ms * 1e3:.0f} tokens/s; flash "
+        f"launches a step: forward {fwd_per} (by body {by_body}), backward "
+        f"{bwd_per}; peak allocated {peak / 1e9:.3f} GB beside "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in state.items())
+        + f" (sum {sum(state.values()) / 1e9:.3f} GB)  [{card}]")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    if bwd_per != [cfg.num_layers] * TRAIN_STEPS or \
+            fwd_per != [2 * cfg.num_layers] * TRAIN_STEPS or \
+            by_body["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"flash launches a step: forward {fwd_per} "
+                             f"({by_body}), backward {bwd_per}; want "
+                             f"{2 * cfg.num_layers} (remat recomputes each "
+                             f"period) and {cfg.num_layers}")
+    train_profile(tr, mean_ms, card)
+    check_train_against_cpu(tr, dev, card)
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d) checkpoint/restart on the card.
+    check_restart(dev, card)
+    record = {"ms": tm["kernel"], "plain_ms": tm["plain"],
+              "library_ms": tm["library"], "library": tm["backend"]}
+    return launches, err, record, (bd, by), by_body
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3669,16 +4108,18 @@ def main() -> int:
 
     # One nvcc per kernel source, all started together.
     t = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = {name: pool.submit(b) for name, b in (
-            ("serpens_spmv", ks.build), ("flash_attention", fa.build))}
+            ("serpens_spmv", ks.build), ("flash_attention", fa.build),
+            ("flash_attention_bwd", fa.build_bwd))}
         for name, fut in builds.items():
             path, log = fut.result()
             BUILD_LOGS[name] = log
             say(f"[build] {path.name}")
             if log.strip():
                 say(log.strip())
-    say(f"[build] both kernel sources in {time.perf_counter() - t:.1f} s")
+    say(f"[build] the three kernel sources in {time.perf_counter() - t:.1f}"
+        f" s")
 
     # -- setup: the G7 stand-in, encoded once by the registry -------------
     t = time.perf_counter()
@@ -4027,7 +4468,24 @@ def main() -> int:
     for body, rec in vlm_bodies.items():
         flash_bodies[body]["launches"] += rec.pop("launches")
         flash_bodies[body].update(rec)
-    say(f"[phase12] ok in {time.perf_counter() - t12:.1f} s; whole run "
+    say(f"[phase12] ok in {time.perf_counter() - t12:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 13: training qwen1.5-0.5b (the twentieth slice).  Phase 12's
+    # model went with its function; its cached blocks go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase13] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
+    t13 = time.perf_counter()
+    launches["train"], errs["flash_attention_bwd"], \
+        times["flash_attention_bwd"], bounds["flash_attention_bwd"], \
+        train_bodies = phase_train(dev, card, t_run)
+    for body, count in train_bodies.items():
+        flash_bodies[body]["launches"] += count
+    say(f"[phase13] ok in {time.perf_counter() - t13:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -4059,6 +4517,8 @@ def main() -> int:
             entry["by_n"] = spmm_by_n
         if entry["name"] in ("spmv", "spmv_fused"):
             entry["plan"] = plan_record(times[entry["name"]]["plan"])
+        if entry["name"] == "flash_attention_bwd":
+            entry["library"] = times["flash_attention_bwd"]["library"]
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

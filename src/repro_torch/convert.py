@@ -19,8 +19,8 @@ example — so both packages can run one and the same stream.
   bit patterns.
 
 :func:`lm_params_from_arrays` carries an LM's weights the same way (see
-there).  This module imports numpy only; torch is imported inside the
-function that needs it.
+there), and :func:`lm_params_to_arrays` carries them back.  This module
+imports numpy only; torch is imported inside the functions that need it.
 """
 from __future__ import annotations
 
@@ -122,3 +122,38 @@ def lm_params_from_arrays(cfg, tree: dict, device=None) -> dict:
         if k in tree:
             out[k] = [walk(tree[k], i) for i in range(n)]
     return out
+
+
+def lm_params_to_arrays(tree: dict) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the port's LM
+    parameters (or a tree of their shape, such as the optimizer's
+    moments) as numpy arrays in the reference's layout.
+
+    Each list (``blocks``, one dict per period; ``encoder``, one per
+    encoder layer) is stacked leaf by leaf along a new leading axis, the
+    reference's vmapped stacks.  A bf16 leaf leaves as its ``uint16`` bit
+    patterns, an fp32 leaf as float32; each is a copy on the host.
+    """
+    import torch
+
+    def leaf(t):
+        t = t.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        if t.dtype == torch.float32:
+            return t.numpy()
+        raise ValueError(f"weights leave as float32 or bf16, not {t.dtype}")
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return np.stack(items)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return stack([walk(e) for e in node])
+        return leaf(node)
+
+    return walk(tree)

@@ -30,6 +30,17 @@ launches the kernel (and counts the launch in :data:`flash_launches` and
 :data:`flash_launches_by_body`); on CPU tensors it runs
 :func:`flash_attention_plain`.  Nothing falls back: a CUDA tensor either
 runs the kernel or raises.
+
+The gradient (``csrc/flash_attention_bwd.cu``, its own library) replaces
+no TPU kernel: the reference trains through jax autodiff of its plain
+``chunked_attention``.  :func:`flash_attention_bwd` gives ``(dq, dk, dv)``
+from the forward's inputs, its output and the output's gradient, in three
+launches (row statistics; dK and dV per key tile; dQ per q tile) with no
+atomics, and counts each call in :data:`flash_bwd_launches`;
+:func:`flash_attention_bwd_plain` is the same function in torch ops.
+:class:`FlashAttention` is the autograd Function the model calls on the
+card: its forward is :func:`flash_attention`, its backward
+:func:`flash_attention_bwd`.
 """
 from __future__ import annotations
 
@@ -45,6 +56,7 @@ from repro_torch.kernels import build as _build
 # nowhere else, so a run can show that its path went through the kernel.
 flash_launches = 0
 flash_launches_by_body = {"wgmma": 0, "mma": 0, "fma": 0}
+flash_bwd_launches = 0
 
 NEG_INF = -1e30
 # The mma and fma bodies keep a 64-row tile of q, K and V in shared memory
@@ -79,6 +91,11 @@ def build():
     return _build.build("flash_attention")
 
 
+def build_bwd():
+    """Compile ``csrc/flash_attention_bwd.cu`` (see :func:`.build.build`)."""
+    return _build.build("flash_attention_bwd")
+
+
 def _declare(lib) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i32, i32, i32, i32, i32,
@@ -92,6 +109,13 @@ def _declare(lib) -> None:
     lib.flash_attention_fwd_wgmma.restype = i32
     lib.flash_attention_wgmma_smem_bytes.argtypes = [i32, i32]
     lib.flash_attention_wgmma_smem_bytes.restype = i32
+
+
+def _declare_bwd(lib) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = [p] * 10 + [i32] * 10 + [
+        ctypes.c_float, p]
+    lib.flash_attention_bwd.restype = i32
 
 
 class TensorMap(NamedTuple):
@@ -263,6 +287,129 @@ def flash_attention(q, k, v, *, causal=True, prefix_len=0):
     flash_launches += 1
     flash_launches_by_body[body] += 1
     return out
+
+
+def _check_grad_inputs(q, k, v, o, do) -> tuple[int, ...]:
+    """:func:`_check` plus o and do: (B, Sq, KV, G, dv) in q's dtype and
+    on its device."""
+    dims = _check(q, k, v)
+    b, sq, sk, kvh, g, dh, dv = dims
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != (b, sq, kvh, g, dv) or t.dtype != q.dtype or \
+                t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device} does not match q {tuple(q.shape)}"
+                             f" {q.dtype} on {q.device} with dv={dv}")
+    return dims
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal=True, prefix_len=0):
+    """The kernel's gradient in torch ops: ``(dq, dk, dv)`` of
+    :func:`flash_attention` at (q, k, v), given its output ``o`` and the
+    output's gradient ``do``.  fp32 scores and softmax over whole rows,
+    with explicit dP, dS, dQ, dK and dV: P is rounded to the inputs' dtype
+    before dV = Pᵀ·dO, and dS = P ∘ (dP − D) (from the unrounded P, with
+    D = rowsum(dO ∘ O)) before dQ = dS·K·scale and dK = dSᵀ·Q·scale, the
+    kernel's rounding points; sums in fp32, results in q's dtype.  q runs
+    in chunks of rows to bound the score tensor."""
+    b, sq, sk, kvh, g, dh, dv = _check_grad_inputs(q, k, v, o, do)
+    prefix_len = _check_prefix(prefix_len)
+    scale = dh ** -0.5
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, sk, kvh, dh), device=q.device)
+    dvv = torch.zeros((b, sk, kvh, dv), device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    for c0 in range(0, sq, _PLAIN_CHUNK):
+        rows = slice(c0, c0 + _PLAIN_CHUNK)
+        qc, doc = q[:, rows].float(), do[:, rows].float()
+        dsum = (doc * o[:, rows].float()).sum(-1).permute(0, 2, 3, 1)
+        s = torch.einsum("bckgd,bskd->bkgcs", qc, kf) * scale
+        if causal:
+            qpos = torch.arange(c0, c0 + qc.shape[1], device=q.device)
+            ok = (kpos[None, :] <= qpos[:, None]) | \
+                (kpos[None, :] < prefix_len)
+            s = s.masked_fill(~ok, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        if causal:
+            p = p.masked_fill(~ok, 0.0)
+        dvv += torch.einsum("bkgcs,bckgd->bskd", p.to(q.dtype).float(), doc)
+        dp = torch.einsum("bckgd,bskd->bkgcs", doc, vf)
+        ds = (p * (dp - dsum[..., None])).to(q.dtype).float()
+        dq[:, rows] = (torch.einsum("bkgcs,bskd->bckgd", ds, kf)
+                       * scale).to(q.dtype)
+        dk += torch.einsum("bkgcs,bckgd->bskd", ds, qc) * scale
+    return dq, dk.to(q.dtype), dvv.to(q.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, prefix_len=0):
+    """``(dq, dk, dv)``: the gradient of :func:`flash_attention` at
+    (q, k, v) (the forward's layouts), given its output ``o`` (B, Sq, KV,
+    G, dv) and the output's gradient ``do``, each in q's dtype and shape.
+    GQA's dk and dv sum over the G heads of a group.
+
+    On CUDA tensors it launches the kernel (three launches, counted once
+    in :data:`flash_bwd_launches`); on CPU tensors it runs
+    :func:`flash_attention_bwd_plain`.  A CUDA tensor runs the kernel or
+    raises.
+    """
+    b, sq, sk, kvh, g, dh, dv = _check_grad_inputs(q, k, v, o, do)
+    prefix_len = _check_prefix(prefix_len)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         prefix_len=prefix_len)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for device {dev}")
+    if max(dh, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims dh={dh}, dv={dv}: the kernel takes up "
+                         f"to {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # fp32 tiles are 32 rows, bf16 64.
+    if -(-max(sq, sk) // 32) > _MAX_GRID_Y or b * kvh * g >= 2 ** 31:
+        raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} is too "
+                         f"large for one launch")
+    global flash_bwd_launches
+    lib = _build.load("flash_attention_bwd", _declare_bwd)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    lse = torch.empty((b, kvh, g, sq), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    status = lib.flash_attention_bwd(
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dvv, lse, dsum)),
+        b, sq, sk, kvh, g, dh, dv, int(causal), min(prefix_len, sk),
+        int(q.dtype == torch.bfloat16), dh ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{status}")
+    flash_bwd_launches += 1
+    return dq, dk, dvv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    gradient: ``FlashAttention.apply(q, k, v, causal, prefix_len)``.  It
+    saves q, k, v and the output only when one of q, k, v requires grad,
+    so a call under serving (nothing requires grad) holds nothing more
+    than :func:`flash_attention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len):
+        o = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.prefix_len = causal, prefix_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None
 
 
 def traffic_bytes(b, sq, sk, kvh, g, dh, dv, dtype_bytes=2):

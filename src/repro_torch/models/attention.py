@@ -5,10 +5,13 @@ The port of the reference package's ``models/attention.py``.  The
 layouts are the reference's: q grouped as ``(B, S, KV, G, dh)``, K and V
 as ``(B, S, KV, dh)``.
 
-Prefill (:func:`attn_forward`, :func:`mla_forward`,
-:func:`cross_attn_forward`) runs the hand-written flash-attention kernel
-off the CPU and :func:`chunked_attention`, the twin of the reference's
-XLA path, on CPU tensors.  Decode (:func:`attn_decode`,
+Prefill and training (:func:`attn_forward`, :func:`mla_forward`,
+:func:`cross_attn_forward`) run the hand-written flash-attention kernel
+off the CPU, through the autograd Function ``FlashAttention`` whose
+gradient is the hand-written backward kernel, and
+:func:`chunked_attention`, the twin of the reference's XLA path, on CPU
+tensors, where autograd differentiates it as jax differentiates the
+reference's.  Decode (:func:`attn_decode`,
 :func:`mla_decode`, and the model's cross-attention decode) is torch ops
 on both, as it is XLA outside any kernel in the reference.
 
@@ -189,8 +192,9 @@ def attn_forward(p, x, cfg, *, causal=True, prefix_len=0, positions=None,
     """Full-sequence attention.  x: (B, S, D).  ``prefix_len``: under
     ``causal``, the positions every row sees (prefix-LM).
 
-    Off the CPU the scores run in the flash-attention kernel; on the CPU
-    they run in :func:`chunked_attention`.
+    Off the CPU the scores run in the flash-attention kernel (its
+    gradient in the backward kernel); on the CPU they run in
+    :func:`chunked_attention`.
     """
     b, s, _ = x.shape
     on_card = x.device.type != "cpu"
@@ -199,8 +203,7 @@ def attn_forward(p, x, cfg, *, causal=True, prefix_len=0, positions=None,
     q, k, v = _project_qkv(p, x, cfg, positions=positions)
     qg = _grouped(q, cfg.num_kv_heads)
     if on_card:
-        o = fa.flash_attention(qg, k, v, causal=causal,
-                               prefix_len=prefix_len)
+        o = fa.FlashAttention.apply(qg, k, v, causal, prefix_len)
     else:
         o = chunked_attention(qg, k, v, causal=causal,
                               prefix_len=prefix_len, chunk=cfg.attn_chunk,
@@ -249,7 +252,7 @@ def cross_attn_forward(p, x, kv, cfg):
     q = (x @ p["xwq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
     qg = _grouped(q, cfg.num_kv_heads)
     if x.device.type != "cpu":
-        o = fa.flash_attention(qg, k, v, causal=False)
+        o = fa.FlashAttention.apply(qg, k, v, False, 0)
     else:
         o = chunked_attention(qg, k, v, causal=False, chunk=cfg.attn_chunk,
                               kv_block=cfg.attn_kv_block)
@@ -308,7 +311,7 @@ def mla_forward(p, x, cfg, *, positions=None, return_kv=False):
     k, v = _mla_expand(p, c_kv, k_rope, cfg)
     qg = q[:, :, :, None, :]
     if x.device.type != "cpu":
-        o = fa.flash_attention(qg, k, v.contiguous(), causal=cfg.causal)
+        o = fa.FlashAttention.apply(qg, k, v.contiguous(), cfg.causal, 0)
     else:
         o = chunked_attention(qg, k, v, causal=cfg.causal,
                               chunk=cfg.attn_chunk,

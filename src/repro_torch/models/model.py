@@ -1,4 +1,4 @@
-"""The LM: prefill and decode for serving.
+"""The LM: prefill and decode for serving, and the training loss.
 
 The port of the reference package's ``models/model.py`` for layouts of
 ``("attn" | "attn_cross" | "mamba", "dense" | "moe" | "none")``
@@ -20,8 +20,16 @@ prefill), ``"ckv"`` ``(periods, B, max_len, kv_lora_rank)`` and
 Decode writes each token's K/V (or MLA latents), and each mamba layer's
 new state, into it in place.  A MoE sub-layer serves through
 ``moe_apply(exact=True)``, the dropless dispatch, in prefill and decode;
-serving drops its aux losses (``loss``, which reads them, comes with the
-training slice).
+serving drops its aux losses.
+
+``loss`` is the reference's: the stack in train mode (no cache; a MoE
+sub-layer takes the capacity dispatch, ``exact=False``, and its
+``load_balance`` and ``router_z`` losses are summed), each period under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+``jax.checkpoint`` around its scan body), then the cross-entropy over the
+vocabulary in sequence chunks of ``loss_chunk``, each chunk checkpointed
+too.  On the card its attention runs the flash kernel and its gradient the
+backward kernel; on the CPU autograd differentiates the chunked attention.
 
 The encoder runs over the batch's ``frames`` (B, encoder_seq, D), the
 stub frame embeddings, in prefill only: non-causal self-attention with
@@ -35,14 +43,15 @@ prefill runs under the prefix-LM mask with ``prefix_len`` =
 ``vision_tokens``.  Decode needs no mask: one new text token sees every
 cached position.
 
-The int8 KV cache raises ``NotImplementedError`` at construction, and
-``loss`` (the training slice) when called.
+The int8 KV cache raises ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -126,26 +135,35 @@ class LM:
     # Shared block machinery
     # ------------------------------------------------------------------
     def _period_fwd(self, pp, x, *, enc_out=None, prefix_len=0, cache=None,
-                    pos=None):
+                    pos=None, train=False):
         """One period.  Prefill (``cache is None``) returns the period's new
         cache entries; decode writes into ``cache`` (this period's slices)
         in place.  ``enc_out``: the encoder's output, which a
-        cross-attention sub-layer reads in prefill (decode reads its
-        cached ``xk``/``xv``).  ``prefix_len``: the prefill's prefix-LM
-        positions (the vision tokens), handed to every self-attention."""
+        cross-attention sub-layer reads in prefill and training (decode
+        reads its cached ``xk``/``xv``).  ``prefix_len``: the prefix-LM
+        positions (the vision tokens), handed to every self-attention.
+        ``train``: the reference's ``mode="train"``, a full sequence that
+        builds no cache and runs a MoE sub-layer through the capacity
+        dispatch; the second value returned is then the period's summed
+        aux losses, ``{"load_balance", "router_z"}`` (fp32 scalars)."""
         cfg = self.cfg
         new_cache = {}
+        aux = []                # the MoE sub-layers' aux losses
         for i, (mixer, ffn) in enumerate(cfg.layout):
             sp = pp[f"sub{i}"]
             key = f"sub{i}"
             h = rms_norm(x, sp["norm_in"], cfg.norm_eps)
-            if mixer == "mamba" and cache is None:
+            if mixer == "mamba" and train:
+                out = ssm.ssm_forward(sp["mixer"], h, cfg)
+            elif mixer == "mamba" and cache is None:
                 out, (hf, tails) = ssm.ssm_forward(sp["mixer"], h, cfg,
                                                    return_state=True)
                 new_cache[key] = {"h": hf, "conv_x": tails[0],
                                   "conv_b": tails[1], "conv_c": tails[2]}
             elif mixer == "mamba":
                 out, _ = ssm.ssm_decode(sp["mixer"], h, cfg, cache[key])
+            elif cfg.mla and train:
+                out = attn.mla_forward(sp["mixer"], h, cfg)
             elif cfg.mla and cache is None:
                 out, (ckv, krope) = attn.mla_forward(sp["mixer"], h, cfg,
                                                      return_kv=True)
@@ -154,6 +172,10 @@ class LM:
                 out, _, _ = attn.mla_decode(
                     sp["mixer"], h, cfg, cache[key]["ckv"],
                     cache[key]["krope"], pos)
+            elif train:
+                out = attn.attn_forward(sp["mixer"], h, cfg,
+                                        causal=cfg.causal,
+                                        prefix_len=prefix_len)
             elif cache is None:
                 out, (k, v) = attn.attn_forward(
                     sp["mixer"], h, cfg, causal=cfg.causal,
@@ -169,7 +191,8 @@ class LM:
                 if cache is None:
                     ent = _cross_kv(sp["mixer"], enc_out, cfg)
                     out = attn.cross_attn_forward(sp["mixer"], h, ent, cfg)
-                    new_cache[key].update(ent)
+                    if not train:
+                        new_cache[key].update(ent)
                 else:
                     out = _cross_decode(sp["mixer"], h, cache[key], cfg)
                 x = x + out
@@ -177,32 +200,52 @@ class LM:
                 continue
             h = rms_norm(x, sp["norm_ffn"], cfg.norm_eps)
             if ffn == "moe":
-                out, _ = moe.moe_apply(sp["ffn"], h, cfg, exact=True)
+                out, a = moe.moe_apply(sp["ffn"], h, cfg, exact=not train)
+                aux.append(a)
             else:
                 out = ffn_apply(sp["ffn"], h, cfg.ffn_activation)
             x = x + out
-        return x, new_cache
+        if not train:
+            return x, new_cache
+        zero = x.new_zeros((), dtype=torch.float32)
+        return x, {name: sum((a[name] for a in aux), zero)
+                   for name in ("load_balance", "router_z")}
 
-    def _encode(self, params, frames):
-        """Whisper's encoder over the stub frame embeddings (B, Se, D),
-        which arrive in fp32 and are cast to the activation dtype first."""
+    def _remat(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass instead of saved
+        (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``: the
+        reference's ``jax.checkpoint``."""
+        if self.cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _encoder_layer(self, lp, x):
         cfg = self.cfg
+        h = rms_norm(x, lp["norm_in"], cfg.norm_eps)
+        x = x + attn.attn_forward(lp["mixer"], h, cfg, causal=False)
+        h = rms_norm(x, lp["norm_ffn"], cfg.norm_eps)
+        return x + ffn_apply(lp["ffn"], h, cfg.ffn_activation)
+
+    def _encode(self, params, frames, train=False):
+        """Whisper's encoder over the stub frame embeddings (B, Se, D),
+        which arrive in fp32 and are cast to the activation dtype first.
+        ``train``: each layer under :meth:`_remat`, as the reference's
+        encoder scan body."""
         x = frames.to(self.adtype)
         for lp in params["encoder"]:
-            h = rms_norm(x, lp["norm_in"], cfg.norm_eps)
-            x = x + attn.attn_forward(lp["mixer"], h, cfg, causal=False)
-            h = rms_norm(x, lp["norm_ffn"], cfg.norm_eps)
-            x = x + ffn_apply(lp["ffn"], h, cfg.ffn_activation)
-        return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+            x = (self._remat(self._encoder_layer, lp, x) if train
+                 else self._encoder_layer(lp, x))
+        return rms_norm(x, params["enc_final_norm"], self.cfg.norm_eps)
 
     def _embed_tokens(self, params, tokens):
         x = params["embed"][tokens].to(self.adtype)
         return x * (self.cfg.d_model ** 0.5)
 
-    def _embed_inputs(self, params, batch):
+    def _embed_inputs(self, params, batch, train=False):
         """Token embedding, after a VLM's projected ``patches`` (its
         vision prefix), and, for an encoder-decoder, the encoder's output
-        (else None).  Returns (x, prefix_len, enc_out)."""
+        (else None; ``train`` goes to :meth:`_encode`).  Returns (x,
+        prefix_len, enc_out)."""
         cfg = self.cfg
         x = self._embed_tokens(params, batch["inputs"])
         prefix_len = 0
@@ -212,7 +255,7 @@ class LM:
             x = torch.cat([vis, x], dim=1)
             prefix_len = cfg.vision_tokens
         if cfg.encoder_layers:
-            enc_out = self._encode(params, batch["frames"])
+            enc_out = self._encode(params, batch["frames"], train=train)
         return x, prefix_len, enc_out
 
     def _lm_logits_chunk(self, params, h):
@@ -228,8 +271,51 @@ class LM:
             logits[..., cfg.vocab_size:] = -1e30
         return logits
 
+    def _xent_chunk(self, params, h, labels):
+        """One sequence chunk's summed cross-entropy over its valid labels
+        (``labels >= 0``) and their count: fp32 logits, ``logsumexp``
+        minus the gold logit."""
+        logits = self._lm_logits_chunk(params, h)            # (B, C, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None].long())
+        valid = (labels >= 0).float()
+        return ((lse - gold[..., 0]) * valid).sum(), valid.sum()
+
     def loss(self, params, batch):
-        raise attn._not_ported("LM.loss", "the training slice")
+        """``(loss, metrics)`` of the reference's ``LM.loss``: the mean
+        next-token cross-entropy over the labels (a VLM's vision prefix
+        dropped from the hidden states first; labels padded with -1 to a
+        multiple of ``loss_chunk``), plus the MoE aux losses.  ``metrics``:
+        ``xent``, ``load_balance``, ``router_z`` and ``tokens`` (the valid
+        labels), all fp32 scalars."""
+        cfg = self.cfg
+        x, prefix_len, enc_out = self._embed_inputs(params, batch,
+                                                    train=True)
+        period = functools.partial(self._period_fwd, enc_out=enc_out,
+                                   prefix_len=prefix_len, train=True)
+        aux = None
+        for pp in params["blocks"]:
+            x, a = self._remat(period, pp, x)
+            aux = a if aux is None else {n: aux[n] + a[n] for n in aux}
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cfg.vision_tokens:
+            h = h[:, cfg.vision_tokens:]
+        labels = batch["labels"]
+        s = labels.shape[1]
+        chunk = min(cfg.loss_chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            h = F.pad(h, (0, 0, 0, pad))
+            labels = F.pad(labels, (0, pad), value=-1)
+        total = count = 0.0
+        for c0 in range(0, s + pad, chunk):
+            t, n = self._remat(self._xent_chunk, params,
+                               h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+            total, count = total + t, count + n
+        count = count.clamp_min(1.0)
+        xent = total / count
+        loss = xent + aux["load_balance"] + aux["router_z"]
+        return loss, {"xent": xent, **aux, "tokens": count}
 
     # ------------------------------------------------------------------
     # Serving: prefill + decode

@@ -1239,3 +1239,181 @@ def test_bf16_put_verifies_full_on_the_card(card):
     bad = dataclasses.replace(bad, shards=[shard], seg_ids=seg[None])
     with pytest.raises(VerificationError, match="seg-monotone"):
         R.verify_gate(bad, r, c, v, "fast")
+
+
+# -- the flash-attention backward kernel ------------------------------------
+# (b, sq, sk, kv heads, g, dh, dv, causal, prefix_len): every pair the
+# forward serves ((64, 64), (128, 128), (96, 64), (256, 256)), pairs that
+# only the mma body takes, a ragged last key tile (Sk not a multiple of
+# the 64- or 32-row tiles), prefixes, GQA, Sq != Sk both ways, and a warp
+# of padding rows only (Sq = 65: the second q tile holds one live row).
+BWD_SHAPES = {
+    "d64": (2, 200, 200, 2, 1, 64, 64, True, 0),
+    "d128-gqa": (1, 190, 190, 2, 3, 128, 128, True, 0),
+    "mla-96-64": (1, 150, 150, 3, 1, 96, 64, True, 0),
+    "d256-prefix": (1, 140, 140, 1, 4, 256, 256, True, 100),
+    "mma-256-128": (1, 100, 100, 1, 2, 256, 128, True, 0),
+    "odd-20-13": (1, 45, 45, 2, 2, 20, 13, True, 3),
+    "prefix-past-sk": (1, 70, 70, 2, 1, 64, 64, True, 90),
+    "non-causal-sq-lt-sk": (2, 70, 200, 2, 2, 64, 64, False, 0),
+    "causal-sq-gt-sk": (1, 130, 90, 1, 2, 32, 32, True, 0),
+    "padding-rows": (1, 65, 65, 1, 1, 64, 64, True, 0),
+}
+# The kernel against its plain version, each of dq, dk, dv in norm:
+# ||Δ|| <= BWD_REL·||plain||.  Both sum in fp32 and round P and dS to the
+# inputs' dtype at the same points; they differ in sum order and in expf,
+# so bf16 may round a P or dS the other way (chip_smoke.py phase 13's
+# first H100 run read 1.6e-4-2.8e-4 in bf16 and 6.2e-7 in fp32).
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def bwd_case(card, dtype, b, sq, sk, kvh, g, dh, dv, causal, prefix,
+             seed=0):
+    """Seeded q, k, v and dO on the card, and o from the forward kernel."""
+    q, k, v = flash_inputs(card, dtype, b, sq, sk, kvh, g, dh, dv, seed)
+    gen = torch.Generator(device=card).manual_seed(seed + 1)
+    do = torch.randn((b, sq, kvh, g, dv), generator=gen,
+                     device=card).to(dtype)
+    o = fa.flash_attention(q, k, v, causal=causal, prefix_len=prefix)
+    return q, k, v, o, do
+
+
+def bwd_errors(got, want):
+    return [float((a.float() - w.float()).norm() / w.float().norm())
+            for a, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+def test_flash_bwd_kernel_matches_plain(card, shape, dtype):
+    """The backward kernel against its plain version on card tensors, and
+    a control (the mask's diagonal shifted by one, or the prefix ignored,
+    or causal flipped) that must fail the same bound."""
+    b, sq, sk, kvh, g, dh, dv, causal, prefix = BWD_SHAPES[shape]
+    q, k, v, o, do = bwd_case(card, dtype, *BWD_SHAPES[shape])
+    before = fa.flash_bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                 prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_launches == before + 1
+    assert all(t.dtype == dtype and t.shape == w.shape
+               for t, w in zip(got, (q, k, v)))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        prefix_len=prefix)
+    errs = bwd_errors(got, want)
+    assert max(errs) <= BWD_REL[dtype], errs
+    if prefix:
+        ctl = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    else:
+        ctl = fa.flash_attention_bwd(q, k, v, o, do, causal=not causal)
+    assert max(bwd_errors(ctl, want)) > BWD_REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_bwd_kernel_is_deterministic(card, dtype):
+    """No atomics: two runs give the same bits (GQA, so dK and dV sum over
+    a group's heads)."""
+    q, k, v, o, do = bwd_case(card, dtype, 2, 300, 300, 2, 4, 64, 64, True,
+                              0, seed=5)
+    a = fa.flash_attention_bwd(q, k, v, o, do)
+    b = fa.flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_function_backward_runs_the_kernel(card):
+    """``FlashAttention`` on card tensors: its forward is the forward
+    kernel, its backward one backward launch with the kernel's gradients;
+    with nothing requiring grad it records no graph."""
+    q, k, v, o, do = bwd_case(card, torch.bfloat16, 1, 130, 130, 2, 2, 64,
+                              64, True, 0, seed=7)
+    out = fa.FlashAttention.apply(q, k, v, True, 0)
+    assert out.grad_fn is None and torch.equal(out, o)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa.flash_bwd_launches
+    out = fa.FlashAttention.apply(*leaves, True, 0)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.flash_bwd_launches == before + 1
+    want = fa.flash_attention_bwd(q, k, v, o, do)
+    assert all(torch.equal(x, y) for x, y in zip(grads, want))
+
+
+def test_flash_bwd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q, k, v, o, do = bwd_case(card, torch.bfloat16, 1, 16, 16, 2, 1, 64, 64,
+                              True, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd(q, k, v, o, do.transpose(1, 2).contiguous()
+                               .transpose(1, 2))
+    with pytest.raises(ValueError, match="does not match"):
+        fa.flash_attention_bwd(q, k, v, o.float(), do)
+    with pytest.raises(ValueError, match="on"):
+        fa.flash_attention_bwd(q, k, v, o, do.cpu())
+
+
+def lm_loss_and_grads(lm, params, batch):
+    from repro_torch.train.optimizer import leaves
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    loss, _ = lm.loss(params, batch)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "minicpm3-4b",
+                                  "whisper-base", "paligemma-3b"])
+def test_reduced_lm_loss_backward_on_the_card(card, arch, dtype):
+    """``LM.loss`` and every parameter's gradient, reduced model with remat
+    on, card against CPU from the same weights: the card's attention runs
+    the forward and backward kernels (one backward launch per attention
+    call).  fp32: the loss within 1e-5 relative and each gradient within
+    1e-4 in relative norm.  bf16 (the CPU run in fp32 from the same bf16
+    weights): the loss within 2e-2 relative, and the stacked gradient
+    within 5e-2 in relative norm, which the backward with its mask flipped
+    (the control) must fail."""
+    cfg = dataclasses.replace(reduced_config(arch), param_dtype=dtype,
+                              activation_dtype=dtype, remat=True)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 41))
+    batch = {"inputs": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    from repro_torch.data.pipeline import add_modality_stubs
+    batch = add_modality_stubs(batch, cfg)
+    on_card = tree_map(lambda t: t.to(card), params)
+    card_batch = {n: t.to(card) for n, t in batch.items()}
+    # Attention calls: a self-attention per attention sub-layer, a cross
+    # one more per attn_cross, one per encoder layer.
+    calls = cfg.num_periods * sum(1 + (m == "attn_cross")
+                                  for m, _ in cfg.layout if m != "mamba") \
+        + cfg.encoder_layers
+    before = fa.flash_bwd_launches
+    loss, grads = lm_loss_and_grads(lm, on_card, card_batch)
+    assert fa.flash_bwd_launches - before == calls
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    want, wgrads = lm_loss_and_grads(
+        LM(cfg32), tree_map(lambda t: t.detach().float(), params), batch)
+    flat = torch.cat([g.float().flatten().cpu() for g in grads])
+    wflat = torch.cat([g.flatten() for g in wgrads])
+    if dtype == "float32":
+        assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+        for g, w in zip(grads, wgrads):
+            assert float((g.cpu() - w).norm()) <= 1e-4 * float(w.norm()) \
+                + 1e-7
+        return
+    assert abs(float(loss) - float(want)) <= 2e-2 * abs(float(want))
+    rel = float((flat - wflat).norm() / wflat.norm())
+    assert rel <= 5e-2, rel
+    flipped = fa.flash_attention_bwd
+
+    def wrong_mask(q, k, v, o, do, *, causal=True, prefix_len=0):
+        return flipped(q, k, v, o, do, causal=not causal,
+                       prefix_len=prefix_len)
+
+    with patched(fa, "flash_attention_bwd", wrong_mask):
+        _, cgrads = lm_loss_and_grads(lm, on_card, card_batch)
+    cflat = torch.cat([g.float().flatten().cpu() for g in cgrads])
+    assert float((cflat - wflat).norm() / wflat.norm()) > 5e-2

@@ -35,6 +35,9 @@ def test_every_module_and_chip_smoke_import_no_jax():
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         assert len(names) >= 20, names
+        assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+                "repro_torch.train.trainer",
+                "repro_torch.launch.train"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -127,4 +130,17 @@ def test_variant_build_binds_a_tree_module_to_its_own_build():
         assert report == ["report"] and built == [
             ("tree_serpens_spmv", True, "p")], built
         assert lib.serpens_spmv.restype is not None
+    """) + LEAKS)
+
+
+def test_cuda_emulation_tool_imports_no_jax():
+    """``tools/cuda_emulate.py`` (the backward kernel's source run on the
+    CPU) imports nothing of JAX, and its edits still apply to the
+    source."""
+    run(textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tools")
+        import cuda_emulate
+        assert "emu_launch(" in cuda_emulate.emulated_source(
+            "flash_attention_bwd")
     """) + LEAKS)

@@ -496,10 +496,13 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="int8"):
         LM(dataclasses.replace(cfg, kv_cache_quant=True))
     lm = LM(cfg)
-    with pytest.raises(NotImplementedError, match="training"):
-        lm.loss({}, {})
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ServeEngine(lm, {}, 8, mesh=object())
+    # Training is ported (tests/test_torch_train.py); sharded training is
+    # not.
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        Trainer(lm, None, TrainConfig(), mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("step", [0, 3])
