@@ -3727,11 +3727,11 @@ BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 # TRAIN_CHECK batch, against the CPU's fp32 run of the same weights: the
 # loss within TRAIN_LOSS_REL relative and the gradient within
 # TRAIN_GRAD_REL in norm (bf16 rounds every activation through 24 layers
-# and their backward; the first H100 run read 9.9e-5 and 3.4e-2).  The
-# backward with its mask off (the control; it read 1.0) must fail the
-# gradient's bound.
+# and their backward; the first H100 runs read 9.9e-5 and 3.4e-2, so each
+# bound is about 10x and 3x its reading).  The backward with its mask off
+# (the control; it read 1.0) must fail the gradient's bound.
 TRAIN_CHECK = (1, 256)
-TRAIN_LOSS_REL = 1e-2
+TRAIN_LOSS_REL = 1e-3
 TRAIN_GRAD_REL = 1e-1
 # Phase 13(d): checkpoint/restart at the full width and TRAIN_RESTART_LAYERS
 # layers (the full depth's 4.6 GB of params, m and v stay off the disk):

@@ -8,8 +8,9 @@ cosine decay over ``--steps``, a checkpoint every 50 steps into
 steps and at the last.  Random weights come from a generator seeded with
 0 on the device.  It trains on the CUDA card and refuses to start without
 one unless ``--device cpu`` is given; ``--reduced`` trains the
-smoke-test sibling of the architecture.  ``--host-devices`` (the
-reference's simulated mesh) belongs to the multi-GPU slice and raises.
+smoke-test sibling of the architecture.  ``--host-devices``,
+``--data-axis`` and ``--model-axis`` (the reference's simulated mesh)
+belong to the multi-GPU slice: any value but their default raises.
 """
 import argparse
 
@@ -31,10 +32,14 @@ def main(argv=None, on_step=None):
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.host_devices:
-        raise NotImplementedError(
-            "--host-devices is not ported yet: it comes with the multi-GPU "
-            "slice (ROADMAP Queue 1 #8)")
+    mesh_flags = {"--host-devices": (args.host_devices, 0),
+                  "--data-axis": (args.data_axis, 0),
+                  "--model-axis": (args.model_axis, 1)}
+    for flag, (value, default) in mesh_flags.items():
+        if value != default:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: it comes with the multi-GPU "
+                f"slice (ROADMAP Queue 1 #8)")
 
     import torch
 

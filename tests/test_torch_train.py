@@ -483,9 +483,10 @@ def test_launcher_main_returns_its_trainer_and_refuses_a_mesh():
                       on_step=lambda t: seen.append(float(t.metrics["loss"])))
     assert tr.step == 2 and len(seen) == 2
     assert all(np.isfinite(seen))
-    with pytest.raises(NotImplementedError, match="#8"):
-        tlaunch.main(["--arch", "qwen1.5-0.5b", "--reduced",
-                      "--host-devices", "4"])
+    for flag in (["--host-devices", "4"], ["--data-axis", "2"],
+                 ["--model-axis", "2"]):
+        with pytest.raises(NotImplementedError, match="#8"):
+            tlaunch.main(["--arch", "qwen1.5-0.5b", "--reduced", *flag])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             tlaunch.main(["--arch", "qwen1.5-0.5b", "--reduced"])

@@ -14,7 +14,10 @@ binds to the same ``extern "C"`` interface as the card's build, so
 
 It says nothing of speed, registers or the card's exp and rounding; the
 card tests (``tests/test_torch_chip.py``) and ``chip_smoke.py`` phase 13
-hold the real build.  Run::
+hold the real build.  It rewrites the source's text (the ``mma.sync``
+asm, ``extern __shared__``, launches), so it follows the present
+``mma.sync`` design only: a redesign of the backward retires it
+(ROADMAP, Queue 2).  Run::
 
     PYTHONPATH=src python3 tools/cuda_emulate.py
 
