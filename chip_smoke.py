@@ -102,7 +102,8 @@ package.  Phases:
    with a seeded ``PlanTuner`` takes ``put(spec="auto")`` of the
    full-size G7 stand-in and prints its features, bucket, ranked arms,
    choice and tune/encode seconds.  Every arm of the bucket is built from
-   one prepared sort (``plan_from_prepared``), bound, held against the
+   one prepared sort (``plan_from_prepared``, the arms on host threads at
+   once while the card checks those built), bound, held against the
    phase-2 fp64 references on 4 requests under the same tolerance beside
    a control with its first live tile emptied that must fail, and timed
    with CUDA events in turns (spmv on one vector, SpMM at N = 16 on a
@@ -183,7 +184,8 @@ package.  Phases:
    (busy share, kernel launches, top kernels) are printed; the serve's
    peak allocation above what it started with must stay within
    ``SSM_PEAK_OVER``, and a prefill whose conv tails are views of the
-   whole projections (the control) must exceed it.  (d) One mamba layer
+   whole projections and which holds every period's entries to its end
+   (the control) must exceed it.  (d) One mamba layer
    alone on layer 0's served input: ms (CUDA events) at prefill and
    decode size, its share (×48) of the served prefill and
    step, and its host syncs (sync debug mode), which must be none.  (b)
@@ -331,20 +333,59 @@ package.  Phases:
    uninterrupted against 2 steps, a checkpoint under ``build/``, a fresh
    ``Trainer`` that restores it and 2 more: losses within
    ``TRAIN_RESTART_TOL``.
+14. codeqwen1.5-7b at a 32k context with the int8 KV cache (the
+   twenty-fourth slice: ``quantize_kv``, ``dequantize_kv``,
+   ``attn_decode_quant``, the quantised prefill writing into its
+   ``max_len`` cache), after phase 13's model is released.  (a) The flash
+   kernel at the B = 4 served prefill's shape (4, 32736, 32 KV, G 1, 128,
+   128), bf16, causal: its first 512 rows of every sequence and its last
+   row against the plain version under phase 5(a)'s tolerances, then the
+   wgmma body timed in turns with ``scaled_dot_product_attention`` beside
+   its bound (the unmasked pairs' flops at 989 TFLOP/s, 35.5 ms).  (b)
+   codeqwen1.5-7b at its published width and depth, nothing cut (32
+   layers, d 4096, 32 heads over 32 KV of 128, QKV bias, d_ff 13440,
+   vocab 92,416, untied), bf16, random weights from a seeded generator
+   made on the card, serves prompts of 32,736 random tokens plus 32
+   greedy tokens (``max_len`` 32,768, the reference's decode_32k) through
+   ``ServeEngine.generate`` three times: the bf16 cache at B = 2, the
+   int8 cache at B = 2 and at B = 4 (the same cache bytes as bf16 at
+   B = 2; bf16 at B = 4 needs more than the card holds, which is printed
+   beside ``torch.cuda.mem_get_info``, not allocated).  Each serve (after
+   a warm-up, counts set to 0 before and read after) must launch the
+   wgmma body 32 times and nothing else; its cache's bytes must equal
+   the shapes' (int8/bf16 = (2·128 + 8)/(4·128) = 0.5156).  Prefill ms
+   (between syncs), decode ms a step (from the prefill's end to the
+   serve's), the cache, the peak allocation beside weights + cache, the
+   card's busy share of a profiled decode step and its top kernels are
+   printed; if the run has passed ``KV_SLOW_S`` the serves take
+   ``KV_SLOW_DECODE`` tokens.  Printed as readings, with no bound: the
+   int8 against the bf16 serve's first decode-step logits and their
+   greedy-token agreement.  (c) Layer 0's ``attn_decode_quant`` at
+   position 4095 over the int8 B = 2 serve's first 4096 cached positions,
+   the card in bf16 against the CPU in fp32 on the same codes and scales:
+   ``||Δ|| <= KV_LAYER_REL·||cpu||``, which the scales dropped (s = 1)
+   must fail.  (d) ``quantize_kv`` on layer 0's prefill K of one
+   sequence: the card's codes and scales bit-equal to the CPU's, and
+   rounding half away from zero (the control) must give other codes.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
-last line.  The last line is ``{"ok": true, "device": {...}}``; the line
+last line.  Before the last lines the card's cached blocks are freed and
+no child process may be running (``[exit]`` line); after them the
+process ends at once (``os._exit``), not after the interpreter's and
+the card context's teardown.  The last line is
+``{"ok": true, "device": {...}}``; the line
 before it is the kernels' JSON record (the backward's entry from phase
 13: its launches in (c), its times and bound at the training shape and
 SDPA-backward's time as its library time, its ``sources`` and its
 ``bodies``: each body's launches in (c), and the wgmma and mma bodies'
 times at the training shape), whose flash entry also lists each
 body's main-path launches and its times, bounds and library times at
-the seven timed shapes (``bodies``: phase 5's served prefill and
+the eight timed shapes (``bodies``: phase 5's served prefill and
 prefill_32k, llama4's served prefill, minicpm3's, whisper's encoder and
 cross shapes and paligemma's prefix-LM prefill, these four with their
-plain time), whose spmm entry
+plain time, and codeqwen1.5-7b's B = 4 prefill at 32,736, the wgmma
+body's only), whose spmm entry
 lists each vector width's main-path launches (``bodies``) and, at each
 served width, its
 time, CSR's, the bound and the passes (``by_n``), and whose spmv and
@@ -358,6 +399,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -400,8 +442,10 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import sass as ksass  # noqa: E402
 from repro_torch.kernels import serpens_spmv as ks  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.model import LM, _cross_kv  # noqa: E402
 from repro_torch.obs.profile import profiler_trace  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -451,6 +495,18 @@ G5_SMALL_SCALE = 0.25
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def child_processes() -> list[str]:
+    """The pids of this process's live children (from ``/proc``; a zombie
+    has ended and is not counted)."""
+    me, kids = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        with contextlib.suppress(OSError), open(f"/proc/{pid}/stat") as f:
+            state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            if ppid == me and state != "Z":
+                kids.append(pid)
+    return kids
 
 
 def card_line() -> str:
@@ -660,18 +716,25 @@ def in_turns(fns: dict, iters: int, timer=time_ms) -> dict:
         "reads": reads}
 
 
-def host_reference(rows, cols, vals, m, x, alpha, beta, y):
-    """fp64 ``alpha * A @ x + beta * y`` and its tolerance scale."""
-    xv = x.astype(np.float64)[cols]
-    ax = np.bincount(rows, weights=vals * xv, minlength=m)
-    absax = np.bincount(rows, weights=np.abs(vals) * np.abs(xv),
-                        minlength=m)
-    ref = alpha * ax
-    scale = abs(alpha) * absax
-    if y is not None:
-        ref = ref + beta * y.astype(np.float64)
-        scale = scale + abs(beta) * np.abs(y.astype(np.float64))
-    return ref, scale
+def host_references(rows, cols, vals, shape, reqs) -> list:
+    """fp64 ``alpha * A @ x + beta * y`` and its tolerance scale
+    (``|alpha| * |A| @ |x| + |beta| * |y|``) of every request in ``reqs``,
+    from two scipy CSR products over all their x at once."""
+    import scipy.sparse as sp
+    vals = np.asarray(vals, np.float64)
+    a = sp.csr_matrix((vals, (rows, cols)), shape=shape)
+    absa = sp.csr_matrix((np.abs(vals), (rows, cols)), shape=shape)
+    xs = np.stack([x for x, *_ in reqs], 1).astype(np.float64)
+    ax = np.ascontiguousarray((a @ xs).T)
+    absax = np.ascontiguousarray((absa @ np.abs(xs)).T)
+    out = []
+    for i, (_, alpha, beta, y, _) in enumerate(reqs):
+        ref, scale = alpha * ax[i], abs(alpha) * absax[i]
+        if y is not None:
+            ref = ref + beta * y.astype(np.float64)
+            scale = scale + abs(beta) * np.abs(y.astype(np.float64))
+        out.append((ref, scale))
+    return out
 
 
 def make_requests(rng, m: int, k: int):
@@ -1020,6 +1083,83 @@ def read_launches() -> dict:
             "spmv_fused": ks.spmv_fused_launches,
             "flash_attention": fa.flash_launches,
             "flash_attention_bwd": fa.flash_bwd_launches}
+
+
+@dataclasses.dataclass
+class Served:
+    """One timed ``generate`` of :func:`timed_serve`: its tokens, host
+    seconds, the kernels' launches and the flash launches by body in it,
+    the bytes allocated before it and the peak allocation during it."""
+    out: torch.Tensor
+    gen_s: float
+    launches: dict
+    by_body: dict
+    base: int
+    peak: int
+    end: float
+
+
+def timed_serve(what: str, eng, batch, steps: int, warm, flash: int,
+                vocab: int) -> Served:
+    """The serving phases' main-path run: a warm-up ``eng.generate(warm,
+    2)``, the peak reset, the launch counts set to 0, one timed
+    ``eng.generate(batch, steps)``, the counts read and the peak read.  It
+    fails unless the run launched the flash kernel's wgmma body ``flash``
+    times and no other body or kernel, and gave ``steps`` tokens in
+    ``[0, vocab)`` for every prompt."""
+    eng.generate(warm, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.generate(batch, steps)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    gen_s = end - t
+    launches = read_launches()
+    by_body = dict(fa.flash_launches_by_body)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = flash
+    want_bodies = {name: flash if name == "wgmma" else 0 for name in by_body}
+    if launches != want or by_body != want_bodies:
+        raise AssertionError(f"{what}: the serve launched {launches}, flash "
+                             f"by body {by_body}, not the wgmma body {flash}"
+                             f" times and nothing else")
+    b = batch["inputs"].shape[0]
+    if tuple(out.shape) != (b, steps) or int(out.min()) < 0 or \
+            int(out.max()) >= vocab:
+        raise AssertionError(f"{what}: generated tokens {tuple(out.shape)} "
+                             f"out of range [{int(out.min())}, "
+                             f"{int(out.max())}]")
+    return Served(out, gen_s, launches, by_body, base, peak, end)
+
+
+def timed_prefill_decode(eng, batch, out, pos0: int, steps: int,
+                         vocab: int):
+    """Host ms of one prefill of ``batch`` (its logits must be finite) and
+    per step of ``steps`` decode steps fed ``out``'s tokens from position
+    ``pos0``, each timed between syncs.  Returns (prefill ms, decode ms a
+    step, the cache after the steps)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if not bool(torch.isfinite(logits[:, :vocab]).all()):
+        raise AssertionError("non-finite prefill logits")
+    del logits
+    tok = out[:, :1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        _, cache = eng.decode_step(cache, tok, pos0 + i)
+        tok = out[:, i + 1:i + 2]
+    torch.cuda.synchronize()
+    return prefill_ms, (time.perf_counter() - t) * 1e3 / steps, cache
 
 
 def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
@@ -1392,47 +1532,62 @@ def time_flash(b, s, kvh, g, dh, causal, dev, iters, dv=None,
     return out
 
 
-def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
-                  tag: str = "phase5") -> None:
-    """``torch.profiler`` over one prefill and over ``steps`` decode steps:
-    the card's busy ms (kernel time summed), its share of the unprofiled
-    host time in ``host_ms`` (the profiler slows the host), the kernel
-    launches the profiler counted, and the kernels that take the most
-    time."""
+def profiled(fn, per: int, host_ms: float) -> dict:
+    """``fn()`` under ``torch.profiler``, then a sync: the card's busy ms
+    (kernel time summed) and kernel launches per ``per`` (a call or a
+    step), its busy share of the unprofiled ``host_ms`` of one (the
+    profiler slows the host), the profiled host ms per ``per`` and the
+    six kernels that take the most time."""
     from torch.profiler import ProfilerActivity, profile
 
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("ignore", UserWarning)
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    total = sum(busy.values())
+    count = sum(e.count for e in kernels
+                if not e.key.startswith(("Memcpy", "Memset")))
+    return {"busy_ms": total / per, "share": total / per / host_ms,
+            "prof_ms": prof_ms / per, "launches": count / per,
+            "top": [(k, v / per) for k, v in sorted(
+                busy.items(), key=lambda kv: -kv[1])[:6]]}
+
+
+def profile_line(tag: str, name: str, unit: str, host_ms: float, rec: dict,
+                 card: str) -> None:
+    say(f"[{tag}] profile {name} (per {unit}): card busy "
+        f"{rec['busy_ms']:.3f} ms, {rec['share']:.2f} of the unprofiled "
+        f"{host_ms:.3f} ms (profiled host {rec['prof_ms']:.3f} ms), "
+        f"{rec['launches']:.1f} kernel launches; top kernels: "
+        + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in rec["top"])
+        + f"  [{card}]")
+
+
+def profile_serve(eng, batch, out, card, host_ms: dict, steps: int = 4,
+                  tag: str = "phase5") -> None:
+    """``torch.profiler`` over one prefill and over ``steps`` decode steps
+    (:func:`profiled`), each printed beside the unprofiled host time in
+    ``host_ms``."""
     n = min(64, batch["inputs"].shape[1])
     pos0 = eng.lm.cfg.vision_tokens + n   # a VLM's image comes first
     _, cache = eng.prefill(dict(batch, inputs=batch["inputs"][:, :n]))
     torch.cuda.synchronize()
-    for name, prefill in (("prefill", True), ("decode", False)):
-        with warnings.catch_warnings(), profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-            warnings.simplefilter("ignore", UserWarning)
-            t = time.perf_counter()
-            if prefill:
-                eng.prefill(batch)
-            else:
-                for i in range(steps):
-                    eng.decode_step(cache, out[:, i:i + 1], pos0 + i)
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
-        total = sum(busy.values())
-        count = sum(e.count for e in kernels
-                    if not e.key.startswith(("Memcpy", "Memset")))
-        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        per = 1 if prefill else steps
-        say(f"[{tag}] profile {name} (per {'call' if prefill else 'step'}"
-            f"): card busy {total / per:.3f} ms, {total / per / host_ms[name]:.2f}"
-            f" of the unprofiled {host_ms[name]:.3f} ms (profiled host "
-            f"{prof_ms / per:.3f} ms), {count / per:.1f} kernel launches; "
-            f"top kernels: "
-            + "; ".join(f"{k[:60]} {v / per:.3f} ms" for k, v in top)
-            + f"  [{card}]")
+
+    def decode():
+        for i in range(steps):
+            eng.decode_step(cache, out[:, i:i + 1], pos0 + i)
+
+    for name, fn, per, unit in (
+            ("prefill", lambda: eng.prefill(batch), 1, "call"),
+            ("decode", decode, steps, "step")):
+        profile_line(tag, name, unit, host_ms[name],
+                     profiled(fn, per, host_ms[name]), card)
 
 
 def offset_copy(x):
@@ -1748,6 +1903,8 @@ ARMS_SMALL_SCALE = 0.25
 ARM_N = 16
 # Observations on the served matrix between two re-tunes in phase 6(c).
 RETUNE_EVERY = 4
+# Host threads that encode the arms of phase 6(b) at once: one an arm.
+ARM_THREADS = 5
 
 
 def tile_dropped(op):
@@ -1831,9 +1988,7 @@ def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
     else:
         ar, ac, av, ashape, _ = paper_matrix("G7", scale=scale, seed=SEED)
         areqs = make_requests(np.random.default_rng(SEED + 2), *ashape)
-        av64 = av.astype(np.float64)
-        arefs = [host_reference(ar, ac, av64, ashape[0], x, a, b, y)
-                 for x, a, b, y, _ in areqs[:4]]
+        arefs = host_references(ar, ac, av, ashape, areqs[:4])
     cfg = reg.default_config
     prep = sformat.prepare(ar, ac, av, ashape, cfg)
     feats = features_of(prep)
@@ -1844,26 +1999,42 @@ def phase_autotune(rows, cols, vals, shape, reqs, refs, dev, t_run, card):
         raise AssertionError(f"the arms' matrix is in bucket "
                              f"{feats.bucket()}, the served one in "
                              f"{first.bucket}")
-    arms = {}
-    for cand in tuner.candidates(feats):
+    def build_arm(cand):
         ta = time.perf_counter()
-        if scale == 1.0 and cand.key == first.candidate.key:
-            aop = op0                   # the registry's own binding
-        else:
-            acfg = cand.apply_config(cfg)
-            aprep = (prep if acfg == cfg
-                     else dataclasses.replace(prep, config=acfg))
-            aop = SerpensOperator(cpart.plan_from_prepared(aprep, cand.spec),
-                                  device=dev)
-        err = check_arm(f"arm {cand.key} vs fp64", aop, areqs, arefs)
-        rp = aop.plan.out_rows_padded
-        arms[cand.key] = {"cand": cand, "op": aop, "err": err, "plans": [
-            ks._card_spmv_plan(sidx, rp) for sidx, _, _ in aop._shards]}
-        say(f"[phase6] arm {cand.key}: {aop.plan.num_shards} shard(s), "
-            f"{aop.padded_slots} slots, padding {aop.padding_ratio:.3f}, "
-            f"{aop.plan.n_aux} spilled, {aop.stream_bytes / 1e6:.1f} MB; "
-            f"vs fp64 max err {err:.3e}, control fails as it must; built "
-            f"and checked in {time.perf_counter() - ta:.1f} s")
+        acfg = cand.apply_config(cfg)
+        aprep = (prep if acfg == cfg
+                 else dataclasses.replace(prep, config=acfg))
+        return (cpart.plan_from_prepared(aprep, cand.spec),
+                time.perf_counter() - ta)
+
+    # The arms encode on ARM_THREADS host threads (numpy releases the GIL
+    # in the encode's sorts and gathers) while the card checks the arms
+    # already built, in the tuner's order.
+    arms = {}
+    cands = list(tuner.candidates(feats))
+    with concurrent.futures.ThreadPoolExecutor(ARM_THREADS) as pool:
+        plans = {cand.key: pool.submit(build_arm, cand) for cand in cands
+                 if not (scale == 1.0 and cand.key == first.candidate.key)}
+        for cand in cands:
+            if cand.key in plans:
+                plan, build_s = plans.pop(cand.key).result()
+                aop = SerpensOperator(plan, device=dev)
+                del plan
+            else:
+                aop, build_s = op0, 0.0     # the registry's own binding
+            ta = time.perf_counter()
+            err = check_arm(f"arm {cand.key} vs fp64", aop, areqs, arefs)
+            rp = aop.plan.out_rows_padded
+            arms[cand.key] = {"cand": cand, "op": aop, "err": err,
+                              "plans": [ks._card_spmv_plan(sidx, rp)
+                                        for sidx, _, _ in aop._shards]}
+            say(f"[phase6] arm {cand.key}: {aop.plan.num_shards} shard(s), "
+                f"{aop.padded_slots} slots, padding "
+                f"{aop.padding_ratio:.3f}, {aop.plan.n_aux} spilled, "
+                f"{aop.stream_bytes / 1e6:.1f} MB; vs fp64 max err "
+                f"{err:.3e}, control fails as it must; encoded in "
+                f"{build_s:.1f} s on a host thread, checked in "
+                f"{time.perf_counter() - ta:.1f} s")
     xd = torch.from_numpy(areqs[0][0]).to(dev)
     xn = torch.from_numpy(np.stack([r[0] for r in areqs[:ARM_N]], 1)).to(dev)
     fns, seen = {}, {}
@@ -2486,48 +2657,17 @@ def phase_moe(dev, card):
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))).to(dev)
     batch = {"inputs": prompts}
-    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = eng.generate(batch, MOE_DECODE + 1)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    launches = read_launches()
-    by_body = dict(fa.flash_launches_by_body)
-    peak = torch.cuda.max_memory_allocated()
-    if launches["flash_attention"] != cfg.num_layers or \
-            by_body["wgmma"] != cfg.num_layers:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the wgmma body once "
-                             f"per layer ({cfg.num_layers})")
-    if tuple(out.shape) != (MOE_BATCH, MOE_DECODE + 1) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
-                             f"range [{int(out.min())}, {int(out.max())}]")
+    run = timed_serve("phase8", eng, batch, MOE_DECODE + 1,
+                      {"inputs": prompts[:, :64]}, cfg.num_layers,
+                      cfg.vocab_size)
+    out, gen_s, launches, by_body, peak = \
+        run.out, run.gen_s, run.launches, run.by_body, run.peak
     for name in bodies:
         bodies[name]["launches"] = by_body[name]
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = eng.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite prefill logits")
-    tok = out[:, :1]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(MOE_DECODE):
-        _, cache = eng.decode_step(cache, tok, MOE_PROMPT + i)
-        tok = out[:, i + 1:i + 2]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / MOE_DECODE
-    del logits, cache
+    prefill_ms, decode_ms, cache = timed_prefill_decode(
+        eng, batch, out, MOE_PROMPT, MOE_DECODE, cfg.vocab_size)
+    del cache
     head = cfg.d_model * cfg.vocab_padded
     say(f"[phase8] serve {MOE_BATCH} x {MOE_PROMPT} tokens + {MOE_DECODE} "
         f"greedy decode steps: generate {gen_s:.3f} s, launches {launches},"
@@ -2692,9 +2832,21 @@ def dropped_carry(fn):
 
 
 def viewed_tails(projections, cfg):
-    """``_conv_tail`` returning views that keep each layer's whole
-    (B, S, C) projections alive: phase 9(a)'s memory control."""
+    """``_conv_tail`` returning views of each layer's whole (B, S, C)
+    projections: with :func:`held_entries`, phase 9(a)'s memory
+    control."""
     return tuple(t[:, -(cfg.ssm.conv_width - 1):] for t in projections)
+
+
+def held_entries(write, held: list):
+    """``_write_period`` that also keeps each period's prefill entries in
+    ``held``: with :func:`viewed_tails` the prefill then keeps every
+    layer's whole projections alive, as a prefill that gathered its
+    periods' entries before stacking them did."""
+    def run(cache, p, ent):
+        held.append(ent)
+        return write(cache, p, ent)
+    return run
 
 
 def phase_ssm(dev, card, t_run):
@@ -2724,51 +2876,26 @@ def phase_ssm(dev, card, t_run):
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))).to(dev)
     batch = {"inputs": prompts}
-    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
-    torch.cuda.synchronize()
+    run = timed_serve("phase9", eng, batch, SSM_DECODE + 1,
+                      {"inputs": prompts[:, :64]}, 0, cfg.vocab_size)
+    out, gen_s, launches, peak, base = \
+        run.out, run.gen_s, run.launches, run.peak, run.base
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = eng.generate(batch, SSM_DECODE + 1)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    if any(launches.values()):
-        raise AssertionError(f"mamba2 has no attention, yet its serve "
-                             f"launched {launches}")
-    torch.cuda.reset_peak_memory_stats()
-    with patched(ssm, "_conv_tail", viewed_tails):
+    held = []
+    with patched(ssm, "_conv_tail", viewed_tails), \
+            patched(lm_model, "_write_period",
+                    held_entries(lm_model._write_period, held)):
         eng.prefill(batch)
     torch.cuda.synchronize()
     ctl_over = torch.cuda.max_memory_allocated() - base
-    if tuple(out.shape) != (SSM_BATCH, SSM_DECODE + 1) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
-                             f"range [{int(out.min())}, {int(out.max())}]")
+    del held
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = eng.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite prefill logits")
+    prefill_ms, decode_ms, cache = timed_prefill_decode(
+        eng, batch, out, SSM_PROMPT, SSM_DECODE, cfg.vocab_size)
     state = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
     state_bytes = sum(x.numel() * x.element_size()
                       for x in cache["sub0"].values())
-    tok = out[:, :1]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(SSM_DECODE):
-        _, cache = eng.decode_step(cache, tok, SSM_PROMPT + i)
-        tok = out[:, i + 1:i + 2]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / SSM_DECODE
-    del logits, cache
+    del cache
     say(f"[phase9] serve {SSM_BATCH} x {SSM_PROMPT} tokens + {SSM_DECODE} "
         f"greedy decode steps: generate {gen_s:.3f} s, launches {launches};"
         f" prefill {prefill_ms:.2f} ms ({SSM_BATCH * SSM_PROMPT / prefill_ms:.1f}"
@@ -2778,14 +2905,15 @@ def phase_ssm(dev, card, t_run):
         f"memory {peak / 1e9:.3f} GB (max_memory_allocated), "
         f"{(peak - base) / 1e9:.3f} GB over the {base / 1e9:.3f} GB held "
         f"before the serve (bound {SSM_PEAK_OVER / 1e9}); control (conv "
-        f"tails kept as views, prefill alone): {ctl_over / 1e9:.3f} GB over"
-        f"  [{card}]")
+        f"tails kept as views and every period's entries held, prefill "
+        f"alone): {ctl_over / 1e9:.3f} GB over  [{card}]")
     if not peak - base <= SSM_PEAK_OVER:
         raise AssertionError(f"the serve allocated {peak - base} bytes over "
                              f"what it started with")
     if not ctl_over > SSM_PEAK_OVER:
-        raise AssertionError(f"conv tails kept as views pass the memory "
-                             f"bound ({ctl_over})")
+        raise AssertionError(f"conv tails kept as views with every period's"
+                             f" entries held pass the memory bound "
+                             f"({ctl_over})")
     say(f"[phase9] request 0's tokens: {out[0].tolist()}")
     profile_serve(eng, batch, out, card,
                   {"prefill": prefill_ms, "decode": decode_ms}, tag="phase9")
@@ -3011,56 +3139,22 @@ def phase_mla(dev, card, t_run):
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (MLA_BATCH, MLA_PROMPT + 1))).to(dev)
     batch = {"inputs": prompts[:, :MLA_PROMPT]}
-    eng.generate({"inputs": prompts[:, :64]}, 2)        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = eng.generate(batch, MLA_DECODE + 1)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    launches = read_launches()
-    by_body = dict(fa.flash_launches_by_body)
-    peak = torch.cuda.max_memory_allocated()
-    want_bodies = {name: cfg.num_layers if name == "wgmma" else 0
-                   for name in by_body}
-    if launches["flash_attention"] != cfg.num_layers or \
-            by_body != want_bodies:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the wgmma body once "
-                             f"per layer ({cfg.num_layers}) and no other")
-    if tuple(out.shape) != (MLA_BATCH, MLA_DECODE + 1) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
-                             f"range [{int(out.min())}, {int(out.max())}]")
+    run = timed_serve("phase10", eng, batch, MLA_DECODE + 1,
+                      {"inputs": prompts[:, :64]}, cfg.num_layers,
+                      cfg.vocab_size)
+    out, gen_s, launches, by_body, peak, base = \
+        run.out, run.gen_s, run.launches, run.by_body, run.peak, run.base
     for name in bodies:
         bodies[name]["launches"] = by_body[name]
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = eng.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite prefill logits")
+    prefill_ms, decode_ms, cache = timed_prefill_decode(
+        eng, batch, out, MLA_PROMPT, MLA_DECODE, cfg.vocab_size)
     latent = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
     latent_bytes = sum(x.numel() * x.element_size()
                        for x in cache["sub0"].values())
     full_kv = (2 * cfg.num_layers * MLA_BATCH * max_len * cfg.num_heads
                * (c.rope_head_dim + c.nope_head_dim + c.v_head_dim))
-    tok = out[:, :1]
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(MLA_DECODE):
-        _, cache = eng.decode_step(cache, tok, MLA_PROMPT + i)
-        tok = out[:, i + 1:i + 2]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / MLA_DECODE
-    del logits, cache
+    del cache
     say(f"[phase10] serve {MLA_BATCH} x {MLA_PROMPT} tokens + {MLA_DECODE} "
         f"greedy decode steps: generate {gen_s:.3f} s, launches {launches},"
         f" flash by body {by_body}; prefill {prefill_ms:.2f} ms "
@@ -3301,59 +3395,25 @@ def phase_whisper(dev, card):
         (WHISPER_BATCH, cfg.encoder_seq, cfg.d_model)).astype(
             np.float32)).to(dev)
     batch = {"inputs": prompts[:, :WHISPER_PROMPT], "frames": frames}
-    eng.generate(dict(batch, inputs=prompts[:, :16]), 2)      # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = eng.generate(batch, WHISPER_DECODE)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    launches = read_launches()
-    by_body = dict(fa.flash_launches_by_body)
-    peak = torch.cuda.max_memory_allocated()
     per_prefill = cfg.encoder_layers + 2 * cfg.num_layers
-    want_bodies = {name: per_prefill if name == "wgmma" else 0
-                   for name in by_body}
-    if launches["flash_attention"] != per_prefill or by_body != want_bodies:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the wgmma body "
-                             f"{per_prefill} times (each encoder layer, "
-                             f"each decoder layer's self and cross) and no "
-                             f"other")
-    if tuple(out.shape) != (WHISPER_BATCH, WHISPER_DECODE) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
-                             f"range [{int(out.min())}, {int(out.max())}]")
+    run = timed_serve("phase11 (each encoder layer, each decoder layer's "
+                      "self and cross)", eng, batch, WHISPER_DECODE,
+                      dict(batch, inputs=prompts[:, :16]), per_prefill,
+                      cfg.vocab_size)
+    out, gen_s, launches, by_body, peak, base = \
+        run.out, run.gen_s, run.launches, run.by_body, run.peak, run.base
     for name in bodies:
         bodies[name]["launches"] = by_body[name]
 
     enc_ms = time_ms(lambda: lm._encode(params, frames), 5)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = eng.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite prefill logits")
+    steps = WHISPER_DECODE - 1
+    prefill_ms, decode_ms, cache = timed_prefill_decode(
+        eng, batch, out, WHISPER_PROMPT, steps, cfg.vocab_size)
     shapes = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
     nbytes = {name: x.numel() * x.element_size()
               for name, x in cache["sub0"].items()}
     self_kv, cross_kv = nbytes["k"] + nbytes["v"], nbytes["xk"] + nbytes["xv"]
-    tok = out[:, :1]
-    steps = WHISPER_DECODE - 1
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(steps):
-        _, cache = eng.decode_step(cache, tok, WHISPER_PROMPT + i)
-        tok = out[:, i + 1:i + 2]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / steps
-    del logits, cache
+    del cache
     say(f"[phase11] serve {WHISPER_BATCH} clips x {cfg.encoder_seq} frames, "
         f"{WHISPER_PROMPT}-token prompts + {WHISPER_DECODE} greedy tokens: "
         f"generate {gen_s:.3f} s, launches {launches}, flash by body "
@@ -3580,55 +3640,21 @@ def phase_vlm(dev, card):
     patches = torch.from_numpy(rng.standard_normal(
         (PALI_BATCH, vis, cfg.vision_embed_dim)).astype(np.float32)).to(dev)
     batch = {"inputs": prompts[:, :PALI_PROMPT], "patches": patches}
-    eng.generate(dict(batch, inputs=prompts[:, :16]), 2)      # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = eng.generate(batch, PALI_DECODE)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t
-    launches = read_launches()
-    by_body = dict(fa.flash_launches_by_body)
-    peak = torch.cuda.max_memory_allocated()
-    want_bodies = {name: cfg.num_layers if name == "wgmma" else 0
-                   for name in by_body}
-    if launches["flash_attention"] != cfg.num_layers or \
-            by_body != want_bodies:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in the "
-                             f"serve ({by_body}), not the wgmma body once a "
-                             f"layer ({cfg.num_layers}) and no other")
-    if tuple(out.shape) != (PALI_BATCH, PALI_DECODE) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
-                             f"range [{int(out.min())}, {int(out.max())}]")
+    run = timed_serve("phase12", eng, batch, PALI_DECODE,
+                      dict(batch, inputs=prompts[:, :16]), cfg.num_layers,
+                      cfg.vocab_size)
+    out, gen_s, launches, by_body, peak, base = \
+        run.out, run.gen_s, run.launches, run.by_body, run.peak, run.base
     bodies = {name: dict(rec.get(name, {}), launches=by_body[name])
               for name in by_body}
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = eng.prefill(batch)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t) * 1e3
-    if not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()):
-        raise AssertionError("non-finite prefill logits")
+    steps = PALI_DECODE - 1
+    prefill_ms, decode_ms, cache = timed_prefill_decode(
+        eng, batch, out, vis + PALI_PROMPT, steps, cfg.vocab_size)
     kv_bytes = sum(x.numel() * x.element_size()
                    for x in cache["sub0"].values())
     shapes = {name: tuple(x.shape) for name, x in cache["sub0"].items()}
-    tok = out[:, :1]
-    steps = PALI_DECODE - 1
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for i in range(steps):
-        _, cache = eng.decode_step(cache, tok, vis + PALI_PROMPT + i)
-        tok = out[:, i + 1:i + 2]
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t) * 1e3 / steps
-    del logits, cache
+    del cache
     say(f"[phase12] serve {PALI_BATCH} images x {vis} patches with "
         f"{PALI_PROMPT}-token prompts + {PALI_DECODE} greedy tokens: "
         f"generate {gen_s:.3f} s, launches {launches}, flash by body "
@@ -4201,6 +4227,336 @@ def phase_train(dev, card, t_run):
     return launches, err, record, (bd, by), by_body
 
 
+# -- phase 14: codeqwen1.5-7b whole at a 32k context, int8 KV cache ----------
+KV_ARCH = "codeqwen1.5-7b"
+# The reference's decode_32k length (configs SHAPES): 32,736 prompt tokens
+# and 32 greedy tokens (the first from the prefill, then 31 decode steps)
+# fill a cache of 32,768.
+KV_PROMPT, KV_DECODE = 32736, 32
+KV_MAX_LEN = KV_PROMPT + KV_DECODE
+# (cache, batch) of the three serves: bf16 and int8 like for like at
+# B = 2, then int8 at B = 4, the same cache bytes as bf16 at B = 2.
+KV_SERVES = (("bf16", 2), ("int8", 2), ("int8", 4))
+# Past this many seconds of the run the serves take KV_SLOW_DECODE greedy
+# tokens (width and length are never cut), so the script ends inside
+# 1200 s.
+KV_SLOW_S = 900.0
+KV_SLOW_DECODE = 8
+# (name, b, s, kv heads, g, dh, dv, causal, dtype): the served prefill's
+# flash call at B = 4.
+KV_FLASH = ("codeqwen heads", 4, KV_PROMPT, 32, 1, 128, 128, True,
+            torch.bfloat16)
+# Rows of the served-shape flash check: the first ones of every sequence
+# (their keys all come first) and the last (it sees every key).
+KV_FLASH_ROWS = 512
+# Layer 0's attn_decode_quant over its first KV_CHECK_POSITIONS cached
+# positions, the card in bf16 against the CPU in fp32 on the same codes
+# and scales: ||Δ|| <= KV_LAYER_REL·||cpu||.  bf16 rounds the projections,
+# the dequantised K and V, P and the output at 2^-9 each, which leaves a
+# few 1e-3 in norm; 2e-2 is the bound phases 8-12 hold their layers to.
+# The control (the scales dropped: s = 1) must fail it.
+KV_CHECK_POSITIONS = 4096
+KV_LAYER_REL = 2e-2
+
+
+def half_away_quantize(t):
+    """``quantize_kv`` rounding half away from zero: the quantisation
+    check's control."""
+    tf = t.float()
+    s = tf.abs().amax(dim=-1) * attn._INV_127
+    x = tf / s.clamp_min(1e-8)[..., None]
+    q = torch.sign(x) * torch.floor(x.abs() + 0.5)
+    return q.clamp_(-127, 127).to(torch.int8), s
+
+
+class StepClock:
+    """Wraps one engine's ``prefill`` and ``decode_step`` (instance
+    attributes, which ``generate`` calls): the prefill's host ms between
+    syncs, the time its last sync ended, the decode steps since, the
+    first decode step's logits and the latest cache.  Each prefill starts
+    afresh and drops the cache it held.  :meth:`close` unwraps the engine
+    and drops the cache (the engine and the clock refer to each other
+    until then, so ``del`` alone leaves the cache to the garbage
+    collector)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.prefill, self.decode_step = eng.prefill, eng.decode_step
+        eng.prefill, eng.decode_step = self._prefill, self._decode_step
+        self.cache = self.first_logits = None
+
+    def close(self):
+        del self.eng.prefill, self.eng.decode_step
+        self.eng = self.prefill = self.decode_step = None
+        self.cache = self.first_logits = None
+
+    def _prefill(self, batch):
+        self.cache = self.first_logits = None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, self.cache = self.prefill(batch)
+        torch.cuda.synchronize()
+        self.decode0 = time.perf_counter()
+        self.prefill_ms = (self.decode0 - t) * 1e3
+        self.steps = 0
+        return logits, self.cache
+
+    def _decode_step(self, cache, tokens, pos):
+        logits, self.cache = self.decode_step(cache, tokens, pos)
+        if self.steps == 0:
+            self.first_logits = logits.float()
+        self.steps += 1
+        return logits, self.cache
+
+
+def cache_bytes(cache) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+
+
+def cache_formula(cfg, b: int, kind: str) -> int:
+    """The K/V cache's bytes from its shapes: codes (1 byte) and an fp32
+    scale per token and head for int8, 2 bytes an element for bf16."""
+    per_head = (2 * cfg.head_dim + 2 * 4) if kind == "int8" \
+        else 2 * 2 * cfg.head_dim
+    return cfg.num_layers * b * KV_MAX_LEN * cfg.num_kv_heads * per_head
+
+
+def kv_flash(dev, card) -> tuple[dict, float]:
+    """The flash kernel at the served B = 4 prefill's shape: its first
+    KV_FLASH_ROWS rows and its last row against the plain version (the
+    last row of a causal call sees every key, so it is the non-causal
+    plain row), then timed in turns with ``scaled_dot_product_attention``
+    beside its bound.  Returns (the wgmma body's record, max error)."""
+    name, b, s, kvh, g, dh, dv, causal, dt = KV_FLASH
+    q, k, v = attention_inputs(b, s, kvh, g, dh, dv, dt, dev, SEED + 14)
+    got, body = launch_body(q, k, v, causal)
+    if body != "wgmma":
+        raise AssertionError(f"the served flash shape ran the {body} body")
+    n = KV_FLASH_ROWS
+    head = fa.flash_attention_plain(q[:, :n], k[:, :n], v[:, :n],
+                                    causal=True)
+    tail = fa.flash_attention_plain(q[:, -1:], k, v, causal=False)
+    err = 0.0
+    for what, gg, want in (("first rows", got[:, :n], head),
+                           ("last row", got[:, -1:], tail)):
+        err = max(err, check_allclose(f"flash {name} {what}", gg, want,
+                                      FLASH_TOL[dt]))
+        r = rel_err(gg, want)
+        if not r <= FLASH_BF16_REL:
+            raise AssertionError(f"flash {name} {what}: ||Δ||/||plain|| {r}")
+        say(f"[phase14] flash wgmma body vs plain at the served shape "
+            f"(B={b}, S={s}, KV={kvh}, G={g}, dh={dh}, bf16, causal), "
+            f"{what}: max err {err:.3e} (tol {FLASH_TOL[dt]}), "
+            f"||Δ||/||plain|| {r:.3e} (tol {FLASH_BF16_REL})")
+    del got, head, tail
+    p = functools.partial
+    runs = {"wgmma": p(fa.flash_attention, q, k, v, causal=True),
+            "library": p(torch.nn.functional.scaled_dot_product_attention,
+                         q.view(b, s, kvh * g, dh).transpose(1, 2),
+                         k.transpose(1, 2), v.transpose(1, 2),
+                         is_causal=True)}
+    backend = sdpa_backend(runs["library"])
+    tm = in_turns(runs, 3, timer=queued_ms)
+    bd, by = flash_bound(b, s, kvh, g, dh, dv, causal)
+    reads = ", ".join(f"{n} " + " / ".join(f"{x:.4f}" for x in r)
+                      for n, r in tm["reads"].items())
+    say(f"[phase14] flash at codeqwen's served prefill (B={b}, S={s}, "
+        f"KV={kvh}, G={g}, dh={dh}, bf16, causal): wgmma body "
+        f"{tm['wgmma']:.4f} ms ({bd / tm['wgmma']:.3f} of the bound), "
+        f"scaled_dot_product_attention ({backend}) {tm['library']:.4f} ms "
+        f"(the wgmma body at {tm['library'] / tm['wgmma']:.2f}x its speed);"
+        f" bound {bd:.4f} ms ({by}); readings in turns: {reads}  [{card}]")
+    return {"ms": tm["wgmma"], "bound_ms": bd,
+            "library_ms": tm["library"]}, err
+
+
+def check_quantize(lm, params, prompts, card) -> None:
+    """Layer 0's prefill K of one sequence quantised on the card and on
+    the CPU: codes and scales bit-equal; rounding half away from zero (the
+    control) must give other codes."""
+    cfg = lm.cfg
+    x = lm._embed_tokens(params, prompts[:1])
+    mix = params["blocks"][0]["sub0"]
+    h = rms_norm(x, mix["norm_in"], cfg.norm_eps)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    _, k, _ = attn._project_qkv(mix["mixer"], h, cfg, positions=pos)
+    del x, h
+    codes, scale = attn.quantize_kv(k)
+    k_cpu = k.cpu()
+    want_codes, want_scale = attn.quantize_kv(k_cpu)
+    same = torch.equal(codes.cpu(), want_codes) and torch.equal(
+        scale.cpu().view(torch.int32), want_scale.view(torch.int32))
+    ctl, _ = half_away_quantize(k)
+    ctl_diff = int((ctl.cpu() != want_codes).sum())
+    r = k_cpu.float() / want_scale.clamp_min(1e-8)[..., None]
+    ties = int((r - r.floor() == 0.5).sum())
+    say(f"[phase14] quantize_kv on layer 0's prefill K of one sequence "
+        f"{tuple(k.shape)}: the card's codes and scales bit-equal to the "
+        f"CPU's: {same}; {ties} exact half-integer ratios; control (half "
+        f"away from zero): {ctl_diff} codes differ  [{card}]")
+    if not same:
+        raise AssertionError("quantize_kv on the card differs from the CPU")
+    if not ctl_diff:
+        raise AssertionError("rounding half away from zero passes the "
+                             "quantisation check")
+
+
+def check_decode_layer0(lm, params, cache, prompts, card) -> None:
+    """Layer 0's ``attn_decode_quant`` at position KV_CHECK_POSITIONS - 1
+    over the served int8 cache's first KV_CHECK_POSITIONS positions (the
+    token there decoded again): the card in bf16 against the same function
+    in fp32 on the CPU on the same codes and scales, within
+    KV_LAYER_REL; the scales dropped (s = 1, the control) must fail."""
+    cfg = lm.cfg
+    n = KV_CHECK_POSITIONS
+    pos = n - 1
+    ent = {name: t[0, :, :n].clone() for name, t in cache["sub0"].items()}
+    layer = params["blocks"][0]["sub0"]
+    x = lm._embed_tokens(params, prompts[:, pos:pos + 1])
+    h = rms_norm(x, layer["norm_in"], cfg.norm_eps)
+    mix32 = {name: t.float().cpu() for name, t in layer["mixer"].items()}
+    cpu_ent = {name: t.cpu() for name, t in ent.items()}
+    want, _ = attn.attn_decode_quant(mix32, h.float().cpu(), cfg, cpu_ent,
+                                     pos)
+    got, _ = attn.attn_decode_quant(layer["mixer"], h, cfg,
+                                    {k: t.clone() for k, t in ent.items()},
+                                    pos)
+    r = rel_err(got.cpu(), want)
+    ctl_ent = dict(ent, k_s=torch.ones_like(ent["k_s"]),
+                   v_s=torch.ones_like(ent["v_s"]))
+    ctl, _ = attn.attn_decode_quant(layer["mixer"], h, cfg, ctl_ent, pos)
+    rc = rel_err(ctl.cpu(), want)
+    say(f"[phase14] layer 0's attn_decode_quant at position {pos} over "
+        f"{n} cached positions (B={ent['k'].shape[0]}), card bf16 vs CPU "
+        f"fp32: ||Δ||/||cpu|| {r:.3e} (tol {KV_LAYER_REL}); control "
+        f"(scales dropped, s = 1): {rc:.3e}  [{card}]")
+    if not r <= KV_LAYER_REL:
+        raise AssertionError(f"layer 0's int8 decode: ||Δ||/||cpu|| {r}")
+    if not rc > KV_LAYER_REL:
+        raise AssertionError(f"the dropped-scales control passes ({rc})")
+
+
+def phase_kv_int8(dev, card, t_run):
+    """Phase 14; returns (launches, the wgmma body's record at the served
+    flash shape with its main-path launches, max flash error)."""
+    t = time.perf_counter()
+    flash_rec, err = kv_flash(dev, card)
+    torch.cuda.empty_cache()
+    say(f"[phase14] (a) in {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    cfg = get_config(KV_ARCH)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    weights = cache_bytes(params)
+    say(f"[phase14] {KV_ARCH}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV of "
+        f"{cfg.head_dim}, QKV bias, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded} (untied); {weights / 1e9:.3f} GB of bf16 "
+        f"weights made on the card in {time.perf_counter() - t:.1f} s; "
+        f"nothing cut  [{card}]")
+    steps = KV_DECODE
+    if time.perf_counter() - t_run > KV_SLOW_S:
+        steps = KV_SLOW_DECODE
+        say(f"[phase14] the run has passed {KV_SLOW_S:.0f} s: "
+            f"{steps} greedy tokens a serve")
+    rng = np.random.default_rng(SEED + 14)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (max(b for _, b in KV_SERVES),
+                            KV_PROMPT))).to(dev)
+    free, total_mem = torch.cuda.mem_get_info()
+    need = weights + cache_formula(cfg, 4, "bf16")
+    say(f"[phase14] bf16 cache at B = 4 would need "
+        f"{weights / 1e9:.1f} + {cache_formula(cfg, 4, 'bf16') / 1e9:.1f} = "
+        f"{need / 1e9:.1f} GB before any activation; the card has "
+        f"{total_mem / 1e9:.1f} GB (torch.cuda.mem_get_info), "
+        f"{free / 1e9:.1f} GB free: not served  [{card}]")
+
+    launches = dict.fromkeys(KERNELS, 0)
+    runs = {}
+    for kind, b in KV_SERVES:
+        t = time.perf_counter()
+        tag = f"{kind} cache, B = {b}"
+        lm = LM(dataclasses.replace(cfg, kv_cache_quant=kind == "int8"))
+        eng = ServeEngine(lm, params, max_len=KV_MAX_LEN)
+        clock = StepClock(eng)
+        batch = {"inputs": prompts[:b]}
+        run = timed_serve(f"phase14 {tag}", eng, batch, steps,
+                          {"inputs": prompts[:b, :64]}, cfg.num_layers,
+                          cfg.vocab_size)
+        for name, count in run.launches.items():
+            launches[name] += count
+        cache = clock.cache
+        nbytes = cache_bytes(cache)
+        if nbytes != cache_formula(cfg, b, kind):
+            raise AssertionError(f"{tag}: the cache holds {nbytes} bytes, "
+                                 f"its shapes give "
+                                 f"{cache_formula(cfg, b, kind)}")
+        decode_ms = (run.end - clock.decode0) * 1e3 / clock.steps
+        shapes = {name: (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+                  for name, x in cache["sub0"].items()}
+        say(f"[phase14] serve {b} x {KV_PROMPT} tokens + {steps} greedy "
+            f"tokens, {tag}: generate {run.gen_s:.3f} s, launches "
+            f"{run.launches}, flash by body {run.by_body}; prefill "
+            f"{clock.prefill_ms:.1f} ms "
+            f"({b * KV_PROMPT / clock.prefill_ms:.1f} tokens/ms), decode "
+            f"{decode_ms:.3f} ms per step ({b * 1e3 / decode_ms:.1f} "
+            f"tokens/s); cache {shapes} = {nbytes / 1e9:.3f} GB; peak "
+            f"{run.peak / 1e9:.3f} GB (max_memory_allocated) against "
+            f"weights + cache {(weights + nbytes) / 1e9:.3f} GB, "
+            f"{(run.peak - weights - nbytes) / 1e9:.3f} GB above them  "
+            f"[{card}]")
+        say(f"[phase14] {tag}: request 0's tokens: {run.out[0].tolist()}")
+        if kind == "int8" and b == 2:
+            check_decode_layer0(lm, params, cache, prompts[:b], card)
+        n = 2
+        pos0 = KV_MAX_LEN - n
+        tok = run.out[:, -1:]
+
+        def decode():
+            for i in range(n):
+                eng.decode_step(cache, tok, pos0 + i)
+
+        prof = profiled(decode, n, decode_ms)
+        profile_line("phase14", f"decode, {tag}", "step", decode_ms, prof,
+                     card)
+        runs[kind, b] = {"out": run.out, "logits": clock.first_logits,
+                         "bytes": nbytes, "prefill_ms": clock.prefill_ms,
+                         "decode_ms": decode_ms, "peak": run.peak,
+                         "busy": prof["share"]}
+        clock.close()
+        del cache, clock, eng, run, decode
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - weights
+        if left > 1e9:
+            raise AssertionError(f"{tag}: {left} bytes beside the weights "
+                                 f"outlived the serve")
+        say(f"[phase14] {tag} in {time.perf_counter() - t:.1f} s")
+
+    full, quant = runs["bf16", 2], runs["int8", 2]
+    ratio = quant["bytes"] / full["bytes"]
+    d = rel_err(quant["logits"][:, :cfg.vocab_size],
+                full["logits"][:, :cfg.vocab_size])
+    agree = float((quant["out"] == full["out"]).float().mean())
+    say(f"[phase14] int8 against bf16 at B = 2: cache "
+        f"{quant['bytes'] / 1e9:.3f} / {full['bytes'] / 1e9:.3f} GB = "
+        f"{ratio:.4f} (shapes: {(2 * cfg.head_dim + 8) / (4 * cfg.head_dim):.4f}"
+        f"); first decode step's logits ||Δ||/||bf16|| {d:.3e}; greedy "
+        f"tokens equal at {agree:.3f} of {full['out'].numel()}; decode "
+        f"{quant['decode_ms'] / full['decode_ms']:.2f}x the bf16 step; int8"
+        f" at B = 4: cache {runs['int8', 4]['bytes'] / 1e9:.3f} GB, decode "
+        f"{runs['int8', 4]['decode_ms']:.3f} ms a step  [{card}]")
+    if abs(ratio - (2 * cfg.head_dim + 8) / (4 * cfg.head_dim)) > 1e-9:
+        raise AssertionError(f"int8/bf16 cache ratio {ratio}")
+
+    t = time.perf_counter()
+    check_quantize(LM(cfg), params, prompts, card)
+    say(f"[phase14] quantisation check in {time.perf_counter() - t:.1f} s")
+    flash_rec["launches"] = launches["flash_attention"]
+    return launches, flash_rec, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4320,8 +4676,8 @@ def main() -> int:
                ocfg.tiles_per_chunk, okp, shape2[1],
                ((64, 0), (16, 0), (2, 0), (3, 0)))
     oop = SerpensOperator(opt_plan, device=dev)
-    ref, scale = host_reference(r2, c2, v2.astype(np.float64), shape2[0],
-                                xo, 1.0, 0.0, None)
+    (ref, scale), = host_references(r2, c2, v2, shape2,
+                                    [(xo, 1.0, 0.0, None, None)])
     e3 = check_close("OPTIMIZED operator (stream + aux spill) vs fp64",
                      oop.matvec(xo).cpu(), torch.from_numpy(ref).float(),
                      torch.from_numpy(scale).float())
@@ -4334,9 +4690,7 @@ def main() -> int:
     # -- phase 2: the server answers requests (the main path) -------------
     reqs = make_requests(np.random.default_rng(SEED + 1), m, k)
     t = time.perf_counter()
-    vals64 = vals.astype(np.float64)
-    refs = [host_reference(rows, cols, vals64, m, x, a, b, y)
-            for x, a, b, y, _ in reqs]
+    refs = host_references(rows, cols, vals, shape, reqs)
     say(f"[phase2] fp64 host references in {time.perf_counter() - t:.1f} s")
     svc = SpMVService(reg, max_bucket=16, device="cuda")
     launches = {}
@@ -4598,7 +4952,24 @@ def main() -> int:
         train_bodies = phase_train(dev, card, t_run)
     for body, count in train_bodies.items():
         flash_bodies[body]["launches"] += count
-    say(f"[phase13] ok in {time.perf_counter() - t13:.1f} s; whole run "
+    say(f"[phase13] ok in {time.perf_counter() - t13:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 14: codeqwen1.5-7b whole at a 32k context with the int8 KV
+    # cache (the twenty-fourth slice).  Phase 13's model and optimiser
+    # went with its function; their cached blocks go here.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total_mem = torch.cuda.mem_get_info()
+    say(f"[phase14] card memory before the phase: {free / 1e9:.2f} GB free "
+        f"of {total_mem / 1e9:.2f} GB; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB  [{card}]")
+    t14 = time.perf_counter()
+    launches["kv_int8"], kv_rec, err14 = phase_kv_int8(dev, card, t_run)
+    errs["flash_attention"] = max(errs["flash_attention"], err14)
+    flash_bodies["wgmma"]["launches"] += kv_rec.pop("launches")
+    flash_bodies["wgmma"]["codeqwen"] = kv_rec
+    say(f"[phase14] ok in {time.perf_counter() - t14:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}
@@ -4616,7 +4987,8 @@ def main() -> int:
     # The flash kernel's bodies: launches on the main paths, and ms, bound
     # and library ms at the served shape, at prefill_32k, at llama4's
     # served prefill, at minicpm3's, at whisper's encoder and cross
-    # shapes and at paligemma's prefix-LM prefill.
+    # shapes, at paligemma's prefix-LM prefill and (the wgmma body) at
+    # codeqwen1.5-7b's B = 4 prefill of 32,736.
     # The spmm kernel's vector widths (main-path launches, one per column
     # pass) and its time, bound and library time at each served width.
     spmm_bodies = {f"v{vec}": {"launches": sum(v[vec]
@@ -4633,6 +5005,18 @@ def main() -> int:
         if entry["name"] == "flash_attention_bwd":
             entry["library"] = times["flash_attention_bwd"]["library"]
             entry["bodies"] = times["flash_attention_bwd"]["bodies"]
+    # Leave nothing behind: the card's cached blocks (phase 14 reserves
+    # most of the card) go back before the last lines, so the process ends
+    # as soon as they are printed, and no child process may outlive it.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kids = child_processes()
+    if kids:
+        raise AssertionError(f"child processes still running: {kids}")
+    say(f"[exit] card memory reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB, no child process; "
+        f"whole run {time.perf_counter() - t_run:.1f} s")
     say(json.dumps(record))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4641,4 +5025,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # Every line is out and main found no child process: end here, not
+    # after the interpreter's and the card context's teardown (seconds).
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -83,8 +83,7 @@ def column_normalize(rows, cols, vals, n, eps=1e-12):
     dangling (all-zero) columns stay zero — the solver redistributes their
     mass uniformly each step.
     """
-    colsum = np.zeros(n)
-    np.add.at(colsum, cols, np.abs(vals))
+    colsum = np.bincount(cols, weights=np.abs(vals), minlength=n)
     return (np.abs(vals) / np.maximum(colsum[cols], eps)).astype(np.float32)
 
 

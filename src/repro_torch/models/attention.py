@@ -28,8 +28,12 @@ A VLM's prefix-LM mask (``prefix_len``: the image tokens, seen by every
 row) runs in the flash kernel on the card, and in
 :func:`chunked_attention` on the CPU.
 
-Not ported yet, each raising ``NotImplementedError``: the int8 KV cache
-and the sequence-sharded decode (multi-GPU slice).
+The int8 KV cache (:func:`quantize_kv`, :func:`dequantize_kv`,
+:func:`attn_decode_quant`) keeps each token's K and V per head as int8
+codes and one fp32 scale, at the reference's rounding points.  It is torch
+ops on both devices: the reference has no kernel for it.
+
+Not ported yet: the sequence-sharded decode (multi-GPU slice).
 """
 from __future__ import annotations
 
@@ -234,6 +238,64 @@ def attn_decode(p, x, cfg, cache_k, cache_v, pos):
     pr = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgcs,bskd->bckgd", pr.to(cache_v.dtype), cache_v)
     return o.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# The int8 KV cache: per-token, per-head symmetric codes and fp32 scales
+# ---------------------------------------------------------------------------
+# The reference divides max|t| by the constant 127; XLA folds that into a
+# product with the constant's fp32 reciprocal in every compiled program,
+# which is how the reference serves, so the port takes the product.
+_INV_127 = 1.0 / 127.0
+
+
+def quantize_kv(t):
+    """Symmetric int8 codes of each token's K (or V) per head.
+
+    t: (B, S, KV, dh) -> (int8 codes of t's shape, fp32 scales (B, S, KV)).
+    The scale is max|t| · fp32(1/127) over the head dim, in fp32; the codes
+    are ``round(t / max(scale, 1e-8))`` (half to even, as ``jnp.round``),
+    clipped to ±127.  All-zero rows get scale 0 and codes 0."""
+    tf = t.float()
+    s = tf.abs().amax(dim=-1) * _INV_127
+    q = torch.round(tf / s.clamp_min(1e-8)[..., None])
+    return q.clamp_(-127, 127).to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype=torch.bfloat16):
+    """``codes · scale`` in fp32, then cast to ``dtype``.  The int8 codes
+    widen to fp32 inside the product (exact), so no fp32 copy of the codes
+    is made."""
+    return (q * s[..., None]).to(dtype)
+
+
+def attn_decode_quant(p, x, cfg, cache_ent, pos):
+    """Single-token decode over an int8 KV cache.  x: (B, 1, D);
+    cache_ent: ``{"k", "v"}`` int8 (B, Smax, KV, dh) and ``{"k_s", "v_s"}``
+    fp32 (B, Smax, KV); pos: int.
+
+    The token's K and V are quantised and written, codes and scales, at
+    ``pos`` in place (the reference returns a new cache entry; the entry
+    is returned as well).  Then the whole cache, that token included, is
+    dequantised to x's dtype and attended as :func:`attn_decode` does:
+    fp32 scores, the positions after ``pos`` masked, softmax, P in x's
+    dtype before P·V."""
+    b = x.shape[0]
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions=positions)
+    for name, t in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(t)
+        cache_ent[name][:, pos] = codes[:, 0]
+        cache_ent[name + "_s"][:, pos] = scale[:, 0]
+    kd = dequantize_kv(cache_ent["k"], cache_ent["k_s"], x.dtype)
+    qg = _grouped(q, cfg.num_kv_heads)
+    scores = _scores(qg, kd, cfg.head_dim ** -0.5)
+    del kd          # before V's copy is made: one dequantised copy at a time
+    live = torch.arange(scores.shape[-1], device=x.device) <= pos
+    pr = torch.softmax(scores.masked_fill(~live, NEG_INF), dim=-1)
+    vd = dequantize_kv(cache_ent["v"], cache_ent["v_s"], x.dtype)
+    o = torch.einsum("bkgcs,bskd->bckgd", pr.to(vd.dtype), vd)
+    return o.reshape(b, 1, cfg.q_dim) @ p["wo"], cache_ent
 
 
 def cross_attn_forward(p, x, kv, cfg):

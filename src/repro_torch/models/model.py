@@ -17,8 +17,15 @@ prefill), ``"ckv"`` ``(periods, B, max_len, kv_lora_rank)`` and
 ``"krope"`` ``(periods, B, max_len, rope_head_dim)`` for MLA, ``"h"``
 ``(periods, B, nh, hd, N)`` fp32 and the conv tails ``"conv_x"``/
 ``"conv_b"``/``"conv_c"`` ``(periods, B, W-1, C)`` for a mamba mixer.
-Decode writes each token's K/V (or MLA latents), and each mamba layer's
-new state, into it in place.  A MoE sub-layer serves through
+Under ``kv_cache_quant`` a self-attention sub-layer (``"attn"``) caches
+int8 codes ``"k"``/``"v"`` and fp32 scales ``"k_s"``/``"v_s"``
+``(periods, B, max_len, KV)``, quantised from the prefill's post-RoPE K and
+V and, in decode, from each new token's; MLA's latents, a mamba state and
+an ``"attn_cross"`` sub-layer's caches stay as they are, as in the
+reference.  The prefill writes each period's entries into one cache of
+``max_len`` made by :meth:`LM.init_cache`, so the whole cache is made
+once.  Decode writes each token's K/V (or MLA latents), and each mamba
+layer's new state, into it in place.  A MoE sub-layer serves through
 ``moe_apply(exact=True)``, the dropless dispatch, in prefill and decode;
 serving drops its aux losses.
 
@@ -42,8 +49,6 @@ the stub image embeddings: the prefill projects them through
 prefill runs under the prefix-LM mask with ``prefix_len`` =
 ``vision_tokens``.  Decode needs no mask: one new text token sees every
 cached position.
-
-The int8 KV cache raises ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -61,10 +66,13 @@ from repro_torch.models.layers import (
     _dtype, dense_init, embed_init, ffn_apply, ffn_init, rms_norm)
 
 
+# The cache entries with a sequence axis (axis 1 of a period's entry):
+# K/V, their int8 scales and MLA's latents.  The others (a mamba state,
+# the encoder's ``xk``/``xv``) keep their own length.
+_SEQ_ENTRIES = ("k", "v", "k_s", "v_s", "ckv", "krope")
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_quant:
-        raise attn._not_ported(f"{cfg.arch_id}: the int8 KV cache",
-                               "the int8-KV slice")
     for mixer, ffn in cfg.layout:
         if mixer not in ("attn", "attn_cross", "mamba") or \
                 ffn not in ("dense", "moe", "none"):
@@ -180,7 +188,16 @@ class LM:
                 out, (k, v) = attn.attn_forward(
                     sp["mixer"], h, cfg, causal=cfg.causal,
                     prefix_len=prefix_len, return_kv=True)
-                new_cache[key] = {"k": k, "v": v}
+                if cfg.kv_cache_quant and mixer == "attn":
+                    kq, ks = attn.quantize_kv(k)
+                    vq, vs = attn.quantize_kv(v)
+                    new_cache[key] = {"k": kq, "k_s": ks, "v": vq,
+                                      "v_s": vs}
+                else:
+                    new_cache[key] = {"k": k, "v": v}
+            elif "k_s" in cache[key]:
+                out, _ = attn.attn_decode_quant(sp["mixer"], h, cfg,
+                                                cache[key], pos)
             else:
                 out, _, _ = attn.attn_decode(
                     sp["mixer"], h, cfg, cache[key]["k"], cache[key]["v"],
@@ -320,48 +337,39 @@ class LM:
     # ------------------------------------------------------------------
     # Serving: prefill + decode
     # ------------------------------------------------------------------
-    def _pad_cache_seq(self, caches, max_len):
-        """Grow the prefill's attention caches to ``max_len`` along the
-        sequence axis, axis 2 of the stacked ``(periods, B, S, ...)``
-        layouts (5-D K/V, 4-D MLA latents).  Padded by name, as the
-        reference does: a mamba layer's state has no sequence axis, and
-        the encoder's ``xk``/``xv`` stay at ``encoder_seq``."""
-        out = {}
-        for key, sub in caches.items():
-            ent = {}
-            for name, t in sub.items():
-                pad = max_len - t.shape[2]
-                if name in ("k", "v", "ckv", "krope") and pad > 0:
-                    # F.pad lists (before, after) from the last axis back.
-                    t = torch.nn.functional.pad(
-                        t, (0, 0) * (t.dim() - 3) + (0, pad))
-                ent[name] = t
-            out[key] = ent
-        return out
-
     def prefill(self, params, batch, max_len):
-        """Run the prompt; returns (last-position logits, cache)."""
+        """Run the prompt; returns (last-position logits, cache).
+
+        The cache is :meth:`init_cache`'s zero cache of ``max_len``, made
+        once; each period's entries are copied into it as soon as the
+        period has run (at ``[p, :, :S]`` for the entries with a sequence
+        axis, ``[p]`` for the others) and then dropped.  So the prefill
+        holds the weights, one cache and one period's transients, and its
+        cache is the reference's: the prompt's entries, zeros after them.
+        """
         cfg = self.cfg
         x, prefix_len, enc_out = self._embed_inputs(params, batch)
-        per_period = []
-        for pp in params["blocks"]:
+        if x.shape[1] > max_len:
+            raise ValueError(f"a prompt of {x.shape[1]} positions does not "
+                             f"fit a cache of max_len {max_len}")
+        cache = self.init_cache(x.shape[0], max_len, device=x.device)
+        for p, pp in enumerate(params["blocks"]):
             x, ent = self._period_fwd(pp, x, enc_out=enc_out,
                                       prefix_len=prefix_len)
-            per_period.append(ent)
-        caches = {key: {name: torch.stack([e[key][name]
-                                           for e in per_period])
-                        for name in ent}
-                  for key, ent in per_period[0].items()}
+            _write_period(cache, p, ent)
+            del ent         # before the next period runs
         h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
-        return logits[:, 0], self._pad_cache_seq(caches, max_len)
+        return logits[:, 0], cache
 
     def init_cache(self, batch_size, max_len, dtype=None, device=None):
         """Zero decode cache (one entry per sub-layer, stacked over
         periods): K/V for attention (and the encoder's ``xk``/``xv`` for
         cross-attention), the latents ``ckv``/``krope`` for MLA,
         ``init_ssm_cache``'s state for a mamba mixer (``h`` fp32, the conv
-        tails in ``dtype``)."""
+        tails in ``dtype``).  Under ``kv_cache_quant`` a self-attention
+        sub-layer's K/V are int8 codes with fp32 scales ``k_s``/``v_s``
+        ``(periods, B, max_len, KV)``."""
         cfg = self.cfg
         p = cfg.num_periods
         shape = (p, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -380,6 +388,12 @@ class LM:
                        for name, width in (
                            ("ckv", cfg.mla.kv_lora_rank),
                            ("krope", cfg.mla.rope_head_dim))}
+            elif cfg.kv_cache_quant and mixer == "attn":
+                ent = {name: torch.zeros(shape[:4] if name.endswith("_s")
+                                         else shape, dtype=d, device=device)
+                       for name, d in (("k", torch.int8), ("v", torch.int8),
+                                       ("k_s", torch.float32),
+                                       ("v_s", torch.float32))}
             else:
                 ent = {"k": torch.zeros(shape, dtype=dt, device=device),
                        "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -403,6 +417,25 @@ class LM:
         h = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = self._lm_logits_chunk(params, h)
         return logits[:, 0], cache
+
+
+def _write_period(cache, p, ent) -> None:
+    """Copy period ``p``'s prefill entries into the stacked cache: at
+    ``[p, :, :S]`` for the entries with a sequence axis, ``[p]`` for the
+    others."""
+    for key, sub in ent.items():
+        for name, t in sub.items():
+            dst = cache[key][name][p]
+            if name in _SEQ_ENTRIES:
+                dst = dst[:, :t.shape[1]]
+            # A batch's frames off encoder_seq, or weights off the
+            # config's dtype, would otherwise broadcast or cast silently.
+            if dst.shape != t.shape or dst.dtype != t.dtype:
+                raise ValueError(
+                    f"{key}/{name}: the prefill made {t.dtype} "
+                    f"{tuple(t.shape)} for a cache slot of {dst.dtype} "
+                    f"{tuple(dst.shape)}")
+            dst.copy_(t)
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 FLASH_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -36,6 +36,7 @@ import torch
 from repro.models import attention as jattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))

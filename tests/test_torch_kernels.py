@@ -27,6 +27,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import serpens_spmv as ks
 
 from torch_port_util import assert_same_plan, carry_plan, random_coo
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 sums in another order
 SMALL = dict(segment_width=64, lanes=8, sublanes=4, raw_window=4)

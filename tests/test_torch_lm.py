@@ -41,6 +41,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.models import moe as tmoe
 from repro_torch.models.model import LM, build
 from repro_torch.serve.engine import ServeEngine
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "codeqwen1.5-7b", "minicpm3-4b",
@@ -492,9 +493,15 @@ def test_random_init_from_a_generator():
 
 
 def test_unported_options_raise():
-    cfg = tconfigs.reduced_config("chatglm3-6b")
-    with pytest.raises(NotImplementedError, match="int8"):
-        LM(dataclasses.replace(cfg, kv_cache_quant=True))
+    """The int8 KV cache is ported: the flag builds and serves
+    (tests/test_torch_kv_int8.py holds it to the reference).  The
+    multi-GPU options still raise."""
+    _, _, _, tparams, cfg = models("chatglm3-6b")
+    quant = LM(dataclasses.replace(cfg, kv_cache_quant=True))
+    out = ServeEngine(quant, tparams, max_len=MAXLEN).generate(
+        {"inputs": torch.from_numpy(tokens(cfg)[:, :S])}, 3)
+    assert out.shape == (B, 3) and int(out.max()) < cfg.vocab_size
+    assert quant.init_cache(B, MAXLEN)["sub0"]["k"].dtype == torch.int8
     lm = LM(cfg)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ServeEngine(lm, {}, 8, mesh=object())

@@ -38,6 +38,7 @@ from repro.models.model import LM as JLM
 from repro_torch import configs as tconfigs
 from repro_torch.models import attention as tattn
 from repro_torch.models.model import LM
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 sys.path.append(os.path.join(os.path.dirname(__file__), ".."))
 from chip_smoke import nope_first, patched, without_kv_norm  # noqa: E402
@@ -266,9 +267,11 @@ def test_bf16_forward_and_decode_near_reference(width):
 
 
 def test_pad_cache_seq_pads_the_latents_along_s():
-    """``_pad_cache_seq`` grows ``ckv`` (P, B, S, r) and ``krope``
-    (P, B, S, rope) along S (axis 2), leaves B alone, and equals the
-    reference's padding; a 5-D K/V entry pads along S too."""
+    """The prefill's ``_write_period`` puts each period's ``ckv`` (B, S, r)
+    and ``krope`` (B, S, rope), and a K/V entry (B, S, KV, dh), at
+    ``[p, :, :S]`` of a ``max_len`` cache, B alone: the cache equals the
+    reference's ``_pad_cache_seq`` of the stacked entries."""
+    from repro_torch.models.model import _write_period
     jcfg, tcfg = cfgs()
     rng = np.random.default_rng(9)
     p, b, s, max_len = 2, 3, 5, 9
@@ -281,9 +284,12 @@ def test_pad_cache_seq_pads_the_latents_along_s():
     want = JLM(jcfg)._pad_cache_seq(
         {k: {n: jnp.asarray(a) for n, a in e.items()}
          for k, e in tree.items()}, max_len)
-    got = LM(tcfg)._pad_cache_seq(
-        {k: {n: torch.from_numpy(a) for n, a in e.items()}
-         for k, e in tree.items()}, max_len)
+    got = {k: {n: torch.zeros((p, b, max_len) + a.shape[3:])
+               for n, a in e.items()} for k, e in tree.items()}
+    for period in range(p):
+        _write_period(got, period, {
+            k: {n: torch.from_numpy(a[period]) for n, a in e.items()}
+            for k, e in tree.items()})
     for key, ent in want.items():
         for name, ref in ent.items():
             t = got[key][name]

@@ -27,6 +27,7 @@ from repro.models import moe as jmoe
 from repro_torch import configs as tconfigs
 from repro_torch.configs.base import MoEConfig as TMoE
 from repro_torch.models import moe as tmoe
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ARCH = "llama4-scout-17b-a16e"
 T, E = 64, 4

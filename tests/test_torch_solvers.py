@@ -40,6 +40,7 @@ from repro_torch.solvers.power_iteration import (
     _power_epilogue as t_power_epilogue)
 
 from torch_port_util import carry_plan
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32 sums in another order
 SMALL = dict(segment_width=64, lanes=8, sublanes=4, raw_window=4)

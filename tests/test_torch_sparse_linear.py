@@ -16,6 +16,7 @@ from repro.core import sparse_linear as JS
 from repro_torch.core import format as TF
 from repro_torch.core import sparse_linear as TS
 from repro_torch.kernels import ops
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

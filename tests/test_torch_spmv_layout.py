@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import serpens_spmv as ks
 
 from torch_port_util import carry_plan, random_coo
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 SMEM = 232_448             # an sm_90 block's opt-in shared memory
 SMS = 132                  # an H100 SXM's SMs

@@ -27,6 +27,7 @@ from repro import configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs as tconfigs
 from repro_torch.models import ssm as tssm
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ARCH = "mamba2-1.3b"
 TOL = dict(rtol=1e-5, atol=1e-5)

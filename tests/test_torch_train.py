@@ -44,6 +44,7 @@ from repro_torch.models.model import build
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as O
 from repro_torch.train.trainer import TrainConfig, Trainer
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen1.5-0.5b", "llama4-scout-17b-a16e", "mamba2-1.3b",

@@ -43,6 +43,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as tattn
 from repro_torch.models.model import LM, build
 from repro_torch.serve.engine import ServeEngine
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "paligemma-3b"
@@ -417,10 +418,22 @@ def test_the_card_path_runs_the_kernel_once_a_layer_with_the_prefix():
 
 
 def test_int8_kv_cache_still_raises():
-    cfg = dataclasses.replace(tconfigs.reduced_config(ARCH),
-                              kv_cache_quant=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        LM(cfg)
+    """paligemma builds and serves with the int8 KV cache: the image and
+    the prompt are quantised into int8 codes with fp32 scales, and greedy
+    decode runs over them (tests/test_torch_kv_int8.py holds it to the
+    reference)."""
+    _, _, _, tparams, cfg = models()
+    quant = LM(dataclasses.replace(cfg, kv_cache_quant=True))
+    toks, patches = inputs(cfg)
+    batch = batches(toks, patches)[1]
+    _, cache = quant.prefill(tparams, batch, MAXLEN)
+    n = cfg.vision_tokens + S
+    assert cache["sub0"]["k"].dtype == torch.int8
+    assert cache["sub0"]["v_s"].dtype == torch.float32
+    assert bool(cache["sub0"]["k_s"][:, :, :n].all())
+    assert not bool(cache["sub0"]["k_s"][:, :, n:].any())
+    out = ServeEngine(quant, tparams, max_len=MAXLEN).generate(batch, 3)
+    assert out.shape == (B, 3) and int(out.max()) < cfg.vocab_size
 
 
 def test_serve_launcher_on_the_cpu():

@@ -45,6 +45,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.models.model import LM, build
 from repro_torch.serve.engine import ServeEngine
+from torch_port_util import reference_compiled_here  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "whisper-base"
@@ -303,7 +304,7 @@ def test_decode_matches_prefill_of_the_longer_prompt():
 def test_init_cache_matches_the_reference():
     """``init_cache`` has the reference's entries, shapes and dtypes in
     fp32 and bf16, all zeros, and the prefill's layout: ``xk``/``xv`` at
-    ``encoder_seq``, which ``_pad_cache_seq`` leaves unpadded."""
+    ``encoder_seq``, which the prefill does not pad to ``max_len``."""
     jlm, _, tlm, tparams, cfg = models()
     for dt, jdt in ((None, None), (torch.bfloat16, jnp.bfloat16)):
         want = jlm.init_cache(B, MAXLEN, jdt)
@@ -328,15 +329,21 @@ def test_init_cache_matches_the_reference():
 
 
 def test_pad_cache_seq_leaves_the_frames():
+    """The prefill's ``_write_period`` puts a period's self K at
+    ``[p, :, :S]`` of the ``max_len`` cache and its frames' ``xk`` whole
+    at ``[p]``: the frames keep ``encoder_seq``."""
     _, _, tlm, _, cfg = models()
-    p = cfg.num_periods
-    caches = {"sub0": {
-        "k": torch.ones(p, B, S, cfg.num_kv_heads, cfg.head_dim),
-        "xk": torch.ones(p, B, cfg.encoder_seq, cfg.num_kv_heads,
+    cache = tlm.init_cache(B, MAXLEN)
+    ent = {"sub0": {
+        "k": torch.ones(B, S, cfg.num_kv_heads, cfg.head_dim),
+        "xk": torch.ones(B, cfg.encoder_seq, cfg.num_kv_heads,
                          cfg.head_dim)}}
-    out = tlm._pad_cache_seq(caches, MAXLEN)["sub0"]
+    tmodel._write_period(cache, 1, ent)
+    out = cache["sub0"]
     assert out["k"].shape[2] == MAXLEN and not bool(out["k"][:, :, S:].any())
-    assert out["xk"] is caches["sub0"]["xk"]
+    assert bool(out["k"][1, :, :S].all()) and not bool(out["k"][0].any())
+    assert out["xk"].shape[2] == cfg.encoder_seq
+    assert bool(out["xk"][1].all()) and not bool(out["xk"][0].any())
 
 
 def test_converter_unstacks_the_encoder():

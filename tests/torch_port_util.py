@@ -3,8 +3,25 @@ reference package (``tests/test_torch_*.py``)."""
 import dataclasses
 
 import numpy as np
+import pytest
 
 from repro_torch import convert
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_compiled_here():
+    """JAX's persistent compilation cache off for the importing test
+    module, restored after it, so that the reference each test holds the
+    port to is compiled by this process.  Where the environment names a
+    cache directory, a call whose compile passes the cache's threshold (a
+    second) is otherwise served whatever executable another process wrote
+    under the same key, which need not compute as this process's own
+    compile does."""
+    import jax
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
 
 
 def plan_fields(plan) -> dict:
