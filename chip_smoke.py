@@ -367,6 +367,30 @@ package.  Phases:
    must fail.  (d) ``quantize_kv`` on layer 0's prefill K of one
    sequence: the card's codes and scales bit-equal to the CPU's, and
    rounding half away from zero (the control) must give other codes.
+15. The Serpens operator over a ``DeviceMesh`` (the twenty-sixth slice:
+   ``SerpensOperator(plan, mesh=, axis=)``, the reference's ``shard_map``
+   path), after phase 14's model is released.  The G7 stand-in at full
+   size is encoded as ``row:2`` and ``col:2`` from one prepared sort; the
+   one-process operator's matvec (α 1.5, β 0.5, a seeded y) and matmat at
+   N = 16 on each plan, checked against fp64, and the plans are pickled
+   to a temporary directory, which also holds the group's ``file://``
+   store.  ``repro_torch.launch.mesh.run_world`` then starts two fresh
+   interpreters (NCCL takes one rank a card, so ``gloo``, which stages
+   CUDA tensors through the host), joins them under ``MESH_TIMEOUT_S``
+   and kills them past it.  Each rank (``mesh_rank``) sets its card,
+   makes a ``(1, 2)`` ``("data", "model")`` mesh, loads each plan and
+   uploads its own shard (an operator on another card must be refused);
+   its matvec and matmat (counts set to 0 before and read after: both
+   kernels must launch) are held to the one-process operator's and to
+   fp64 under phase 1's tolerance and to rank 0's bit for bit, and the product with the rank's own shard in
+   place of the combine (the control) must fail.  Printed per rank: the
+   shard's stream MB, peak allocated, the shard pass's ms (CUDA events)
+   and the combine's and the mesh matvec's (host clock); per plan, the
+   mesh matvec beside the one-process operator's and phase 3's 1-shard
+   spmv, and the bound (the whole stream at the card's memory rate: both
+   ranks read one card).  Two ranks on one card share its memory rate
+   and SMs: the phase shows that the path runs and agrees, not scaling.
+   The directory is removed and every rank reaped before the phase ends.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
@@ -402,9 +426,12 @@ import functools
 import gc
 import json
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -415,6 +442,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
@@ -4557,6 +4585,273 @@ def phase_kv_int8(dev, card, t_run):
     return launches, flash_rec, err
 
 
+# -- phase 15: the Serpens operator over a DeviceMesh, one rank a shard ------
+# Ranks of the mesh phase, the operator's axis on a (1, MESH_RANKS)
+# ("data", "model") mesh, and the deadline of their world: spawn, import,
+# load and upload, the checks, the control and the timings.
+MESH_RANKS = 2
+MESH_AXIS = "model"
+MESH_TIMEOUT_S = 240.0
+MESH_ALPHA, MESH_BETA = 1.5, 0.5
+MESH_N = 16
+MESH_ITERS = 20
+MESH_PARTS = ("row", "col")
+
+
+def wall_ms(fn, iters: int, dev) -> float:
+    """Mean ms per call on the host's clock, the device synchronised
+    before and after (a collective staged through the host is timed so)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def device_timer(dev):
+    """CUDA-event ms on the card; the host's clock on the CPU (tests)."""
+    return time_ms if dev.type == "cuda" else functools.partial(
+        wall_ms, dev=dev)
+
+
+def skip_combine(op):
+    """The control: the rank's own shard in place of the axis's combine
+    (col: its partial y alone; row: its row block among zeros)."""
+    def local_only(accs):
+        (acc,) = accs
+        if op.plan.spec.partition == "col":
+            return acc
+        bm = op.plan.block_m
+        full = acc.new_zeros((op.plan.num_shards * bm,) + acc.shape[1:])
+        full[op._coord * bm:(op._coord + 1) * bm] = acc
+        return full
+    return local_only
+
+
+def mesh_rank(rank: int, world_size: int, workdir: str, device: str):
+    """Phase 15 on one rank of a ``(1, world_size)`` ("data", "model")
+    mesh: for each partition, the operator over the ``model`` axis holds
+    this rank's shard only; its matvec (α, β, y) and its matmat at
+    N = MESH_N are held to the one-process operator's on the same plan
+    (computed before the world started) and to fp64, and to rank 0's bit
+    for bit; the product without the combine must fail; then the shard
+    pass (CUDA events), the combine and the whole matvec (host clock)
+    are timed.  Returns the readings and the kernels' launch counts of
+    the checked run."""
+    from repro_torch.launch import mesh as tmesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":      # every rank on the card it was given
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    mesh = tmesh.make_host_mesh(1, world_size, device_type=dev.type)
+    group = mesh.get_group(MESH_AXIS)
+    timer = device_timer(dev)
+    with np.load(os.path.join(workdir, "inputs.npz")) as f:
+        inp = {name: torch.from_numpy(f[name]) for name in f.files}
+    x, y0, xm = (inp[n].to(dev) for n in ("x", "y", "xm"))
+    out = {"launches": {}, "parts": {}}
+    for part in MESH_PARTS:
+        with open(os.path.join(workdir, f"{part}.pkl"), "rb") as f:
+            plan = pickle.load(f)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        if dev.type == "cuda":
+            other = torch.device("cuda", dev.index + 1)
+            try:
+                SerpensOperator(plan, device=other, mesh=mesh,
+                                axis=MESH_AXIS)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"rank {rank} {part}: an operator on "
+                                     f"{other} was built on {dev}'s rank")
+        op = SerpensOperator(plan, device=dev, mesh=mesh, axis=MESH_AXIS)
+        zero_launches()
+        y = op(x, MESH_ALPHA, MESH_BETA, y0)
+        ym = op.matmat(xm)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        out["launches"][part] = launches
+        rec = {"coord": op._coord, "launches": launches,
+               "shard_stream_bytes": plan.shards[op._coord].stream_bytes,
+               "device_bytes": op.device_bytes}
+        with np.load(os.path.join(workdir, f"{part}_one.npz")) as f:
+            one = {name: torch.from_numpy(f[name]) for name in f.files}
+        for what, got in (("matvec", y), ("matmat", ym)):
+            ref = inp[f"{what}_ref"]
+            scale = inp[f"{what}_scale"]
+            rec[f"{what}_vs_one"] = check_close(
+                f"rank {rank} {part} mesh {what} vs the one-process operator",
+                got, one[what], scale)
+            rec[f"{what}_vs_fp64"] = check_close(
+                f"rank {rank} {part} mesh {what} vs fp64", got, ref, scale)
+            first = got.clone()
+            dist.broadcast(first, dist.get_global_rank(group, 0),
+                           group=group)
+            if not torch.equal(first, got):
+                raise AssertionError(f"rank {rank} {part} {what} differs "
+                                     f"from rank 0's")
+        with patched(op, "_combine", skip_combine(op)):
+            ctrl = op(x, MESH_ALPHA, MESH_BETA, y0)
+        try:
+            check_close(f"rank {rank} {part} without the combine", ctrl,
+                        inp["matvec_ref"], inp["matvec_scale"])
+        except AssertionError as e:
+            rec["control"] = str(e).split(": ", 1)[1].split(";")[0]
+        else:
+            raise AssertionError(f"rank {rank} {part}: the product without "
+                                 f"the combine passed the check")
+        accs = op._local_accs(x, op.backend)
+        dist.barrier(group=group)
+        rec["shard_ms"] = timer(lambda: op._local_accs(x, op.backend),
+                                MESH_ITERS)
+        dist.barrier(group=group)
+        rec["combine_ms"] = wall_ms(lambda: op._combine(accs), MESH_ITERS,
+                                    dev)
+        dist.barrier(group=group)
+        rec["matvec_ms"] = wall_ms(lambda: op(x, MESH_ALPHA, MESH_BETA, y0),
+                                   MESH_ITERS, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["parts"][part] = rec
+        del op, accs, y, ym, ctrl
+    return out
+
+
+def mesh_setup(rows, cols, vals, shape, dev, workdir: str) -> dict:
+    """What the ranks read, written under ``workdir``: the plans
+    (``row:2`` and ``col:2``, encoded from one prepared sort on two host
+    threads), x, y and X, their fp64 references and tolerance scales, and
+    the one-process operator's products on each plan (on ``dev``, its
+    matvec timed).  Returns the plans' figures."""
+    m, k = shape
+    t = time.perf_counter()
+    cfg = sformat.SerpensConfig()
+    prep = sformat.prepare(rows, cols, vals, shape, cfg)
+    with concurrent.futures.ThreadPoolExecutor(len(MESH_PARTS)) as pool:
+        plans = dict(zip(MESH_PARTS, pool.map(
+            lambda part: cpart.plan_from_prepared(
+                prep, cpart.PlanSpec(part, MESH_RANKS)), MESH_PARTS)))
+    del prep
+    info = {"encode_s": time.perf_counter() - t}
+    rng = np.random.default_rng(SEED + 15)
+    x = rng.standard_normal(k).astype(np.float32)
+    y0 = rng.standard_normal(m).astype(np.float32)
+    xm = rng.standard_normal((k, MESH_N)).astype(np.float32)
+    (mv_ref, mv_scale), = host_references(rows, cols, vals, shape, [
+        (x, MESH_ALPHA, MESH_BETA, y0, None)])
+    import scipy.sparse as sp
+    a = sp.csr_matrix((np.asarray(vals, np.float64), (rows, cols)),
+                      shape=shape)
+    mm_ref = a @ xm.astype(np.float64)
+    a.data = np.abs(a.data)
+    mm_scale = a @ np.abs(xm.astype(np.float64))
+    np.savez(os.path.join(workdir, "inputs.npz"), x=x, y=y0, xm=xm,
+             matvec_ref=mv_ref.astype(np.float32),
+             matvec_scale=mv_scale.astype(np.float32),
+             matmat_ref=mm_ref.astype(np.float32),
+             matmat_scale=mm_scale.astype(np.float32))
+    timer = device_timer(dev)
+    xd, y0d, xmd = (torch.from_numpy(v).to(dev) for v in (x, y0, xm))
+    for part, plan in plans.items():
+        op = SerpensOperator(plan, device=dev)
+        ys = {"matvec": op(xd, MESH_ALPHA, MESH_BETA, y0d).cpu(),
+              "matmat": op.matmat(xmd).cpu()}
+        for what, got in ys.items():
+            check_close(f"{part}:{MESH_RANKS} one-process {what} vs fp64",
+                        got, {"matvec": mv_ref, "matmat": mm_ref}[what],
+                        {"matvec": mv_scale, "matmat": mm_scale}[what])
+        np.savez(os.path.join(workdir, f"{part}_one.npz"),
+                 **{w: v.numpy() for w, v in ys.items()})
+        info[part] = {
+            "one_ms": timer(lambda: op(xd, MESH_ALPHA, MESH_BETA, y0d),
+                        MESH_ITERS),
+            "stream_bytes": plan.stream_bytes, "bound": bound_ms(plan, 1),
+            "device_bytes": op.device_bytes,
+            "shard_stream_bytes": [sm.stream_bytes for sm in plan.shards]}
+        del op
+        with open(os.path.join(workdir, f"{part}.pkl"), "wb") as f:
+            pickle.dump(plan, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return info
+
+
+def phase_mesh(rows, cols, vals, shape, dev, card, one_shard_ms):
+    """Phase 15: the mesh path on the card (see the module's docstring).
+    Returns the kernels' launches summed over the ranks' checked runs."""
+    from repro_torch.launch import mesh as tmesh
+
+    workdir = tempfile.mkdtemp(prefix="phase15_")
+    try:
+        t = time.perf_counter()
+        info = mesh_setup(rows, cols, vals, shape, dev, workdir)
+        say(f"[phase15] G7 {shape[0]} x {shape[1]}, nnz {len(vals)}: "
+            f"row:{MESH_RANKS} and col:{MESH_RANKS} encoded in "
+            f"{info['encode_s']:.1f} s; one-process products checked and "
+            f"written, plans written, in {time.perf_counter() - t:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = tmesh.run_world(
+            "chip_smoke:mesh_rank", MESH_RANKS, (workdir, dev.type),
+            workdir=workdir, timeout_s=MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {}
+    for part in MESH_PARTS:
+        pi = info[part]
+        recs = [r["parts"][part] for r in ranks]
+        for r, rec in enumerate(recs):
+            for name in ("spmv", "spmm"):
+                if rec["launches"][name] == 0:
+                    raise AssertionError(f"rank {r} {part}: kernel {name} "
+                                         f"never launched on the mesh path")
+            if rec["device_bytes"] != pi["device_bytes"]:
+                raise AssertionError(f"rank {r} {part}: device_bytes "
+                                     f"{rec['device_bytes']} != the one-"
+                                     f"process operator's "
+                                     f"{pi['device_bytes']}")
+            say(f"[phase15] {part}:{MESH_RANKS} rank {r} (coordinate "
+                f"{rec['coord']}): shard stream "
+                f"{rec['shard_stream_bytes'] / 1e6:.1f} MB, peak allocated "
+                f"{rec['peak_bytes'] / 1e9:.3f} GB; matvec (α {MESH_ALPHA}, "
+                f"β {MESH_BETA}, y) vs one-process {rec['matvec_vs_one']:.3e}"
+                f", vs fp64 {rec['matvec_vs_fp64']:.3e}; matmat N={MESH_N} "
+                f"vs one-process {rec['matmat_vs_one']:.3e}, vs fp64 "
+                f"{rec['matmat_vs_fp64']:.3e}; equal to rank 0's bit for "
+                f"bit; without the combine: {rec['control']} (fails, as it "
+                f"must); shard pass {rec['shard_ms']:.4f} ms (CUDA events), "
+                f"combine {rec['combine_ms']:.4f} ms, mesh matvec "
+                f"{rec['matvec_ms']:.4f} ms (host clock); launches "
+                f"{rec['launches']}  [{card}]")
+        b, by = pi["bound"]
+        say(f"[phase15] {part}:{MESH_RANKS}: mesh matvec "
+            f"{max(r['matvec_ms'] for r in recs):.4f} ms (slowest rank, "
+            f"host clock) against the one-process operator's "
+            f"{pi['one_ms']:.4f} ms on the same plan (CUDA events) and "
+            f"phase 3's 1-shard spmv {one_shard_ms:.4f} ms; bound "
+            f"{b:.4f} ms ({by}: the whole {pi['stream_bytes'] / 1e6:.1f} MB "
+            f"stream at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, both ranks "
+            f"reading one card's HBM)  [{card}]")
+        launches[part] = {name: sum(r["launches"][part][name]
+                                    for r in ranks)
+                          for name in KERNELS}
+    say(f"[phase15] the world of {MESH_RANKS} ranks (spawn, import, load, "
+        f"checks, timings) took {world_s:.1f} s; every rank reaped and the "
+        f"directory removed")
+    say(f"[phase15] both ranks share one card's HBM and SMs: the phase "
+        f"shows that the mesh path runs and agrees, not how it scales, "
+        f"which waits for a machine with more cards")
+    return {name: sum(v[name] for v in launches.values())
+            for name in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4969,7 +5264,18 @@ def main() -> int:
     errs["flash_attention"] = max(errs["flash_attention"], err14)
     flash_bodies["wgmma"]["launches"] += kv_rec.pop("launches")
     flash_bodies["wgmma"]["codeqwen"] = kv_rec
-    say(f"[phase14] ok in {time.perf_counter() - t14:.1f} s; whole run "
+    say(f"[phase14] ok in {time.perf_counter() - t14:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 15: the Serpens operator over a DeviceMesh, one rank a shard
+    # (the twenty-sixth slice).  Phase 14's model went with its function;
+    # the card's cached blocks go back before the ranks start.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    launches["mesh"] = phase_mesh(rows, cols, vals, shape, dev, card,
+                                  times["spmv"]["ms"])
+    say(f"[phase15] ok in {time.perf_counter() - t15:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

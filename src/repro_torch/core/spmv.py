@@ -1,11 +1,12 @@
 """Public SpMV API: ``y = alpha * A @ x + beta * y`` with Serpens-formatted A.
 
-The paper's contract (Sec. 1) including the CompY (α, β) epilogue, on one
-device.  :class:`SerpensOperator` runs any channel-shard plan
-(:mod:`repro_torch.core.partition`) — one shard or many, matvec or
-matmat — through the single dispatch point ``kernels/ops.run_stream``,
-with the hot-row aux-spill epilogue applied per shard and the
-balanced-lane ``row_perm`` gather at the end.  :class:`SerpensSpMV` is the
+The paper's contract (Sec. 1) including the CompY (α, β) epilogue.
+:class:`SerpensOperator` runs any channel-shard plan
+(:mod:`repro_torch.core.partition`) — one shard or many, on one device or
+one shard a rank over a mesh axis, matvec or matmat — through the single
+dispatch point ``kernels/ops.run_stream``, with the hot-row aux-spill
+epilogue applied per shard and the balanced-lane ``row_perm`` gather at
+the end.  :class:`SerpensSpMV` is the
 classic single-shard operator (preprocessing on the host, exactly like the
 paper's offline format conversion; construct once, apply to many vectors).
 
@@ -18,54 +19,83 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import format as sformat
 from repro_torch.core import partition as cpart
 from repro_torch.kernels import ops
 
-_MESH_SLICE = "the multi-GPU slice of the port"
-
 
 class SerpensOperator:
     """y = α·A·x + β·y for a fixed sparse A under a channel-shard plan.
 
-    A multi-shard plan executes shard by shard on the operator's device
-    (row partition: shard accumulators concatenate; col partition: partial
-    y's sum).  ``device`` defaults to CUDA; pass ``device="cpu"`` for the
-    plain PyTorch path.
+    With ``mesh``/``axis`` (a ``DeviceMesh`` and one of its dimension
+    names) the operator is SPMD, like the reference's ``shard_map`` body:
+    every rank of the mesh builds it and makes the same calls, the rank
+    at coordinate ``c`` along the axis holds ``plan.shards[c]`` only, and
+    the axis's process group combines (row partition: the shards' row
+    blocks ``all_gather``; col partition: the partial y's ``all_reduce``),
+    so every rank ends with the whole y.  Other mesh dimensions
+    replicate.  Without a mesh a multi-shard plan executes shard by shard
+    on the operator's device — the same math.  ``device`` defaults to
+    CUDA; pass ``device="cpu"`` for the plain PyTorch path.
     """
 
     def __init__(self, plan: cpart.ChannelShardPlan, *, device=None,
                  backend: str = "auto", mesh=None, axis: str | None = None):
-        if mesh is not None or axis is not None:
-            raise NotImplementedError(
-                f"mesh execution (shard_map in the reference) waits for "
-                f"{_MESH_SLICE}")
+        if (mesh is None) != (axis is None):
+            raise ValueError("mesh and axis must be given together")
         self.plan = plan
         self.config = plan.config
         self.shape = tuple(plan.shape)
         self.device = ops.resolve_device(device)
         # Resolved once at bind time, against the device.
         self.backend = ops.resolve_backend(backend, self.device)
+        self.mesh = mesh
+        self.axis = axis
+        # The shards this process holds: every one, or its coordinate's.
+        self._held = list(range(plan.num_shards))
+        if mesh is not None:
+            n = _axis_size(mesh, axis)
+            if n != plan.num_shards:
+                raise ValueError(
+                    f"plan has {plan.num_shards} shards but mesh axis "
+                    f"{axis!r} has {n} devices")
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"mesh is over {mesh.device_type!r} devices; this "
+                    f"operator runs on {self.device}")
+            if (self.device.type == "cuda" and self.device.index is not None
+                    and self.device.index != torch.cuda.current_device()):
+                raise ValueError(
+                    f"this rank's device is cuda:"
+                    f"{torch.cuda.current_device()}; this operator runs "
+                    f"on {self.device}")
+            self._group = mesh.get_group(axis)
+            self._coord = mesh.get_local_rank(axis)
+            self._held = [self._coord]
         # lane_assign="balanced" plans encode row r at virtual row
         # row_perm[r]; the final gather restores caller row order.
         self._row_perm = (None if plan.row_perm is None else
                           torch.from_numpy(np.asarray(plan.row_perm,
                                                       np.int64))
                           .to(self.device))
-        self._shards = [ops.device_arrays(sm, self.device)
-                        for sm in plan.shards]
+        held = [plan.shards[c] for c in self._held]
+        self._shards = [ops.device_arrays(sm, self.device) for sm in held]
         self._auxs = [
             tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                   for a in (sm.aux_rows, sm.aux_cols, sm.aux_vals))
             if sm.n_aux else None
-            for sm in plan.shards]
-        held = ([t for dev in self._shards for t in dev]
-                + [t for aux in self._auxs if aux is not None for t in aux])
+            for sm in held]
+        # Every shard of the plan, wherever it is held: under a mesh the
+        # axis's ranks hold these bytes between them.
+        self._device_bytes = sum(
+            sm.idx.nbytes + sm.val.nbytes + sm.seg_ids.nbytes
+            + (sm.aux_rows.nbytes + sm.aux_cols.nbytes + sm.aux_vals.nbytes
+               if sm.n_aux else 0)
+            for sm in plan.shards)
         if self._row_perm is not None:
-            held.append(self._row_perm)
-        self._device_bytes = int(sum(t.numel() * t.element_size()
-                                     for t in held))
+            self._device_bytes += 8 * self._row_perm.numel()
 
     # -- properties -------------------------------------------------------
     @property
@@ -85,18 +115,19 @@ class SerpensOperator:
         The fused epilogue needs the *complete* accumulator of one stream
         pass, so it requires a single-shard plan (multi-shard needs a
         cross-shard combine first), no aux spill side-stream (its
-        contributions land after the stream pass), and no balanced-lane
-        row permutation (the epilogue sees the virtual row order, not the
-        caller's).  The port has no mesh binding yet.
+        contributions land after the stream pass), no mesh, and no
+        balanced-lane row permutation (the epilogue sees the virtual row
+        order, not the caller's).
         """
-        return (self.plan.num_shards == 1 and self.plan.n_aux == 0
-                and self.plan.row_perm is None)
+        return (self.mesh is None and self.plan.num_shards == 1
+                and self.plan.n_aux == 0 and self.plan.row_perm is None)
 
     @property
     def device_bytes(self) -> int:
-        """Bytes of the device tensors this operator holds (the streamed
-        idx/val/seg arrays, the aux spill triples and ``row_perm``) — what
-        the registry's byte budget charges for a live binding."""
+        """Bytes of the device tensors that hold this plan (every shard's
+        streamed idx/val/seg arrays and aux spill triple, and
+        ``row_perm``) — what the registry's byte budget charges for a live
+        binding.  Under a mesh the axis's ranks hold them between them."""
         return self._device_bytes
 
     @property
@@ -124,10 +155,30 @@ class SerpensOperator:
             self, measure=measure, backend=backend,
             bandwidth_gbps=bandwidth_gbps, iters=iters)
 
-    def with_mesh(self, mesh, axis: str, partition: str | None = None):
+    def with_mesh(self, mesh, axis: str, partition: str | None = None
+                  ) -> "SerpensOperator":
+        """Rebind this operator's plan to a mesh axis (every rank calls).
+
+        Reuses the encoded plan when its shard count matches the axis size;
+        otherwise repartitions from the plan's COO (a host-side re-encode,
+        the same on every rank).
+        """
         if mesh is None:
             return self
-        raise NotImplementedError(f"with_mesh waits for {_MESH_SLICE}")
+        if axis is None:
+            raise ValueError("mesh requires axis")
+        n = _axis_size(mesh, axis)
+        plan = self.plan
+        want = partition or (plan.spec.partition
+                             if plan.spec.partition != "single" else "row")
+        # Any 1-shard plan already is the 1-device stream — no re-encode.
+        if plan.num_shards != n or (n > 1 and plan.spec.partition != want):
+            r, c, v = plan.to_coo()
+            plan = cpart.make_plan(
+                r, c, v, self.shape, self.config,
+                cpart.PlanSpec(want, n, plan.spec.lane_assign))
+        return SerpensOperator(plan, mesh=mesh, axis=axis,
+                               backend=self.backend, device=self.device)
 
     # -- compute ----------------------------------------------------------
     def _check_x(self, x, what: str):
@@ -232,8 +283,8 @@ class SerpensOperator:
             raise ValueError(
                 "fused epilogue needs a single-shard, mesh-free plan with "
                 "no aux spill and modulo lane assignment (got "
-                f"shards={self.plan.num_shards}, mesh=False, "
-                f"n_aux={self.plan.n_aux}, "
+                f"shards={self.plan.num_shards}, "
+                f"mesh={self.mesh is not None}, n_aux={self.plan.n_aux}, "
                 f"lane_assign={self.plan.spec.lane_assign!r})")
         x = self._coerce(x, "x")
         if x.dim() != 1:
@@ -272,26 +323,52 @@ class SerpensOperator:
 
     def _apply(self, x, backend):
         """Raw A @ x over the plan (x: 1-D or (K, N)) in caller row order."""
+        return self._finish(self._combine(self._local_accs(x, backend)))
+
+    def _runner(self, backend):
         plan, cfg = self.plan, self.config
-        kp = plan.num_segments_local * cfg.segment_width
-        run = functools.partial(
+        return functools.partial(
             ops.run_stream, num_rows_padded=plan.out_rows_padded,
             segment_width=cfg.segment_width,
             tiles_per_chunk=cfg.tiles_per_chunk, backend=backend)
-        if plan.spec.partition == "col" and plan.num_shards > 1:
-            xp = ops.pad_rows(x, plan.num_shards * kp)
-            acc = None
-            for d, (dev, aux) in enumerate(zip(self._shards, self._auxs)):
-                part = self._shard_acc(dev, aux, xp[d * kp:(d + 1) * kp],
-                                       run)
-                acc = part if acc is None else acc + part
-            return self._finish(acc)
-        xp = ops.pad_rows(x, kp)
-        outs = [self._shard_acc(dev, aux, xp, run)
-                for dev, aux in zip(self._shards, self._auxs)]
-        if plan.num_shards == 1:
-            return self._finish(outs[0])
-        return self._finish(torch.cat([o[:plan.block_m] for o in outs]))
+
+    def _local_accs(self, x, backend):
+        """The held shards against x, in shard order: a col partition's
+        partial accumulators over every row (each shard against its slice
+        of x), a row partition's row blocks, or a one-shard plan's whole
+        accumulator."""
+        plan = self.plan
+        kp = plan.num_segments_local * self.config.segment_width
+        run = self._runner(backend)
+        split = plan.num_shards > 1
+        col = split and plan.spec.partition == "col"
+        xp = ops.pad_rows(x, plan.num_shards * kp if col else kp)
+        accs = []
+        for c, dev, aux in zip(self._held, self._shards, self._auxs):
+            acc = self._shard_acc(dev, aux,
+                                  xp[c * kp:(c + 1) * kp] if col else xp, run)
+            accs.append(acc[:plan.block_m] if split and not col else acc)
+        return accs
+
+    def _combine(self, accs):
+        """The held shards' accumulators → the whole virtual accumulator
+        (partial y's summed, or row blocks in shard order).  Under a mesh
+        the axis's collective does it (the shard_map body's psum or
+        all_gather), so every rank ends with the whole."""
+        col = self.plan.spec.partition == "col"
+        if self.mesh is None:
+            if len(accs) == 1:
+                return accs[0]
+            return functools.reduce(torch.add, accs) if col else torch.cat(
+                accs)
+        (acc,) = accs
+        if col:
+            dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=self._group)
+            return acc
+        acc = acc.contiguous()
+        parts = [torch.empty_like(acc) for _ in range(self.plan.num_shards)]
+        dist.all_gather(parts, acc, group=self._group)
+        return torch.cat(parts)
 
     def to_dense(self) -> np.ndarray:
         """Densify (testing only)."""
@@ -321,8 +398,38 @@ def from_dense(a: np.ndarray, config=sformat.SerpensConfig(),
 
 
 class ShardedSerpensSpMV(SerpensOperator):
-    """Row- or column-partitioned SpMV over a mesh axis (not ported yet)."""
+    """Row- or column-partitioned SpMV over one mesh axis.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"ShardedSerpensSpMV waits for {_MESH_SLICE}")
+    The paper scales by adding HBM channels (Sec. 4.4, 16 → 24 channels,
+    Table 5); across cards the analogous scaling axis is *cards*.  This
+    builds a channel-shard plan over the mesh axis (every rank encodes
+    the same plan) and executes it through the same
+    :class:`SerpensOperator` as the single-device path — the aux spill
+    stream and matmat work sharded.
+
+      * ``row``: each rank owns a contiguous row block and its own stream;
+        x is replicated; the blocks ``all_gather``.
+      * ``col``: segments sharded; each rank produces a partial
+        full-length y; an ``all_reduce`` sums them (for very large K).
+    """
+
+    def __init__(self, rows, cols, vals, shape, mesh, axis: str,
+                 partition: str = "row",
+                 config: sformat.SerpensConfig = sformat.SerpensConfig(),
+                 backend: str = "auto", device=None):
+        if partition not in ("row", "col"):
+            raise ValueError("partition must be 'row' or 'col'")
+        plan = cpart.make_plan(
+            rows, cols, vals, shape, config,
+            cpart.PlanSpec(partition, _axis_size(mesh, axis)))
+        super().__init__(plan, mesh=mesh, axis=axis, backend=backend,
+                         device=device)
+        self.partition = partition
+
+
+def _axis_size(mesh, axis: str) -> int:
+    """The size of the mesh dimension named ``axis``."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r} (axes: {names})")
+    return mesh.size(names.index(axis))

@@ -37,7 +37,7 @@ def test_every_module_and_chip_smoke_import_no_jax():
         assert len(names) >= 20, names
         assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
                 "repro_torch.train.trainer", "repro_torch.launch.train",
-                "repro_torch.kernels.sass"} <= set(names), names
+                "repro_torch.kernels.sass", "repro_torch.launch.mesh"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         import chip_smoke

@@ -152,14 +152,24 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
+    """The operator's mesh path is ported (tests/test_torch_mesh_spmv.py
+    runs it in gloo worlds against the reference's shard_map); solving
+    over a mesh still waits for a later slice, and a mesh without an
+    axis, or an axis without a mesh, is refused before anything runs."""
+    from repro_torch import solvers
+
     _, top = both_ops("small", ("single", 1, "modulo"))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        top.with_mesh(object(), "x")
     assert top.with_mesh(None, "x") is top
+    with pytest.raises(ValueError, match="mesh requires axis"):
+        top.with_mesh(object(), None)
+    with pytest.raises(ValueError, match="must be given together"):
+        tspmv.SerpensOperator(top.plan, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="must be given together"):
+        tspmv.SerpensOperator(top.plan, device="cpu", axis="x")
+    with pytest.raises(ValueError, match="partition must be 'row' or 'col'"):
+        tspmv.ShardedSerpensSpMV(None, None, None, (M, K), object(), "x",
+                                 "diag")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        tspmv.SerpensOperator(top.plan, device="cpu", mesh=object(),
-                              axis="x")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        tspmv.ShardedSerpensSpMV()
+        solvers.pagerank(top, mesh=object(), axis="x")
     # The cost report is ported (tests/test_torch_profile.py).
     assert top.cost_report()["stream_bytes"] == top.stream_bytes
