@@ -391,6 +391,36 @@ package.  Phases:
    ranks read one card).  Two ranks on one card share its memory rate
    and SMs: the phase shows that the path runs and agrees, not scaling.
    The directory is removed and every rank reaped before the phase ends.
+16. Serving SpMV requests and solves over a ``DeviceMesh`` (the
+   twenty-seventh slice: the registry's ``get(mesh=, axis=, partition=)``
+   with repartition-on-get, ``SpMVService(mesh=, axis=)``, the solvers'
+   ``mesh=``), after phase 15, in a fresh world of two ranks on the card
+   over ``gloo``.  The parent writes phase 4's column-normalised G7
+   triples (full size) and G5 SPD triples (phase 4's scale, named in the
+   line), and the fp64 references of ``SERVE_REQUESTS`` + 1 seeded
+   requests, to a temporary directory; no rank runs a generator.  Each
+   rank (``mesh_serve_rank``) makes a ``(1, 2)`` ``("data", "model")``
+   mesh and a ``MatrixRegistry`` on its card, puts G7 once, single-shard
+   (encoded with one worker), gets it on the ``model`` axis (repartitioned
+   to ``row:2``: ``stats.encodes`` 1 → 2; a second get returns the same
+   operator; ``partition="col"`` a second binding), and G5 the same way
+   in a registry of its own on a second thread meanwhile.  The parent
+   makes the fp64 references while the ranks encode; they wait for the
+   file before their checks.
+   Counts set to 0 before each part and read after: a mesh-bound
+   ``SpMVService`` (synchronous, ``max_bucket`` 16) flushes 32 requests
+   of mixed α, β and y (two SpMM batches: ``spmm`` must launch), then one
+   lone request (``spmv`` must launch); ``svc.solve`` runs PageRank on G7
+   and ``conjugate_gradient(..., mesh=, axis=)`` CG on G5 (unfused, every
+   rank stopping at the same iteration).  Each result is held to fp64
+   (phase 1's tolerance), to the one-process operator's on the same plan
+   and the one-process unfused solver's (iterations equal, x within phase
+   4's tolerances), and to rank 0's bit for bit; the product with the
+   rank's own shard in place of the combine (the control) must fail; the
+   host checks rank 0's PageRank against fp64 PageRank and CG's true
+   residual.  Printed per rank: the put's and the repartitions' seconds,
+   the shard's stream MB, peak allocated, requests/s of the flush and ms
+   per mesh solver iteration (host clock) with the iterations.
 
 Phase 7's flush trace goes to ``build/traces/`` (git-ignored).
 Any failed check raises, and the script then exits nonzero without its
@@ -748,10 +778,13 @@ def host_references(rows, cols, vals, shape, reqs) -> list:
     """fp64 ``alpha * A @ x + beta * y`` and its tolerance scale
     (``|alpha| * |A| @ |x| + |beta| * |y|``) of every request in ``reqs``,
     from two scipy CSR products over all their x at once."""
-    import scipy.sparse as sp
-    vals = np.asarray(vals, np.float64)
-    a = sp.csr_matrix((vals, (rows, cols)), shape=shape)
-    absa = sp.csr_matrix((np.abs(vals), (rows, cols)), shape=shape)
+    return csr_references(csr64(rows, cols, vals, shape), reqs)
+
+
+def csr_references(a, reqs) -> list:
+    """:func:`host_references` on an fp64 scipy CSR matrix ``a``."""
+    absa = a.copy()
+    absa.data = np.abs(absa.data)
     xs = np.stack([x for x, *_ in reqs], 1).astype(np.float64)
     ax = np.ascontiguousarray((a @ xs).T)
     absax = np.ascontiguousarray((absa @ np.abs(xs)).T)
@@ -765,10 +798,11 @@ def host_references(rows, cols, vals, shape, reqs) -> list:
     return out
 
 
-def make_requests(rng, m: int, k: int):
-    """48 (x, alpha, beta, y, owner) requests: some with beta = 0, no y."""
+def make_requests(rng, m: int, k: int, n: int = N_REQUESTS):
+    """``n`` (x, alpha, beta, y, owner) requests: some with beta = 0, no
+    y."""
     reqs = []
-    for i in range(N_REQUESTS):
+    for i in range(n):
         x = rng.standard_normal(k).astype(np.float32)
         alpha = float(rng.uniform(-2.0, 2.0))
         if i % 3 == 0:
@@ -1192,7 +1226,9 @@ def timed_prefill_decode(eng, batch, out, pos0: int, steps: int,
 
 def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
     """Phase 4; returns (launches, max error, timings, bounds) of the
-    fused kernel's main-path runs."""
+    fused kernel's main-path runs, and the column-normalised G7 values and
+    the G5 SPD triples (rows, cols, vals, shape, scale) it served, which
+    phase 16 serves again over a mesh."""
     t = time.perf_counter()
     m = shape[0]
     gv = column_normalize(rows, cols, vals, m)
@@ -1356,7 +1392,8 @@ def phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card):
             f"{tm['library_ms']:.4f} ms, bound {bd:.4f} ms ({by}); "
             f"{bd / tm['ms']:.3f} of the bound  [{card}]")
     say(f"[phase4] timings in {time.perf_counter() - t:.1f} s")
-    return launches, max(err, 0.0), times, bounds
+    return launches, max(err, 0.0), times, bounds, (
+        gv, (sr, sc, sv, shape5, g5_scale))
 
 # -- phase 5: LM serving through the flash-attention kernel -------------------
 LM_ARCH = "qwen1.5-0.5b"
@@ -4631,6 +4668,14 @@ def skip_combine(op):
     return local_only
 
 
+def same_as_rank0(what: str, t, group) -> None:
+    """Fail unless ``t`` equals the group's rank 0's bit for bit."""
+    first = t.clone()
+    dist.broadcast(first, dist.get_global_rank(group, 0), group=group)
+    if not torch.equal(first, t):
+        raise AssertionError(f"{what} differs from rank 0's")
+
+
 def mesh_rank(rank: int, world_size: int, workdir: str, device: str):
     """Phase 15 on one rank of a ``(1, world_size)`` ("data", "model")
     mesh: for each partition, the operator over the ``model`` axis holds
@@ -4690,12 +4735,7 @@ def mesh_rank(rank: int, world_size: int, workdir: str, device: str):
                 got, one[what], scale)
             rec[f"{what}_vs_fp64"] = check_close(
                 f"rank {rank} {part} mesh {what} vs fp64", got, ref, scale)
-            first = got.clone()
-            dist.broadcast(first, dist.get_global_rank(group, 0),
-                           group=group)
-            if not torch.equal(first, got):
-                raise AssertionError(f"rank {rank} {part} {what} differs "
-                                     f"from rank 0's")
+            same_as_rank0(f"rank {rank} {part} {what}", got, group)
         with patched(op, "_combine", skip_combine(op)):
             ctrl = op(x, MESH_ALPHA, MESH_BETA, y0)
         try:
@@ -4850,6 +4890,374 @@ def phase_mesh(rows, cols, vals, shape, dev, card, one_shard_ms):
         f"which waits for a machine with more cards")
     return {name: sum(v[name] for v in launches.values())
             for name in KERNELS}
+
+
+# -- phase 16: serving SpMV requests and solves over a DeviceMesh -------------
+# Requests of the mesh-bound service's flush (two 16-wide batches), its
+# SpMM width, and the world's deadline: spawn, import, two puts and three
+# repartitions a rank, the served flush, the lone request, the solves, the
+# one-process references, the control.
+SERVE_REQUESTS = 32
+SERVE_BUCKET = 16
+SERVE_TIMEOUT_S = 480.0
+SERVE_TOL = 1e-6
+SERVE_MAX_ITERS = 200
+
+
+def serve_requests_of(m: int, k: int):
+    """The phase's requests (the same on every rank, from the seed): the
+    flush's SERVE_REQUESTS, then the lone one."""
+    return make_requests(np.random.default_rng(SEED + 16), m, k,
+                         SERVE_REQUESTS + 1)
+
+
+def cg_rhs(n: int) -> np.ndarray:
+    return np.random.default_rng(SEED + 17).standard_normal(n) \
+        .astype(np.float32)
+
+
+def mesh_serve_inputs(rows, cols, gv, shape, g5, workdir: str) -> None:
+    """What the ranks encode, written under ``workdir``: the column-
+    normalised G7 triples and the G5 SPD triples (``g5``: rows, cols,
+    vals, shape, scale)."""
+    sr, sc, sv, shape5, _ = g5
+    np.savez(os.path.join(workdir, "inputs.npz"), rows=rows, cols=cols,
+             vals=gv, shape=np.array(shape), g5_rows=sr, g5_cols=sc,
+             g5_vals=sv, g5_shape=np.array(shape5))
+
+
+def mesh_serve_references(rows, cols, gv, shape, g5, workdir: str) -> dict:
+    """The fp64 references of the requests and their tolerance scales,
+    written under ``workdir`` in one rename (the ranks wait for the file:
+    it is made while they encode).  Returns the host CSR matrices the
+    solves are checked against after the world."""
+    t = time.perf_counter()
+    a7 = csr64(rows, cols, gv, shape)
+    refs, scales = (np.stack(v).astype(np.float32) for v in zip(
+        *csr_references(a7, serve_requests_of(*shape))))
+    part = os.path.join(workdir, "refs.part.npz")
+    np.savez(part, refs=refs, scales=scales)
+    os.replace(part, os.path.join(workdir, "refs.npz"))
+    sr, sc, sv, shape5, g5_scale = g5
+    return {"a7": a7, "a5": csr64(sr, sc, sv, shape5), "g5_scale": g5_scale,
+            "refs_s": time.perf_counter() - t}
+
+
+def wait_for(path: str, timeout_s: float) -> None:
+    """Block until ``path`` exists (another process makes it)."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout_s} s")
+        time.sleep(0.2)
+
+
+def mesh_serve_rank(rank: int, world_size: int, workdir: str, device: str):
+    """Phase 16 on one rank of a ``(1, world_size)`` ("data", "model")
+    mesh: the registry puts the column-normalised G7 stand-in once,
+    single-shard, and repartitions it on the first mesh get (``row:n``;
+    cached thereafter; ``partition="col"`` a second binding); G5 SPD the
+    same way in a registry of its own, on a second thread meanwhile (the
+    encodes are host work; neither makes a collective).  The main path, counts set to 0 before each part and read
+    after: a mesh-bound ``SpMVService`` flushes SERVE_REQUESTS requests
+    (SpMM batches) and one lone request (spmv), ``svc.solve`` runs
+    PageRank on G7 and ``conjugate_gradient(..., mesh=, axis=)`` CG on
+    G5.  Every result is held to fp64, to the one-process operator's or
+    unfused solver's on the same plan, and to rank 0's bit for bit; the
+    product without the combine must fail.  Returns the readings (rank 0
+    also the solves' x for the host's fp64 checks)."""
+    from repro_torch import solvers
+    from repro_torch.launch import mesh as tmesh
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:                    # every rank on the card it was given
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh = tmesh.make_host_mesh(1, world_size, device_type=dev.type)
+    group = mesh.get_group(MESH_AXIS)
+    with np.load(os.path.join(workdir, "inputs.npz")) as f:
+        inp = {name: f[name] for name in f.files}
+    shape = tuple(int(s) for s in inp["shape"])
+    shape5 = tuple(int(s) for s in inp["g5_shape"])
+    m, k = shape
+    rec = {"launches": {}}
+
+    def g5_binding():
+        """G5 SPD put once and bound to the mesh axis (a repartition)."""
+        if cuda:
+            torch.cuda.set_device(dev)
+        reg5 = MatrixRegistry(byte_budget=16 << 30, device=dev)
+        t = time.perf_counter()
+        smid = reg5.put(inp["g5_rows"], inp["g5_cols"], inp["g5_vals"],
+                        shape5)
+        encodes = [reg5.stats.encodes]
+        t5 = time.perf_counter()
+        op5 = reg5.get(smid, mesh=mesh, axis=MESH_AXIS)
+        encodes.append(reg5.stats.encodes)
+        done = time.perf_counter()
+        return reg5, op5, encodes, t5 - t, done - t5
+
+    # -- the registries: one put each, repartitioned on the first mesh get.
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    g5_future = pool.submit(g5_binding)
+    reg = MatrixRegistry(byte_budget=16 << 30, device=dev)
+    t = time.perf_counter()
+    mid = reg.put(inp["rows"], inp["cols"], inp["vals"], shape)
+    rec["put_s"] = time.perf_counter() - t
+    encodes = [reg.stats.encodes]
+    t = time.perf_counter()
+    op = reg.get(mid, mesh=mesh, axis=MESH_AXIS)
+    rec["repartition_s"] = time.perf_counter() - t
+    encodes.append(reg.stats.encodes)
+    if reg.get(mid, mesh=mesh, axis=MESH_AXIS) is not op:
+        raise AssertionError(f"rank {rank}: a second mesh get re-bound")
+    encodes.append(reg.stats.encodes)
+    t = time.perf_counter()
+    opc = reg.get(mid, mesh=mesh, axis=MESH_AXIS, partition="col")
+    rec["repartition_col_s"] = time.perf_counter() - t
+    encodes.append(reg.stats.encodes)
+    reg5, op5, encodes5, rec["put_g5_s"], rec["repartition_g5_s"] = \
+        g5_future.result()
+    pool.shutdown()
+    if encodes != [1, 2, 2, 3] or encodes5 != [1, 2]:
+        raise AssertionError(f"rank {rank}: encodes {encodes} (G7), "
+                             f"{encodes5} (G5), not one put and one "
+                             f"repartition each")
+    specs = [(o.plan.spec.partition, o.plan.num_shards, len(o._shards))
+             for o in (op, opc, op5)]
+    if specs != [("row", world_size, 1), ("col", world_size, 1),
+                 ("row", world_size, 1)]:
+        raise AssertionError(f"rank {rank}: bindings {specs}")
+    rec.update(encodes=encodes, encodes_g5=encodes5, coord=op._coord,
+               shard_stream_bytes=op.plan.shards[op._coord].stream_bytes,
+               device_bytes=op.device_bytes)
+
+    # -- the main path: the flush, the lone request, the solves.
+    svc = SpMVService(reg, SERVE_BUCKET, mesh=mesh, axis=MESH_AXIS,
+                      device=dev)
+    reqs = serve_requests_of(m, k)
+    for x, a, b, y, o in reqs[:2]:          # warm-up: one 2-wide batch
+        svc.submit(mid, x, alpha=a, beta=b, y=y, owner=o)
+    svc.flush()
+    sync()
+    dist.barrier(group=group)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t = time.perf_counter()
+    tickets = [svc.submit(mid, x, alpha=a, beta=b, y=y, owner=o)
+               for x, a, b, y, o in reqs[:SERVE_REQUESTS]]
+    res = svc.flush()
+    sync()
+    rec["flush_s"] = time.perf_counter() - t
+    rec["launches"]["flush"] = read_launches()
+    served = [res[tk] for tk in tickets]
+    shapes = [(r.batch_size, r.bucket_n) for r in served]
+    if shapes != [(SERVE_BUCKET, SERVE_BUCKET)] * SERVE_REQUESTS:
+        raise AssertionError(f"rank {rank}: batches {shapes}")
+    zero_launches()
+    x, a, b, y, o = reqs[SERVE_REQUESTS]
+    lone_t = svc.submit(mid, x, alpha=a, beta=b, y=y, owner=o)
+    lone = svc.flush()[lone_t]
+    sync()
+    rec["launches"]["lone"] = read_launches()
+    if (lone.batch_size, lone.bucket_n) != (1, 1):
+        raise AssertionError(f"rank {rank}: the lone request ran as "
+                             f"({lone.batch_size}, {lone.bucket_n})")
+    rhs = cg_rhs(shape5[0])
+    # Warm-up solves (first uses of the vector ops and of the collectives
+    # at these sizes stay out of the timed ones).
+    svc.solve(mid, "pagerank", max_iters=2)
+    solvers.conjugate_gradient(op5, rhs, max_iters=2, mesh=mesh,
+                               axis=MESH_AXIS)
+    sync()
+    dist.barrier(group=group)
+    zero_launches()
+    t = time.perf_counter()
+    pr = svc.solve(mid, "pagerank", tol=SERVE_TOL,
+                   max_iters=SERVE_MAX_ITERS).solve
+    sync()
+    rec["pagerank_s"] = time.perf_counter() - t
+    dist.barrier(group=group)
+    t = time.perf_counter()
+    cg = solvers.conjugate_gradient(op5, rhs, tol=SERVE_TOL, mesh=mesh,
+                                    axis=MESH_AXIS)
+    sync()
+    rec["cg_s"] = time.perf_counter() - t
+    rec["launches"]["solve"] = read_launches()
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["iters"] = {"pagerank": pr.iterations, "cg": cg.iterations}
+    if pr.fused or cg.fused or not (pr.converged and cg.converged):
+        raise AssertionError(f"rank {rank}: pagerank fused {pr.fused} "
+                             f"converged {pr.converged}, cg fused "
+                             f"{cg.fused} converged {cg.converged}")
+    rec["svc_stats"] = dataclasses.asdict(svc.stats)
+    rec["reg_stats"] = dataclasses.asdict(reg.stats_snapshot())
+
+    # -- the checks: fp64, the one-process operator and solvers, rank 0.
+    refs_path = os.path.join(workdir, "refs.npz")
+    wait_for(refs_path, SERVE_TIMEOUT_S)
+    with np.load(refs_path) as f:
+        refs, scales = torch.from_numpy(f["refs"]), torch.from_numpy(
+            f["scales"])
+    got = torch.from_numpy(np.stack([r.y for r in served + [lone]]))
+    rec["vs_fp64"] = max(check_close(
+        f"rank {rank} request {i} vs fp64", got[i], refs[i], scales[i])
+        for i in range(len(got)))
+    one = SerpensOperator(op.plan, device=dev)
+    want = []
+    for i in range(0, SERVE_REQUESTS, SERVE_BUCKET):
+        chunk = reqs[i:i + SERVE_BUCKET]
+        xm = torch.from_numpy(np.stack([c[0] for c in chunk], 1)).to(dev)
+        alphas = torch.tensor([c[1] for c in chunk], device=dev)
+        betas = torch.tensor([c[2] for c in chunk], device=dev)
+        ym = torch.from_numpy(np.stack(
+            [c[3] if c[3] is not None else np.zeros(m, np.float32)
+             for c in chunk], 1)).to(dev)
+        want.append((one.matmat(xm) * alphas + ym * betas).T.cpu())
+    want.append(one(x, a, b, y).cpu()[None])
+    want = torch.cat(want)
+    rec["vs_one"] = max(check_close(
+        f"rank {rank} request {i} vs the one-process operator", got[i],
+        want[i], scales[i]) for i in range(len(got)))
+    same_as_rank0(f"rank {rank} served results", got, group)
+    yc = opc(x, a, b, y)
+    rec["col_vs_fp64"] = check_close(f"rank {rank} col:{world_size} lone "
+                                     f"request vs fp64", yc.cpu(),
+                                     refs[-1], scales[-1])
+    same_as_rank0(f"rank {rank} col result", yc, group)
+    pr1 = solvers.pagerank(one, tol=SERVE_TOL, max_iters=SERVE_MAX_ITERS,
+                           fused=False)
+    one5 = SerpensOperator(op5.plan, device=dev)
+    cg1 = solvers.conjugate_gradient(one5, rhs, tol=SERVE_TOL, fused=False)
+    rec["iters_one"] = {"pagerank": pr1.iterations, "cg": cg1.iterations}
+    if rec["iters_one"] != rec["iters"]:
+        raise AssertionError(f"rank {rank}: mesh iterations {rec['iters']}"
+                             f" != one-process {rec['iters_one']}")
+    pr_x, cg_x = torch.as_tensor(pr.x).cpu(), cg.x.cpu()
+    rec["pagerank_vs_one"] = check_close(
+        f"rank {rank} mesh PageRank vs one-process", pr_x, pr1.x.cpu(),
+        torch.full((m,), float(pr_x.max())), atol=1e-9)
+    rec["cg_vs_one"] = check_close(
+        f"rank {rank} mesh CG vs one-process", cg_x, cg1.x.cpu(),
+        torch.full((shape5[0],), 100.0 * float(cg_x.abs().max())))
+    same_as_rank0(f"rank {rank} PageRank", pr_x, group)
+    same_as_rank0(f"rank {rank} CG", cg_x, group)
+    with patched(op, "_combine", skip_combine(op)):
+        ctrl = op(x, a, b, y)
+    try:
+        check_close(f"rank {rank} without the combine", ctrl.cpu(),
+                    refs[-1], scales[-1])
+    except AssertionError as e:
+        rec["control"] = str(e).split(": ", 1)[1].split(";")[0]
+    else:
+        raise AssertionError(f"rank {rank}: the product without the "
+                             f"combine passed the check")
+    if rank == 0:
+        rec["pagerank_x"], rec["cg_x"] = pr_x.numpy(), cg_x.numpy()
+    return rec
+
+
+def mesh_serve_check(info, ranks) -> dict:
+    """The host's fp64 checks of rank 0's solves (every rank's are bit-
+    equal to it): PageRank against fp64 PageRank of as many iterations,
+    CG's true residual."""
+    r0 = ranks[0]
+    m = info["a7"].shape[0]
+    r64 = pagerank64(info["a7"], r0["iters"]["pagerank"])
+    out = {"pagerank_vs_fp64": check_close(
+        "mesh PageRank vs fp64", torch.from_numpy(r0["pagerank_x"]),
+        torch.from_numpy(r64).float(), torch.full((m,), float(r64.max())),
+        atol=1e-9)}
+    rhs = cg_rhs(info["a5"].shape[0]).astype(np.float64)
+    x64 = r0["cg_x"].astype(np.float64)
+    out["cg_true_residual"] = float(np.linalg.norm(rhs - info["a5"] @ x64)
+                                    / np.linalg.norm(rhs))
+    if out["cg_true_residual"] > 1e-4:
+        raise AssertionError(f"mesh CG true residual "
+                             f"{out['cg_true_residual']}")
+    return out
+
+
+def phase_mesh_serve(rows, cols, gv, shape, g5, dev, card):
+    """Phase 16: the registry, service and solvers over the mesh on the
+    card (see the module's docstring).  Returns the kernels' launches
+    summed over the ranks' main-path runs."""
+    from repro_torch.launch import mesh as tmesh
+
+    workdir = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        t = time.perf_counter()
+        mesh_serve_inputs(rows, cols, gv, shape, g5, workdir)
+        inputs_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # The ranks encode while this process makes the references.
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            world = pool.submit(
+                tmesh.run_world, "chip_smoke:mesh_serve_rank", MESH_RANKS,
+                (workdir, dev.type), workdir=workdir,
+                timeout_s=SERVE_TIMEOUT_S)
+            info = mesh_serve_references(rows, cols, gv, shape, g5,
+                                         workdir)
+            ranks = world.result()
+        world_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    say(f"[phase16] G7 column-normalised {shape[0]} x {shape[1]}, nnz "
+        f"{len(gv)}, and G5 SPD x{info['g5_scale']} {info['a5'].shape[0]} "
+        f"x {info['a5'].shape[1]}, nnz {info['a5'].nnz}: triples written "
+        f"in {inputs_s:.1f} s; fp64 references of {SERVE_REQUESTS + 1} "
+        f"requests made in {info['refs_s']:.1f} s while the ranks encoded")
+    host = mesh_serve_check(info, ranks)
+    launches = dict.fromkeys(KERNELS, 0)
+    for r, rec in enumerate(ranks):
+        la = rec["launches"]
+        for part, name in (("flush", "spmm"), ("lone", "spmv"),
+                           ("solve", "spmv")):
+            if la[part][name] == 0:
+                raise AssertionError(f"rank {r}: kernel {name} never "
+                                     f"launched in the mesh {part}")
+        for part in la.values():
+            for name, count in part.items():
+                launches[name] += count
+        it = rec["iters"]
+        say(f"[phase16] rank {r} (coordinate {rec['coord']}): put "
+            f"{rec['put_s']:.1f} s, repartition to row:{MESH_RANKS} "
+            f"{rec['repartition_s']:.1f} s (col:{MESH_RANKS} "
+            f"{rec['repartition_col_s']:.1f} s); G5 put "
+            f"{rec['put_g5_s']:.1f} s and repartition "
+            f"{rec['repartition_g5_s']:.1f} s on a second thread; encodes "
+            f"{rec['encodes']} and {rec['encodes_g5']}; "
+            f"shard stream {rec['shard_stream_bytes'] / 1e6:.1f} MB, peak "
+            f"allocated {rec['peak_bytes'] / 1e9:.3f} GB; flush of "
+            f"{SERVE_REQUESTS} requests {rec['flush_s']:.3f} s "
+            f"({SERVE_REQUESTS / rec['flush_s']:.1f} req/s, host clock); "
+            f"PageRank {it['pagerank']} iterations, "
+            f"{1e3 * rec['pagerank_s'] / it['pagerank']:.3f} ms each; CG "
+            f"{it['cg']} iterations, {1e3 * rec['cg_s'] / it['cg']:.3f} ms "
+            f"each (host clock); requests vs fp64 {rec['vs_fp64']:.3e}, vs "
+            f"one-process {rec['vs_one']:.3e}, col vs fp64 "
+            f"{rec['col_vs_fp64']:.3e}; PageRank vs one-process "
+            f"{rec['pagerank_vs_one']:.3e}, CG {rec['cg_vs_one']:.3e} "
+            f"(iterations equal); equal to rank 0's bit for bit; without "
+            f"the combine: {rec['control']} (fails, as it must); launches "
+            f"{rec['launches']}  [{card}]")
+    say(f"[phase16] rank 0's PageRank vs fp64 "
+        f"{host['pagerank_vs_fp64']:.3e}, CG true residual "
+        f"{host['cg_true_residual']:.3e}; service stats "
+        f"{ranks[0]['svc_stats']}; the world of {MESH_RANKS} ranks took "
+        f"{world_s:.1f} s; every rank reaped and the directory removed  "
+        f"[{card}]")
+    return launches
 
 
 def main() -> int:
@@ -5107,8 +5515,9 @@ def main() -> int:
 
     # -- phase 4: the solvers (the second slice's main path) --------------
     t4 = time.perf_counter()
-    launches["solvers"], errs["spmv_fused"], ftimes, fbounds = \
-        phase_solvers(reg, svc, rows, cols, vals, shape, dev, t_run, card)
+    launches["solvers"], errs["spmv_fused"], ftimes, fbounds, \
+        (gv, g5) = phase_solvers(reg, svc, rows, cols, vals, shape, dev,
+                                 t_run, card)
     # The fused kernel's record row is the G7 PageRank step, the slice's
     # served path at full size.
     times["spmv_fused"] = ftimes["pagerank"]
@@ -5275,7 +5684,18 @@ def main() -> int:
     t15 = time.perf_counter()
     launches["mesh"] = phase_mesh(rows, cols, vals, shape, dev, card,
                                   times["spmv"]["ms"])
-    say(f"[phase15] ok in {time.perf_counter() - t15:.1f} s; whole run "
+    say(f"[phase15] ok in {time.perf_counter() - t15:.1f} s; run so far "
+        f"{time.perf_counter() - t_run:.1f} s  [{card}]")
+
+    # -- phase 16: serving requests and solves over the DeviceMesh (the
+    # twenty-seventh slice): the registry, the service and the solvers
+    # over phase 15's operator, in a fresh world of two ranks.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    launches["mesh_serve"] = phase_mesh_serve(rows, cols, gv, shape, g5,
+                                              dev, card)
+    say(f"[phase16] ok in {time.perf_counter() - t16:.1f} s; whole run "
         f"{time.perf_counter() - t_run:.1f} s  [{card}]")
     total = {name: sum(v[name] for v in launches.values())
              for name in KERNELS}

@@ -11,15 +11,23 @@ single-shard one), encoded exactly once into a
 :class:`~repro_torch.core.partition.ChannelShardPlan`, and kept resident until a
 byte-budget LRU evicts them.  ``get`` hands back a ready-to-run
 :class:`~repro_torch.core.spmv.SerpensOperator` bound to the registry's
-device (CUDA unless the caller asks for the CPU), cached per entry.
+device (CUDA unless the caller asks for the CPU); pass a mesh to get the
+same plan bound to a ``DeviceMesh`` axis (one shard a rank, the
+reference's ``shard_map`` execution), with the mesh binding — and any
+on-demand repartition to match the axis size — cached per entry.
 
 ``put(spec="auto")`` hands the plan to a shared
 :class:`~repro_torch.core.autotune.PlanTuner` that ranks candidates by the
 matrix's structural features and learns from dispatch observations
 (``record_observation``/``retune``).  ``put(verify=...)`` gates each
 encode through the encoder-independent stream verifier
-(:mod:`repro_torch.analysis.verify`) before the plan binds.  There are no
-mesh bindings.
+(:mod:`repro_torch.analysis.verify`) before the plan binds.
+
+Over a mesh every rank runs the same program: each rank keeps its own
+registry, puts the same triples and makes the same ``get`` calls, and
+because the encode is deterministic and a binding is charged the whole
+plan's bytes (``SerpensOperator.device_bytes``), every rank caches,
+repartitions and sheds the same plans and bindings at the same call.
 
 This mirrors the deployment model of HBM SpMV accelerators (Serpens,
 Parravicini et al.'s Top-K SpMV): the sparse matrix is *resident* on the
@@ -43,7 +51,7 @@ from repro_torch.core import parallel_encode as penc
 from repro_torch.core import partition as cpart
 from repro_torch.core.autotune import PlanTuner
 from repro_torch.core.features import features_of
-from repro_torch.core.spmv import SerpensOperator
+from repro_torch.core.spmv import SerpensOperator, _axis_size
 from repro_torch.kernels import ops as kops
 
 log = logging.getLogger("repro_torch.registry")
@@ -147,7 +155,7 @@ class _Entry:
     primary: cpart.PlanSpec         # geometry the entry was put with
     backend: str                    # backend chosen at put time
     plans: dict                     # PlanSpec -> ChannelShardPlan
-    ops: dict                       # PlanSpec -> operator on the device
+    ops: dict                       # (PlanSpec, mesh, axis) -> operator
     # Prepared COO (validated triples + global (segment, lane) sort) kept so
     # a repartition to a new geometry reuses the bucketing instead of
     # decoding the stream and re-sorting from scratch.  None for entries
@@ -179,13 +187,14 @@ class _Entry:
     def device_bytes(self) -> int:
         """Device buffer bytes held by this entry's cached operator
         bindings (every plan an operator was built for keeps its streams
-        resident on device)."""
+        resident on device; a mesh binding counts every shard, which the
+        axis's ranks hold between them)."""
         return sum(op.device_bytes for op in self.ops.values())
 
     @property
     def total_bytes(self) -> int:
         """What the byte budget charges: encoded streams + prepared COO
-        + device buffers of cached operator bindings."""
+        + device buffers of cached mesh/operator bindings."""
         return self.stream_bytes + self.prepared_bytes + self.device_bytes
 
     @property
@@ -518,7 +527,8 @@ class MatrixRegistry:
                 self._bytes -= entry.total_bytes
             self.stats.misses += 1
             self._insert(key, _Entry(content=ck, primary=spec, backend=be,
-                                     plans={spec: plan}, ops={spec: op},
+                                     plans={spec: plan},
+                                     ops={(spec, None, None): op},
                                      prepared=prep, encode_seconds=dt,
                                      encode_slots=slots,
                                      queue_seconds=queue_wait,
@@ -796,7 +806,7 @@ class MatrixRegistry:
                 self._insert(key, _Entry(
                     content=ck, primary=spec, backend=op.backend,
                     plans={spec: op.plan},
-                    ops={spec: op}))
+                    ops={(spec, op.mesh, op.axis): op}))
         return key
 
     def update(self, matrix_id: str, delta_rows, delta_cols,
@@ -816,8 +826,8 @@ class MatrixRegistry:
         The entry is *versioned in place*: its ``matrix_id`` is unchanged
         but its content hash advances along a chain
         (``delta_key(parent, delta)``), its ``version`` counter bumps, and
-        all cached bindings are invalidated so the next ``get``
-        serves operators over the new streams.  Operators handed out
+        all cached bindings (mesh bindings too) are invalidated so the
+        next ``get`` serves operators over the new streams.  Operators handed out
         before the update keep the old (immutable) plan — in-flight work
         is never retroactively changed.
 
@@ -1000,10 +1010,26 @@ class MatrixRegistry:
         tuner.record_retune(decision.bucket)
         return True
 
-    def get(self, matrix_id: str, *, block: bool = True,
+    def get(self, matrix_id: str, *, mesh=None, axis: str | None = None,
+            partition: str | None = None, block: bool = True,
             timeout: float | None = None) -> SerpensOperator:
         """Fetch a ready operator on the registry's device (refreshes LRU
         recency); a binding shed under byte pressure is rebuilt here.
+
+        Without a mesh, returns the operator for the geometry the entry was
+        put with.  With ``mesh``/``axis`` (a ``DeviceMesh`` over this
+        registry's device type and one of its dimension names; every rank
+        of the mesh makes the same call), returns the plan bound to that
+        mesh axis: if the cached geometry does not match ``(partition,
+        mesh axis size)``, the entry is repartitioned once — outside the
+        lock, like ``put``'s encode — and the new plan cached alongside.
+        ``partition`` defaults to the entry's own, or ``"row"`` for a
+        single-shard entry.  Any cached 1-shard plan satisfies a 1-device
+        axis regardless of partition label (the streams are identical
+        work).  Bindings are keyed by ``(spec, mesh, axis)``; a
+        ``DeviceMesh`` hashes and compares by its device layout and
+        dimension names, so two meshes made alike over the same world
+        (two ``make_host_mesh`` calls) share one binding.
 
         If the id names a still-encoding background put, ``get`` waits for
         it (``timeout`` seconds at most — ``TimeoutError`` after; with
@@ -1035,15 +1061,84 @@ class MatrixRegistry:
             self.stats.hits += 1
             self._entries.move_to_end(matrix_id)
             entry = self._entries[matrix_id]
-            spec = entry.primary
-            op = entry.ops.get(spec)
-            if op is not None:
-                return op
-            plan = entry.plans[spec]
             backend = entry.backend
             content = entry.content
-        # Device transfer outside the lock, like every slow path.
-        return self._make_binding(matrix_id, content, plan, spec, backend)
+            if mesh is None:
+                if partition is not None:
+                    raise ValueError(
+                        "partition requires a mesh; without one, get() "
+                        "returns the geometry the entry was put with")
+                spec = entry.primary
+                plan = entry.plans[spec]
+            else:
+                if axis is None:
+                    raise ValueError("mesh requires axis")
+                if mesh.device_type != self.device.type:
+                    raise ValueError(
+                        f"mesh is over {mesh.device_type!r} devices; this "
+                        f"registry binds on {self.device}")
+                part = partition or (
+                    entry.primary.partition
+                    if entry.primary.partition != "single" else "row")
+                spec = cpart.PlanSpec(part, _axis_size(mesh, axis),
+                                      entry.primary.lane_assign)
+                plan = self._find_plan(entry, spec)
+            if plan is not None:
+                op = entry.ops.get((spec, mesh, axis))
+                if op is not None:
+                    return op
+            else:
+                src = entry.plans[entry.primary]
+                prep = entry.prepared
+        if plan is not None:
+            # Device transfer outside the lock, like every slow path.
+            return self._make_binding(matrix_id, content, plan, spec,
+                                      mesh, axis, backend)
+        # Repartition outside the lock — the slow host-side encode must not
+        # stall concurrent submit/get/put on the serving tier.  Entries put
+        # as triples reuse their prepared bucketing (no decode, no re-sort);
+        # adopted operators fall back to decoding the cached stream.  Big
+        # matrices fan the re-encode out over the worker pool.
+        t0 = time.perf_counter()
+        nw = (self.n_workers if (prep is not None and
+                                 prep.nnz >= self.min_parallel_nnz) else 1)
+        with obs.span("repartition", cat="registry", matrix=matrix_id,
+                      partition=spec.partition, shards=spec.num_shards,
+                      workers=nw):
+            if prep is not None:
+                plan = cpart.plan_from_prepared(
+                    prep, spec, n_workers=nw,
+                    pool=self._encode_pool() if nw > 1 else None)
+            else:
+                r, c, v = src.to_coo()
+                plan = cpart.make_plan(r, c, v, src.shape, src.config,
+                                       spec)
+        dt = time.perf_counter() - t0
+        slots = int(plan.idx.size)
+        with self._lock:
+            self.stats.encode_seconds += dt
+            self.stats.encodes += 1
+            self.stats.encode_slots += slots
+            entry = self._entries.get(matrix_id)
+            if entry is None or entry.content != content:
+                # Entry evicted/replaced mid-encode: serve uncached.
+                return SerpensOperator(plan, device=self.device, mesh=mesh,
+                                       axis=axis,
+                                       backend=self.default_backend)
+            entry.encode_seconds += dt
+            entry.encode_slots += slots
+            cached = self._find_plan(entry, spec)
+            if cached is not None:
+                plan = cached              # raced with another thread
+                op = entry.ops.get((spec, mesh, axis))
+                if op is not None:
+                    return op
+            else:
+                entry.plans[spec] = plan
+                self._bytes += plan.stream_bytes
+                self._evict_over_budget(keep=matrix_id)
+        return self._make_binding(matrix_id, content, plan, spec, mesh,
+                                  axis, backend)
 
     def evict(self, matrix_id: str) -> None:
         obs.instant("evict", cat="registry", matrix=matrix_id)
@@ -1069,31 +1164,44 @@ class MatrixRegistry:
             self._bytes = 0
 
     # -- internals --------------------------------------------------------
-    def _make_binding(self, key: str, content: str, plan, spec,
-                      backend: str) -> SerpensOperator:
+    @staticmethod
+    def _find_plan(entry: _Entry, spec: cpart.PlanSpec):
+        """A cached plan satisfying ``spec`` (1-shard plans interchange)."""
+        plan = entry.plans.get(spec)
+        if plan is None and spec.num_shards == 1:
+            plan = next((p for p in entry.plans.values()
+                         if p.num_shards == 1), None)
+        return plan
+
+    def _make_binding(self, key: str, content: str, plan, spec, mesh,
+                      axis, backend: str) -> SerpensOperator:
         """Build + cache an operator binding (call WITHOUT the lock).
 
         The ``SerpensOperator`` construction moves the plan's streams to
-        the device — slow work that must not stall concurrent
-        submit/get/put on the registry lock.  The publish step re-checks
-        the entry: first racer's binding wins, and an entry evicted or
-        updated mid-transfer gets an uncached (but working) operator.
+        the device (under a mesh, this rank's shard) — slow work that must
+        not stall concurrent submit/get/put on the registry lock.  The
+        publish step re-checks the entry: first racer's binding wins, and
+        an entry evicted or updated mid-transfer gets an uncached (but
+        working) operator.
 
-        Bindings live until byte pressure or an update sheds them.  Their
-        device bytes are charged to the byte budget
-        (``device_bytes_in_use``), and bindings are the first thing
-        ``_evict_over_budget`` drops.
+        Bindings live until byte pressure or an update sheds them: one
+        operator per distinct (spec, mesh, axis).  Their device bytes —
+        the whole plan's, under a mesh too, so every rank charges the
+        same — are charged to the byte budget (``device_bytes_in_use``),
+        and bindings are the first thing ``_evict_over_budget`` drops.
         """
-        with obs.span("bind", cat="registry", matrix=key):
-            op = SerpensOperator(plan, backend=backend, device=self.device)
+        with obs.span("bind", cat="registry", matrix=key,
+                      meshed=mesh is not None):
+            op = SerpensOperator(plan, backend=backend, device=self.device,
+                                 mesh=mesh, axis=axis)
         with self._lock:
             entry = self._entries.get(key)
             if entry is None or entry.content != content:
                 return op      # evicted/updated mid-transfer: uncached
-            cached = entry.ops.get(spec)
+            cached = entry.ops.get((spec, mesh, axis))
             if cached is not None:
                 return cached
-            entry.ops[spec] = op
+            entry.ops[(spec, mesh, axis)] = op
             self._bytes += op.device_bytes
             self._evict_over_budget(keep=key)
         return op
@@ -1108,7 +1216,7 @@ class MatrixRegistry:
         """Shed bytes until within budget, never evicting ``keep``.
 
         Three-stage pressure, cheapest-to-rebuild first: (1) drop cached
-        operator bindings LRU-first (releases their device buffers;
+        operator/mesh bindings LRU-first (releases their device buffers;
         the next ``get`` re-binds from the host plan), (2) drop
         PreparedCOO arrays LRU-first (the entry keeps serving;
         repartition and update degrade to the decode-path re-encode),

@@ -65,6 +65,7 @@ from collections import OrderedDict, deque
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch import solvers
@@ -257,6 +258,12 @@ class SpMVPipeline:
     becomes a drain barrier returning ``{}`` (results arrive through
     per-owner queues via ``result()``).
 
+    With ``mesh``/``axis`` (and ``partition``, the registry's default
+    without it) every batch and solve runs the matrix's plan over that
+    ``DeviceMesh`` axis, one shard a rank.  Every rank of the mesh runs
+    its own service and makes the same calls; such a service serves
+    synchronously (``start`` is refused).
+
     Usage::
 
         reg = MatrixRegistry(device="cuda")
@@ -270,7 +277,8 @@ class SpMVPipeline:
     """
 
     def __init__(self, registry: MatrixRegistry, max_bucket: int = 16,
-                 backend: str | None = None,
+                 backend: str | None = None, mesh=None,
+                 axis: str | None = None, partition: str | None = None,
                  max_stored_results: int = 4096,
                  metrics: MetricsRegistry | None = None,
                  retune_every: int = 16,
@@ -278,6 +286,10 @@ class SpMVPipeline:
                  inflight_depth: int = 1, *, device=None):
         if max_bucket < 1 or max_bucket & (max_bucket - 1):
             raise ValueError("max_bucket must be a power of two >= 1")
+        if mesh is not None and axis is None:
+            raise ValueError("mesh requires axis")
+        if mesh is None and partition is not None:
+            raise ValueError("partition requires mesh")
         if max_stored_results < 1:
             raise ValueError("max_stored_results must be >= 1")
         if retune_every < 0:
@@ -295,6 +307,9 @@ class SpMVPipeline:
         if not _same_device(self.device, registry.device):
             raise ValueError(f"service on {self.device}, but the registry "
                              f"binds on {registry.device}")
+        if mesh is not None and mesh.device_type != registry.device.type:
+            raise ValueError(f"mesh is over {mesh.device_type!r} devices, "
+                             f"but the registry binds on {registry.device}")
         self.registry = registry
         self.max_bucket = max_bucket
         self.admission = admission
@@ -310,6 +325,15 @@ class SpMVPipeline:
         # swaps the plan if the ranking flipped (0 disables the cadence).
         self.retune_every = int(retune_every)
         self._tune_obs: dict[str, int] = {}
+        # With a mesh, every dispatched batch and solve runs the
+        # channel-shard plan one shard a rank over `axis` (the registry
+        # caches the mesh binding).  Every rank runs the same service
+        # (SPMD): what a rank dispatches must follow from its submits
+        # alone, never from its clock or its threads' timing, or the
+        # ranks' collectives would not match.
+        self.mesh = mesh
+        self.axis = axis
+        self.partition = partition
         # The serving stats live in a MetricsRegistry (private per service
         # by default, so two services never alias counters; pass
         # metrics=obs.REGISTRY to scrape several on one page).  The
@@ -407,7 +431,19 @@ class SpMVPipeline:
         return self._running
 
     def start(self) -> "SpMVPipeline":
-        """Spawn the dispatcher + collector threads (idempotent)."""
+        """Spawn the dispatcher + collector threads (idempotent).
+
+        Refused under a mesh: each rank's dispatcher would coalesce what
+        its own queue holds at that moment, so two ranks could launch
+        batches of different widths and their collectives would not
+        match.  A mesh-bound service serves in synchronous mode, where
+        ``flush`` forms the batches from the submit sequence alone.
+        """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a mesh-bound service serves synchronously (flush); a "
+                "pipelined dispatch agreed across ranks is ROADMAP "
+                "Queue 1 #8")
         with self._lock:
             if self._running:
                 return self
@@ -487,7 +523,9 @@ class SpMVPipeline:
         are accepted without blocking: the request parks with no operator
         and re-enters the pipeline when the registry reports the encode
         settled (pipelined mode) or at a later ``flush`` (synchronous
-        mode).
+        mode).  Under a mesh the submit waits for the encode instead and
+        binds the operator here, on every rank at the same submit, so no
+        rank's flush depends on when its encode finished.
 
         ``owner`` names the caller for the per-owner admission cap and
         result queue (default: the submitting thread's name).  Depending
@@ -496,8 +534,8 @@ class SpMVPipeline:
         """
         with obs.span("submit", matrix=matrix_id):
             expect = None
-            if self.registry.ready(matrix_id):  # KeyError when unknown
-                op = self.registry.get(matrix_id)   # refreshes LRU
+            if self._bind_now(matrix_id):       # KeyError when unknown
+                op = self._get_op(matrix_id)    # refreshes LRU
                 m_len, k_len = op.shape
             else:
                 op = None                       # resolved at coalesce time
@@ -564,8 +602,8 @@ class SpMVPipeline:
             raise ValueError(f"solver {kind!r} takes no b")
         with obs.span("submit", matrix=matrix_id, kind=f"solve:{kind}"):
             expect = None
-            if self.registry.ready(matrix_id):
-                op = self.registry.get(matrix_id)
+            if self._bind_now(matrix_id):
+                op = self._get_op(matrix_id)
                 m_len, _ = op.shape
             else:
                 op = None
@@ -866,11 +904,23 @@ class SpMVPipeline:
             "tuner_observations": dict(self._tune_obs),
         }
 
+    def _bind_now(self, matrix_id: str) -> bool:
+        """Whether a submit binds its operator now (the matrix serves;
+        always under a mesh, where the submit waits for a pending encode)
+        or parks the request.  KeyError for unknown ids."""
+        return self.registry.ready(matrix_id) or self.mesh is not None
+
+    def _get_op(self, matrix_id: str):
+        """The registry's operator for this service: on its mesh axis when
+        it has one (waiting for a pending encode)."""
+        return self.registry.get(matrix_id, mesh=self.mesh, axis=self.axis,
+                                 partition=self.partition)
+
     # -- coalesce (stage 2) ----------------------------------------------
     def _resolve_op(self, req: SpMVRequest):
         """Bind a deferred request's operator; raises when the matrix was
         replaced/updated/reshaped while its encode was pending."""
-        op = self.registry.get(req.matrix_id)
+        op = self._get_op(req.matrix_id)
         # The request was validated against the *pending* matrix at
         # submit; if the id was re-registered or updated since (content no
         # longer what it pinned), fail this ticket explicitly — never
@@ -1087,6 +1137,9 @@ class SpMVPipeline:
         # and may swap the plan.
         compute_s = max(done - launched.t_compute, 1e-9)
         mid = batch[0].matrix_id
+        if self.mesh is not None \
+                and self.registry.tune_decision(mid) is not None:
+            compute_s = self._agreed_seconds(op, compute_s)
         if self.registry.record_observation(
                 mid, slots_per_s=op.padded_slots / compute_s,
                 requests_per_s=n / compute_s):
@@ -1105,6 +1158,16 @@ class SpMVPipeline:
                 stream_bytes_per_vector=bytes_per_vec,
                 owner=req.owner)
         return results
+
+    def _agreed_seconds(self, op, seconds: float) -> float:
+        """The slowest rank's seconds for this dispatch (an ``all_reduce``
+        of the maximum over the axis's group), so every rank feeds the
+        tuner the same observation and re-tunes at the same dispatch.
+        Every rank calls it: the entry is auto-tuned on all or on none."""
+        t = torch.tensor([seconds], dtype=torch.float64, device=op.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                        group=self.mesh.get_group(self.axis))
+        return float(t)
 
     def _solve_one(self, req: SpMVRequest) -> SpMVResult:
         """Run one solver request end to end (device-blocking: the

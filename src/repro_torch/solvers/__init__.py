@@ -2,7 +2,9 @@
 ``fused="auto"`` (the fused SpMV-plus-epilogue kernel: one pass over A per
 iteration, the loop's condition kept on the card) and clamp tolerances to
 the operator's value-dtype precision floor
-(:mod:`repro_torch.solvers.precision`)."""
+(:mod:`repro_torch.solvers.precision`).  With ``mesh=``/``axis=`` a solver
+rebinds the operator to that ``DeviceMesh`` axis (``with_mesh``) and runs
+every iteration one shard a rank, unfused."""
 from repro_torch.solvers.power_iteration import (PowerResult, pagerank,
                                                  power_iteration)
 from repro_torch.solvers.cg import CGResult, conjugate_gradient

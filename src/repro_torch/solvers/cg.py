@@ -13,8 +13,10 @@ condition lives on the card too (:class:`FusedLoop`): the host enqueues
 :data:`~repro_torch.kernels.ops.FUSED_CHUNK` iterations at a time and
 reads the control word once per chunk, so iteration counts equal the
 reference's and no iteration waits on the host.  Plans that cannot fuse
-(multi-shard, aux-spill, balanced lanes) run the classic two-phase body,
-which reads its stopping measure on the host once per iteration.
+(multi-shard, mesh-bound, aux-spill, balanced lanes) run the classic
+two-phase body, which reads its stopping measure on the host once per
+iteration.  Over a mesh that measure comes from a y every rank holds whole
+and bit-equal, so every rank stops at the same iteration.
 """
 from __future__ import annotations
 
@@ -26,8 +28,6 @@ from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.serpens_spmv import FusedLoop, fused_epilogue
 from repro_torch.solvers import precision
-
-_MESH_SLICE = "the multi-GPU slice of the port"
 
 
 @dataclasses.dataclass
@@ -58,20 +58,14 @@ def _cg_epilogue(ap2, sol2, r2, p2, rs11):
     return sol_new, r_new, p_new, rs_new.reshape(1, 1)
 
 
-def _no_mesh(mesh, axis) -> None:
-    if mesh is not None or axis is not None:
-        raise NotImplementedError(
-            f"solving over a mesh waits for {_MESH_SLICE}")
-
-
 def _resolve_fused(op, fused):
     if fused == "auto":
         return bool(getattr(op, "supports_fused_epilogue", False))
     if fused and not op.supports_fused_epilogue:
         raise ValueError(
             "fused=True but the operator cannot fuse (multi-shard, "
-            "aux-spill, or balanced-lane plan); use fused='auto' to fall "
-            "back automatically")
+            "mesh-bound, aux-spill, or balanced-lane plan); use "
+            "fused='auto' to fall back automatically")
     return bool(fused)
 
 
@@ -89,9 +83,11 @@ def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
     residuals below ~2^-6 of ‖b‖; the clamp warns and the result records
     ``tol_effective``.  The solve makes one pass over A for r₀ and one per
     iteration (``stream_dispatches`` of the solver span counts the
-    latter).
+    latter).  With ``mesh``/``axis`` the whole solve runs over the
+    channel-shard plan, one shard a rank (which disables fusion); every
+    rank of the mesh makes the call.
     """
-    _no_mesh(mesh, axis)
+    op = op.with_mesh(mesh, axis)
     m, k = op.shape
     if m != k:
         raise ValueError(f"CG needs a square (SPD) matrix, got {op.shape}")

@@ -11,9 +11,9 @@ teleport/dangling-mass redistribution and L1 delta (pagerank) or the
 Rayleigh quotient, residual, and normalize (power iteration) — runs as
 the fused epilogue of the SpMV kernel, one pass over A per iteration, with
 the state vector updated in place; see
-:meth:`SerpensOperator.matvec_fused`.  Plans that cannot fuse run the
-two-phase body, which reads its stopping measure on the host once per
-iteration.
+:meth:`SerpensOperator.matvec_fused`.  Plans that cannot fuse (a
+mesh-bound operator among them) run the two-phase body, which reads its
+stopping measure on the host once per iteration.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.kernels.serpens_spmv import FusedLoop, fused_epilogue
 from repro_torch.solvers import precision
-from repro_torch.solvers.cg import _no_mesh, _resolve_fused
+from repro_torch.solvers.cg import _resolve_fused
 
 
 @dataclasses.dataclass
@@ -75,9 +75,10 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-9,
     be all-zero — their mass is redistributed uniformly each step, keeping
     r a probability vector).  ``tol`` is clamped to the operator's
     value-dtype precision floor (bf16 streams; see
-    :mod:`repro_torch.solvers.precision`).
+    :mod:`repro_torch.solvers.precision`).  With ``mesh``/``axis`` the
+    solve runs over the mesh axis (unfused; every rank makes the call).
     """
-    _no_mesh(mesh, axis)
+    op = op.with_mesh(mesh, axis)
     n = _square(op)
     use_fused = _resolve_fused(op, fused)
     tol_eff, _ = precision.effective_tol(
@@ -159,9 +160,10 @@ def power_iteration(op, tol: float = 1e-6, max_iters: int = 200,
 
     Converges for matrices with a simple dominant eigenvalue; the residual
     is ``‖A·v − λ·v‖₂`` with v unit-norm.  ``tol`` is clamped to the
-    operator's value-dtype precision floor (bf16 streams).
+    operator's value-dtype precision floor (bf16 streams).  With
+    ``mesh``/``axis`` the solve runs over the mesh axis (unfused).
     """
-    _no_mesh(mesh, axis)
+    op = op.with_mesh(mesh, axis)
     n = _square(op)
     use_fused = _resolve_fused(op, fused)
     tol_eff, _ = precision.effective_tol(

@@ -320,8 +320,8 @@ def test_solvers_reject_rectangular_and_bad_b():
     _, sq = both_ops(r, c, v, shape, cfg())
     with pytest.raises(ValueError, match="expected"):
         solvers.conjugate_gradient(sq, np.zeros(shape[0] + 1, np.float32))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        solvers.pagerank(sq, mesh=object(), axis="x")
+    with pytest.raises(ValueError, match="mesh requires axis"):
+        solvers.pagerank(sq, mesh=object())
     with pytest.raises(ValueError, match="unknown solver"):
         solvers.solve(sq, "gauss")
 

@@ -153,9 +153,11 @@ def test_default_device_is_cuda(monkeypatch):
 
 def test_later_slices_raise_not_implemented():
     """The operator's mesh path is ported (tests/test_torch_mesh_spmv.py
-    runs it in gloo worlds against the reference's shard_map); solving
-    over a mesh still waits for a later slice, and a mesh without an
-    axis, or an axis without a mesh, is refused before anything runs."""
+    runs it in gloo worlds against the reference's shard_map, and
+    tests/test_torch_mesh_serve.py the registry, service and solvers over
+    it); a mesh without an axis is refused before anything runs, by the
+    operator and by a solver, and an axis without a mesh by the
+    operator."""
     from repro_torch import solvers
 
     _, top = both_ops("small", ("single", 1, "modulo"))
@@ -169,7 +171,7 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(ValueError, match="partition must be 'row' or 'col'"):
         tspmv.ShardedSerpensSpMV(None, None, None, (M, K), object(), "x",
                                  "diag")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        solvers.pagerank(top, mesh=object(), axis="x")
+    with pytest.raises(ValueError, match="mesh requires axis"):
+        solvers.pagerank(top, mesh=object())
     # The cost report is ported (tests/test_torch_profile.py).
     assert top.cost_report()["stream_bytes"] == top.stream_bytes
